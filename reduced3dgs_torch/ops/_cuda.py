@@ -1,0 +1,121 @@
+"""Build and bind the hand-written CUDA kernels (nvcc + ctypes).
+
+Each ``csrc/<name>.cu`` compiles on first use into one shared library with
+a plain C interface under ``reduced3dgs_torch/_build/``; the file name
+carries a hash of the source and flags, so an edited source rebuilds and
+a stale library is never loaded.  Nothing here runs at import time: this
+module imports on machines without nvcc or a card (the CPU tests), and a
+kernel is only built when a wrapper is first handed a CUDA tensor.
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; ``Kernel.__call__`` raises on a non-zero value,
+and counts a launch only after it succeeded.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+SOURCES = ("expand", "tile_fwd")
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
+            return os.path.join(cand, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on "
+                           "a machine with the CUDA toolkit")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+
+
+def build(names=SOURCES) -> None:
+    """Compile the named sources that are not built yet, one nvcc process
+    per source, all started together."""
+    todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for name in todo:
+        out = library_path(name)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu:\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent build is harmless
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+
+
+@functools.cache
+def _library(name: str) -> ctypes.CDLL:
+    build((name,))
+    lib = ctypes.CDLL(str(library_path(name)))
+    lib.r3dgs_error_string.restype = ctypes.c_char_p
+    lib.r3dgs_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+class Kernel:
+    """One C entry point of one source, with its launch count.
+
+    ``launches`` counts successful launches only; callers that want to
+    show a run went through the kernel reset it to 0 before the run.
+    """
+
+    def __init__(self, source: str, symbol: str, argtypes):
+        self.source = source
+        self.symbol = symbol
+        self.argtypes = list(argtypes)
+        self.launches = 0
+        self._bound = None
+
+    def __call__(self, *args) -> None:
+        if self._bound is None:  # build + bind on the first launch
+            fn = getattr(_library(self.source), self.symbol)
+            fn.restype = ctypes.c_int
+            fn.argtypes = self.argtypes
+            self._bound = fn
+        err = self._bound(*args)
+        if err != 0:
+            msg = _library(self.source).r3dgs_error_string(err).decode()
+            raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
+        self.launches += 1
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_of(t) -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)

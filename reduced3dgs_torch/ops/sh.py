@@ -1,0 +1,88 @@
+"""Spherical-harmonics evaluation (PyTorch).
+
+Counterpart of reduced3dgs_tpu/ops/sh.py: real SH bands 0..3 with the 3D
+Gaussian Splatting constants, all 16 coefficients evaluated densely and
+masked by the per-primitive degree.
+"""
+
+from __future__ import annotations
+
+import torch
+
+SH_C0 = 0.28209479177387814
+SH_C1 = 0.4886025119029199
+SH_C2 = (
+    1.0925484305920792,
+    -1.0925484305920792,
+    0.31539156525252005,
+    -1.0925484305920792,
+    0.5462742152960396,
+)
+SH_C3 = (
+    -0.5900435899266435,
+    2.890611442640554,
+    -0.4570457994644658,
+    0.3731763325901154,
+    -0.4570457994644658,
+    1.445305721320277,
+    -0.5900435899266435,
+)
+
+_COEFF_BAND = (0, 1, 1, 1, 2, 2, 2, 2, 2, 3, 3, 3, 3, 3, 3, 3)
+
+
+def rgb_to_sh(rgb):
+    """RGB in [0,1] -> DC SH coefficient."""
+    return (rgb - 0.5) / SH_C0
+
+
+def sh_basis(dirs):
+    """(..., 3) unit directions -> (..., 16) basis values."""
+    x, y, z = dirs[..., 0], dirs[..., 1], dirs[..., 2]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, yz, xz = x * y, y * z, x * z
+    one = torch.ones_like(x)
+    return torch.stack(
+        [
+            SH_C0 * one,
+            -SH_C1 * y,
+            SH_C1 * z,
+            -SH_C1 * x,
+            SH_C2[0] * xy,
+            SH_C2[1] * yz,
+            SH_C2[2] * (2.0 * zz - xx - yy),
+            SH_C2[3] * xz,
+            SH_C2[4] * (xx - yy),
+            SH_C3[0] * y * (3.0 * xx - yy),
+            SH_C3[1] * xy * z,
+            SH_C3[2] * y * (4.0 * zz - xx - yy),
+            SH_C3[3] * z * (2.0 * zz - 3.0 * xx - 3.0 * yy),
+            SH_C3[4] * x * (4.0 * zz - xx - yy),
+            SH_C3[5] * z * (xx - yy),
+            SH_C3[6] * x * (xx - 3.0 * yy),
+        ],
+        dim=-1,
+    )
+
+
+def degree_mask(degrees, num_coeffs=16):
+    """(P,) int degrees -> (P, num_coeffs) float mask of the coefficients
+    whose band <= degree."""
+    band = torch.tensor(_COEFF_BAND[:num_coeffs], dtype=degrees.dtype,
+                        device=degrees.device)
+    return (band[None, :] <= degrees[:, None]).to(torch.float32)
+
+
+def eval_sh_color(sh, dirs, degrees):
+    """(P, C, 3) SH, (P, 3) unit view dirs, (P,) degrees -> (P, 3) colour
+    before the 0.5 shift."""
+    c = sh.shape[-2]
+    basis = sh_basis(dirs)[..., :c]  # (P, C)
+    masked = basis * degree_mask(degrees, c)  # (P, C)
+    return (masked[..., None] * sh).sum(dim=-2)
+
+
+def eval_sh_color_clamped(sh, dirs, degrees):
+    """Full forward colour: + 0.5 shift, clamped to >= 0."""
+    rgb = eval_sh_color(sh, dirs, degrees) + 0.5
+    return torch.clamp(rgb, min=0.0)

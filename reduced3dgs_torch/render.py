@@ -1,0 +1,205 @@
+"""Rendering / FPS CLI of the port — counterpart of the root render.py.
+
+    python -m reduced3dgs_torch.render -m <model_dir> \\
+        [--models baseline quantised_half quantised_pack] [--device cpu]
+
+Loads a trained model directory (self-describing via cfg_args), renders
+the train/test splits of each requested variant into
+``<split>/<variant>/ours_<iter>/{renders,gt}/NNNNN.png``, and measures
+FPS per view with CUDA events after one warm-up pass (on the CPU with the
+host clock), writing ``fps_results.json``:
+
+  baseline        point_cloud.ply
+  quantised       point_cloud_quantised.ply
+  quantised_half  point_cloud_quantised_half.ply
+  quantised_pack  point_cloud_quantised_pack.ply (u16c xyz codec)
+
+The instance budget climbs the {2^k, 3*2^(k-1)} ladder until the views'
+true instance counts fit.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from argparse import ArgumentParser
+
+import numpy as np
+import torch
+
+MODELS_CONFIG = {
+    "baseline": {"quantised": False, "half_float": False},
+    "quantised": {"quantised": True, "half_float": False},
+    "quantised_half": {"quantised": True, "half_float": True},
+    "quantised_pack": {"quantised": False, "half_float": False,
+                       "pack_xyz": True},
+}
+FPS_START_BUDGET = 1 << 15
+VIEW_START_BUDGET = 1 << 19
+
+
+def next_budget(budget: int, needed: int) -> int:
+    """Climb the {2^k, 3*2^(k-1)} ladder until budget >= needed."""
+    while budget < needed:
+        budget = (budget // 2 * 3 if budget & (budget - 1) == 0
+                  else budget // 3 * 4)
+    return budget
+
+
+class PoolView:
+    """A pool's render inputs, gathered once (features concatenated)."""
+
+    def __init__(self, pool):
+        self.xyz = pool.params.xyz
+        self.features = pool.features()
+        self.scaling = pool.params.scaling
+        self.rotation = pool.params.rotation
+        self.opacity = pool.params.opacity[:, 0].contiguous()
+        self.degrees = pool.degrees
+        self.alive = pool.alive
+        self.device = pool.device
+
+
+def render_once(pv: PoolView, cp, background, budget: int,
+                backend: str = "tile", marks=None):
+    """Render one view given its CameraParams on the pool's device
+    (marks: see renderer.render)."""
+    from reduced3dgs_torch.renderer import render
+
+    return render(
+        pv.xyz, pv.features, pv.scaling, pv.rotation, pv.opacity,
+        pv.degrees, cp, background, width=cp.width, height=cp.height,
+        instance_budget=budget, alive_mask=pv.alive, backend=backend,
+        marks=marks)
+
+
+def render_view(pv: PoolView, cam, background, budget: int = VIEW_START_BUDGET,
+                backend: str = "tile"):
+    """Render one view, redoing it up the budget ladder until the true
+    instance count fits.  Returns (RenderOut, budget used)."""
+    cp = cam.params(pv.device)
+    while True:
+        out = render_once(pv, cp, background, budget, backend)
+        needed = int(out.num_rendered)
+        if needed <= budget:
+            return out, budget
+        budget = next_budget(budget, needed)
+
+
+def render_set(pv: PoolView, cams, background, out_dir: str,
+               backend: str = "tile"):
+    """Write renders/NNNNN.png (and gt/ where the camera has an image)."""
+    from PIL import Image
+
+    os.makedirs(os.path.join(out_dir, "renders"), exist_ok=True)
+    os.makedirs(os.path.join(out_dir, "gt"), exist_ok=True)
+    budget = VIEW_START_BUDGET
+    for idx, cam in enumerate(cams):
+        out, budget = render_view(pv, cam, background, budget, backend)
+        img = np.clip(out.color.cpu().numpy(), 0, 1)
+        Image.fromarray((img * 255).astype(np.uint8)).save(
+            os.path.join(out_dir, "renders", f"{idx:05d}.png"))
+        if cam.image is not None:
+            Image.fromarray(
+                (np.clip(cam.image, 0, 1) * 255).astype(np.uint8)
+            ).save(os.path.join(out_dir, "gt", f"{idx:05d}.png"))
+
+
+def measure_fps(pv: PoolView, cams, background, backend: str = "tile",
+                budget: int = FPS_START_BUDGET):
+    """One warm-up pass that also settles the budget on the ladder, then
+    one timed pass, each view timed alone (CUDA events on the card, the
+    host clock on the CPU).  Returns a dict with fps, the budget, the
+    per-view milliseconds and the largest instance count."""
+    cps = [c.params(pv.device) for c in cams]
+    while True:  # warm-up; restart whenever a view needs a larger budget
+        needed = max(int(render_once(pv, cp, background, budget,
+                                     backend).num_rendered) for cp in cps)
+        if needed <= budget:
+            break
+        budget = next_budget(budget, needed)
+    ms = []
+    on_card = pv.device.type == "cuda"
+    for cp in cps:
+        if on_card:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            render_once(pv, cp, background, budget, backend)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            render_once(pv, cp, background, budget, backend)
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return {"fps": len(cams) / (sum(ms) / 1e3), "budget": budget,
+            "view_ms": ms, "num_rendered_max": needed}
+
+
+def main(argv=None):
+    from reduced3dgs_torch import config as C
+    from reduced3dgs_torch.device import resolve
+    from reduced3dgs_torch.scene import Scene
+
+    parser = ArgumentParser(description="Testing script parameters")
+    C.add_model_params(parser, fill_none=True)
+    C.add_pipeline_params(parser)
+    parser.add_argument("--iteration", default=-1, type=int)
+    parser.add_argument("--skip_train", action="store_true")
+    parser.add_argument("--skip_test", action="store_true")
+    parser.add_argument("--skip_measure_fps", action="store_true")
+    parser.add_argument("--quiet", action="store_true")
+    parser.add_argument("--variable_sh_bands", action="store_true")
+    parser.add_argument("--models", nargs="+", type=str,
+                        default=["baseline", "quantised_half"])
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default) or cpu (plain PyTorch "
+                             "versions of the kernels)")
+    args = C.get_combined_args(parser, argv)
+    if args.variable_sh_bands:
+        raise NotImplementedError(
+            "--variable_sh_bands (ragged SH inference) is not ported yet")
+    device = resolve(args.device)
+    print(f"Rendering {args.model_path} on {device}")
+
+    dataset = C.extract_model(args)
+    pipe = C.extract_pipeline(args)
+    scene = Scene(dataset, load_iteration=args.iteration, shuffle=False)
+    background = torch.tensor(
+        [1.0, 1.0, 1.0] if dataset.white_background else [0.0, 0.0, 0.0],
+        device=device)
+
+    fps_results = {}
+    for model in args.models:
+        conf = MODELS_CONFIG[model]
+        pv = PoolView(scene.load_model(
+            quantised=conf["quantised"], half_float=conf["half_float"],
+            pack_xyz=conf.get("pack_xyz", False), device=device))
+        sets = []
+        if not args.skip_train:
+            sets.append(("train", scene.get_train_cameras()))
+        if not args.skip_test:
+            sets.append(("test", scene.get_test_cameras()))
+        for split, cams in sets:
+            render_set(pv, cams, background,
+                       os.path.join(args.model_path, split, model,
+                                    f"ours_{scene.loaded_iter}"),
+                       pipe.backend)
+
+        cams = (scene.get_test_cameras() or scene.get_train_cameras())[:50]
+        if cams and not args.skip_measure_fps:
+            w, h = cams[0].width, cams[0].height
+            cams = [c for c in cams if (c.width, c.height) == (w, h)]
+            res = measure_fps(pv, cams, background, pipe.backend)
+            fps_results[model] = res["fps"]
+            print(f"Model {model}: {res['fps']:.1f} FPS over {len(cams)} "
+                  f"views on {device} (budget {res['budget']})")
+
+    with open(os.path.join(args.model_path, "fps_results.json"), "w") as f:
+        json.dump(fps_results, f, indent=2)
+
+
+if __name__ == "__main__":
+    main()

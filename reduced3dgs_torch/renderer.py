@@ -1,0 +1,119 @@
+"""Renderer facade (PyTorch): preprocess -> tile binning -> compositing.
+
+Counterpart of reduced3dgs_tpu/renderer.py for the serving path (no
+autograd yet: it runs under torch.no_grad).  Backends:
+
+  * "tile" — the tile rasterizer (ops/tile_render.py): kernels K1 + K2 on
+             a CUDA tensor, their plain versions on a CPU tensor.
+  * "ref"  — the masked pixel-by-instance oracle (ops/render_ref.py),
+             O(pixels * B); small images and tests only.
+
+The per-frame instance count is data-dependent; callers pass a static
+``instance_budget`` and ``out.num_rendered`` reports the true count (plus
+alignment-slack overflow) so the host can grow the budget and redo the
+frame.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from reduced3dgs_torch.ops import binning as binning_ops
+from reduced3dgs_torch.ops import preprocess as prep_ops
+from reduced3dgs_torch.ops import transforms as tf
+from reduced3dgs_torch.ops.preprocess import CameraParams
+
+BACKENDS = ("tile", "ref")
+STAGES = ("preprocess", "binning", "composite")
+
+
+def _mark(marks):
+    if marks is not None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+
+
+def mark_visible(xyz, cam: CameraParams):
+    """(P,) bool frustum visibility: view-space z > 0.2, the same test the
+    preprocess cull uses."""
+    return tf.transform_points_3x3(xyz, cam.viewmatrix)[:, 2] > 0.2
+
+
+class RenderOut(NamedTuple):
+    color: torch.Tensor  # (H,W,3)
+    final_t: torch.Tensor  # (H,W)
+    radii: torch.Tensor  # (P,) int32
+    visibility: torch.Tensor  # (P,) bool (radii > 0)
+    means2d: torch.Tensor  # (P,2) pixel centers
+    num_rendered: torch.Tensor  # () int32
+    transmittance_sum: torch.Tensor | None = None  # not ported yet
+    pixels_touched: torch.Tensor | None = None  # not ported yet
+
+
+@torch.no_grad()
+def render(
+    xyz,
+    features,  # (P, 16, 3) SH coefficients (dc + rest)
+    scaling_raw,  # (P, 3) log-scales
+    rotation_raw,  # (P, 4) unnormalized quaternions
+    opacity_raw,  # (P,) raw (pre-sigmoid)
+    degrees,  # (P,) int32
+    cam: CameraParams,
+    background,  # (3,)
+    *,
+    width: int,
+    height: int,
+    instance_budget: int,
+    alive_mask=None,
+    scale_modifier: float = 1.0,
+    backend: str = "tile",
+    color_precomp=None,
+    marks: list | None = None,
+) -> RenderOut:
+    """Render one view; every tensor lies on one device (the camera's).
+
+    marks: on a CUDA device, a list that receives a timing event recorded
+    before the first stage and after each of STAGES (stage times).
+    """
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; use one of "
+                         f"{BACKENDS}")
+    _mark(marks)
+    prep = prep_ops.preprocess(
+        xyz, scaling_raw, rotation_raw, opacity_raw, features, degrees, cam,
+        alive_mask=alive_mask, scale_modifier=scale_modifier,
+        color_precomp=color_precomp)
+    _mark(marks)
+    b = binning_ops.bin_gaussians(prep, width, height, instance_budget)
+    _mark(marks)
+    # Overflow report: num_rendered > budget means truncation, and
+    # total_padded > b_pad means the alignment slack pool ran out (the
+    # layout was clamped).  Both fold into one number the regrow loops
+    # understand: grow the budget and redo the frame.
+    b_pad = b.gauss_aligned.shape[0]
+    nr_report = torch.where(
+        b.total_padded > b_pad,
+        torch.clamp(b.num_rendered, min=instance_budget + 1),
+        b.num_rendered)
+
+    if backend == "ref":
+        from reduced3dgs_torch.ops.render_ref import render_ref
+
+        color, final_t = render_ref(prep, b, background, width, height)
+    else:
+        from reduced3dgs_torch.ops.tile_render import tile_render
+
+        color, final_t, _, _ = tile_render(prep, b, background, width,
+                                           height)
+    _mark(marks)
+    return RenderOut(
+        color=color,
+        final_t=final_t,
+        radii=prep.radii,
+        visibility=prep.radii > 0,
+        means2d=prep.means2d,
+        num_rendered=nr_report,
+    )

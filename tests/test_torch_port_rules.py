@@ -1,0 +1,157 @@
+"""Rules of the PyTorch port that no parity test covers.
+
+* The port and chip_smoke.py import neither jax nor reduced3dgs_tpu.
+* Entry points raise without a card unless the CPU was asked for, and a
+  kernel wrapper never falls back to its plain version on a CUDA tensor.
+* chip_smoke.py's phases, rehearsed on the CPU at a tiny size; run without
+  a card, or away from the repository, it exits non-zero with no result.
+"""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "reduced3dgs_tpu")
+
+
+def _port_files():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "reduced3dgs_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def test_port_imports_no_jax():
+    files = _port_files()
+    assert len(files) > 15
+    bad = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+            else:
+                continue
+            bad += [(path, m) for m in mods
+                    if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_no_card_needs_explicit_cpu():
+    from reduced3dgs_torch.cameras import Camera
+    from reduced3dgs_torch.device import resolve
+
+    cam = Camera.look_at(eye=(0, 0, -3), target=(0, 0, 0))
+    assert resolve("cpu") == torch.device("cpu")
+    assert cam.params("cpu").viewmatrix.device.type == "cpu"
+    if torch.cuda.is_available():
+        assert resolve(None).type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            resolve(None)
+        with pytest.raises(RuntimeError):
+            cam.params()
+
+
+def test_kernel_wrappers_never_fall_back():
+    """On a tensor that is not on the CPU the wrappers launch their kernel
+    or raise; here a 'meta' tensor must raise, not run a plain version."""
+    from reduced3dgs_torch.ops import binning, tile_render
+
+    before = (binning.EXPAND.launches, tile_render.TILE_FWD.launches)
+    meta = torch.empty(8, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        binning.expand_marks(meta, meta, meta, 16)
+    feat = torch.empty((16, 128), device="meta")
+    ranges = torch.empty((2, 1), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tile_render.tile_fwd(feat, ranges, meta[:1], 1, 16, 16)
+    assert (binning.EXPAND.launches,
+            tile_render.TILE_FWD.launches) == before
+
+
+def test_chip_smoke_main_path_rehearsal(tmp_path):
+    """The main path of chip_smoke.py on the CPU at a tiny size: model
+    files written and loaded through Scene/ply_io, a ring of views
+    rendered up the budget ladder, FPS measured; the plain versions run,
+    so no kernel launch is counted."""
+    import chip_smoke as cs
+    from reduced3dgs_torch.ops import binning, tile_render
+
+    before = (binning.EXPAND.launches, tile_render.TILE_FWD.launches)
+    res = cs.main_path("cpu", str(tmp_path), 96, 64, 3000, (0.02, 0.08), 0,
+                       n_views=2)
+    for variant in ("baseline", "quantised_half"):
+        r = res[variant]
+        assert r["images"].shape == (2, 64, 96, 3)
+        assert r["fps"] > 0 and len(r["view_ms"]) == 2
+        assert max(r["num_rendered"]) <= min(r["budgets"])
+    assert cs.psnr(res["baseline"]["images"],
+                   res["quantised_half"]["images"]) > 12.0
+    assert (binning.EXPAND.launches,
+            tile_render.TILE_FWD.launches) == before
+
+
+def test_chip_smoke_kernel_inputs_and_cases():
+    import chip_smoke as cs
+    from reduced3dgs_torch.ops import binning, tile_render
+
+    for name, mark_pos, rank1, rect, budget in cs.expand_cases():
+        out = binning.expand_marks_plain(*binning.compact_marks(
+            *(torch.as_tensor(a) for a in (mark_pos, rank1, rect)), budget),
+            budget)
+        assert out.shape == (3, budget)
+        if name == "empty":
+            assert bool((out[0] == -1).all())
+    _, b, k2in = cs.kernel_inputs("cpu", 64, 48, 2000, (0.02, 0.08), 8192)
+    out, pairs = tile_render.tile_fwd_plain(*k2in, 4, 64, 48,
+                                            count_pairs=True)
+    assert cs.k2_ops(pairs) >= cs.K2_OPS_WALKED * pairs["walked"] > 0
+    assert cs.compare_k2(out, out) == (0.0, 1.0)
+    assert cs.bound(3.35e9, 0)[1] == "bytes"
+    books = cs.quantile_codebooks(cs.make_arrays(500, (0.01, 0.02), 1))
+    assert len(books) == 20 and all(
+        c.centers.shape == (256, 1) for c in books.values())
+
+
+def test_chip_smoke_refuses_without_card_or_repo(tmp_path):
+    lone = tmp_path / "lone"
+    lone.mkdir()
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), lone)
+    for cwd in (REPO, str(lone)):
+        r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                           capture_output=True, text=True, timeout=300)
+        assert r.returncode != 0
+        assert '"ok"' not in r.stdout
+
+
+def test_colmap_text_roundtrip(tmp_path):
+    """chip_smoke's COLMAP text writer + the port's reader give back the
+    ring cameras' matrices."""
+    import chip_smoke as cs
+    from reduced3dgs_torch.config import ModelParams
+    from reduced3dgs_torch.data import dataset_readers as readers
+
+    cams = cs.ring_cameras(160, 90, n_views=3)
+    cs.write_colmap_text(str(tmp_path), cams)
+    info = readers.read_colmap_scene(str(tmp_path))
+    assert [c.image_name for c in info.train_cameras] == [
+        c.image_name for c in cams]
+    args = ModelParams(resolution=1)
+    from reduced3dgs_torch.scene import Scene
+
+    for ci, cam in zip(info.train_cameras, cams):
+        back = Scene._make_camera(ci, 1.0, args, lazy=True)
+        assert (back.width, back.height) == (160, 90)
+        np.testing.assert_allclose(back.full_proj_transform,
+                                   cam.full_proj_transform, atol=1e-5)
