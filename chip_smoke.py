@@ -26,7 +26,26 @@ before the final line:
  6. where a frame's time goes (baseline model, the ring, the settled
     budget): stage times by CUDA events through renderer.render's marks,
     then one pass under torch.profiler whose kernel time is set against
-    the CUDA-event span of that same pass (the device's idle share).
+    the CUDA-event span of that same pass (the device's idle share);
+ 7. the training kernels against their plain versions: K3
+    (csrc/tile_bwd.cu) at 512p and at the 1080p main-path shapes with both
+    feature tables (exact zeros on every slot outside the walked ranges),
+    K5 / K6 (csrc/seg_reduce.cu) at the main-path shapes and on the ragged
+    segment layouts of tests/test_tile_render.py (P = 700, 2500), also
+    against a float64 segment sum; times beside the plain versions, the
+    bound and torch.segment_reduce;
+ 8. whole-render gradients on the card: the tile backend (K2 + K3 + K5)
+    against the differentiable "ref" oracle on a small scene, and bf16x2
+    against f32;
+ 9. the training main path at full width: the port renders the bench
+    scene (1920x1080, 2^19 SH-degree-3 primitives) at the ring views as
+    ground truth, and the port's Trainer trains a copy with perturbed
+    colours and opacities from --seed in the default bf16x2 mode (a
+    densify iteration with pool growth and budget regrow included), then
+    a few f32 steps; the loss must be finite and fall, and K1, K2, K3 and
+    K6 (K5 in f32 mode) must run once per render.  It prints the median
+    step time, the fwd+bwd pixels/s bench.py reports, the stage times by
+    CUDA events and the launches and idle share of one profiled step.
 
 The last line is {"ok": true, "device": {...}}.  Without a card, or
 without the rest of the repository beside it, it exits non-zero first.
@@ -74,7 +93,29 @@ K2_OPS_WALKED = 26
 K2_OPS_BLEND = 10
 K2_OPS_STOP = 3
 K1_OPS_PER_STEP = 4  # load, compare, select, shift per search step
-PROFILE_TOP = 12  # kernels listed by phase 6
+# f32 operations of csrc/tile_bwd.cu's inner loop, counted in its SASS
+# (cuobjdump -sass of the built library, nvcc 12.9, sm_90a) as for K2:
+# every walked pair repeats K2's walk exactly (26, K2_OPS_WALKED; 3 more
+# for the pair that stops a pixel).  A blended pair adds 45: T (1 - alpha)
+# and its test 3, w 1, gc 5 (1 FMUL, 2 FFMA), the prefix 2, q - incl 1,
+# the division by 1 - alpha 10 (5 FFMA; its MUFU.RCP is not counted),
+# gc T 1 and the nine per-pixel gradient terms with dpower 22 (12 FMUL,
+# 2 FADD, 4 FFMA).  The sums over a tile's pixels need at least
+# K3_OPS_REDUCE adds per blended pair; the kernel's shuffle tree spends 45
+# SHFL and 45 FADD per warp that blends an instance (K3_OPS_WARP_TREE).
+K3_OPS_BLEND = 45
+K3_OPS_REDUCE = 9
+K3_OPS_WARP_TREE = 45
+PROFILE_TOP = 12  # kernels listed by phases 6 and 9
+SEG_ROW_BYTES = {"f32": 36, "bf16x2": 20}  # gradient payload per instance
+# phase 9: the trainer's schedule on the bench scene.  Three passes over
+# the 8 views; the densify iteration is the last of them (its loss is
+# taken before the surgery), so the loss check compares the first pass
+# with the third, and the steps after it run on the grown pool.
+TRAIN = dict(steps=24, timed_steps=4, f32_steps=4, densify_from=15,
+             densify_interval=24, percent_dense=0.003, grad_threshold=1e-4,
+             dc_noise=0.3, opacity_noise=0.5, initial_budget=1 << 17)
+BENCH_BUDGET = 1 << 22  # bench.py's 1080p instance budget
 
 
 def check(cond, msg):
@@ -243,9 +284,10 @@ def bench_scene(n, scales, seed):
 
 
 def kernel_inputs(device, width, height, n, scales, budget, seed=0,
-                  eye=(0.0, 0.0, -RING_RADIUS)):
+                  eye=(0.0, 0.0, -RING_RADIUS), fast=False):
     """Run preprocess + binning of a bench-style scene on `device` and
-    return (prep, binning, K2's (feat, ranges, limit))."""
+    return (prep, binning, K2's (feat, ranges, limit)); fast: the bf16x2
+    feature table."""
     import torch
 
     from reduced3dgs_torch.cameras import Camera
@@ -260,7 +302,7 @@ def kernel_inputs(device, width, height, n, scales, budget, seed=0,
             arrs[0], arrs[2], arrs[3], arrs[4], arrs[1], arrs[5],
             cam.params(device))
         b = binning.bin_gaussians(prep, width, height, budget)
-        feat, b_pad = tile_render._pack_features(b)
+        feat, b_pad = tile_render._pack_features(b, fast)
     limit = torch.clamp(b.total_padded, max=b_pad).to(torch.int32)
     return prep, b, (feat, b.tile_ranges.contiguous(), limit)
 
@@ -276,6 +318,119 @@ def compare_k2(out, ref):
     rows of every pixel)."""
     d = (out[:, 0:4, :] - ref[:, 0:4, :]).abs()
     return float(d.max()), float((d <= 1e-4).double().mean())
+
+
+def k3_cotangent(packed, seed):
+    """A normal dL/dpacked for K3: colour and T rows, zero padding rows."""
+    import torch
+
+    gen = torch.Generator(packed.device).manual_seed(seed)
+    g = torch.randn(packed.shape, generator=gen, device=packed.device)
+    g[:, 4:] = 0.0
+    return g
+
+
+def compare_k3(out, ref):
+    """(max abs error, largest error relative to its row's max |ref|,
+    share of values within 1e-4 of their row's max)."""
+    scale = ref.abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
+    d = (out - ref).abs()
+    return (float(d.max()), float((d / scale).max()),
+            float((d <= 1e-4 * scale).double().mean()))
+
+
+def walked_slots(ranges, limit, b_pad):
+    """(b_pad,) bool: the slots inside some tile's [start, min(end,
+    limit)), the only ones K3 may write."""
+    import torch
+
+    s = ranges[0].long()
+    e = torch.minimum(ranges[1].long(), limit.long())
+    keep = e > s
+    mark = torch.zeros(b_pad + 1, dtype=torch.int64, device=ranges.device)
+    mark.index_add_(0, s[keep], torch.ones_like(s[keep]))
+    mark.index_add_(0, e[keep], -torch.ones_like(e[keep]))
+    return torch.cumsum(mark, 0)[:b_pad] > 0
+
+
+def ragged_segments(p, seed=3):
+    """The segment layout of tests/test_tile_render.py::
+    test_segment_reduce_multichunk_ragged_bounds (empty-segment clusters,
+    P + 1 not a multiple of any window), with the slots shuffled as the
+    tile layout scatters a primitive's instances.  Returns (BinningOut
+    fields as numpy arrays, (9, B_pad) f32 rows in slot order, the same
+    rows in segment order)."""
+    rng = np.random.default_rng(seed)
+    lens = rng.poisson(9, p).astype(np.int64)
+    lens[:p // 10] = 0
+    lens[rng.integers(0, p, p // 16)] = 0
+    offsets = np.cumsum(lens)
+    nv = int(offsets[-1])
+    b_pad = -(-(nv + 512) // 8192) * 8192
+    seg_bounds = np.concatenate([[0], offsets]).astype(np.int32)
+    key = np.full(b_pad, np.iinfo(np.int32).max, np.int32)
+    key[:nv] = np.repeat(np.arange(p), lens).astype(np.int32)
+    perm = rng.permutation(p).astype(np.int32)
+    inv = np.empty(p, np.int32)
+    inv[perm] = np.arange(p, dtype=np.int32)
+    shuffle = rng.permutation(b_pad)
+    cols = rng.normal(0, 1, (9, b_pad)).astype(np.float32)
+    shuffled = np.ascontiguousarray(cols[:, shuffle])
+    fields = dict(gauss_aligned=key[shuffle],
+                  tile_id=np.zeros(b_pad, np.int32),
+                  tile_ranges=np.zeros((2, 1), np.int32),
+                  num_rendered=np.int32(nv), total_padded=np.int32(nv),
+                  seg_bounds=seg_bounds, prim_order=perm, prim_inv=inv)
+    return fields, shuffled, cols
+
+
+def seg_inputs(binning, dfeat, mode):
+    """K5 / K6 inputs as segment_reduce_by_src builds them: (rows, order,
+    bounds)."""
+    import torch
+
+    from reduced3dgs_torch.ops import tile_render as ttr
+
+    num_p = binning.seg_bounds.shape[0] - 1
+    key = torch.where(binning.pad_mask, num_p, binning.gauss_aligned)
+    order = torch.sort(key, stable=True).indices
+    rows = dfeat
+    if mode == "bf16x2":
+        z = torch.cat([dfeat[:9], torch.zeros_like(dfeat[:1])])
+        rows = ttr.pack_bf16x2(z[0::2], z[1::2])
+    return rows, order, binning.seg_bounds.contiguous()
+
+
+def seg_reference(rows, order, bounds, packed):
+    """float64 segment sums and sums of magnitudes, (9, P) each."""
+    import torch
+
+    from reduced3dgs_torch.ops import tile_render as ttr
+
+    n = int(bounds[-1])
+    vals = rows[:, order[:n]]
+    if packed:
+        hi, lo = ttr.unpack_bf16x2(vals)
+        vals = torch.stack([hi, lo], dim=1).reshape(-1, n)[:9]
+    vals = vals[:9].double()
+    num_p = bounds.shape[0] - 1
+    seg = torch.repeat_interleave(
+        torch.arange(num_p, device=rows.device),
+        (bounds[1:] - bounds[:-1]).long(), output_size=n)
+    out = torch.zeros((9, num_p), dtype=torch.float64, device=rows.device)
+    return (out.clone().index_add_(1, seg, vals),
+            out.index_add_(1, seg, vals.abs()))
+
+
+def check_seg(got, ref, mag, what):
+    """f32 segment sums against the float64 ones: within 2e-5 relative
+    plus 1e-5 of the segment's sum of magnitudes (f32 rounding of a
+    direct sum)."""
+    err = (got.double() - ref).abs()
+    ok = bool((err <= 2e-5 * ref.abs() + 1e-5 * mag + 1e-30).all())
+    check(ok, f"{what}: segment sums off the float64 sums by "
+              f"{float(err.max()):.3e}")
+    return float(err.max())
 
 
 def main_path(device, root, width, height, n, scales, seed, n_views):
@@ -463,6 +618,35 @@ def main(argv=None):
 
     # --- phase 6: where a frame's time goes -----------------------------
     _profile_frames(res["baseline"]["pool"], res["views"], budget, smi)
+    del res
+
+    # --- phase 7: the training kernels against their plain versions ----
+    for fast in (False, True):
+        k3_case(dev, K2_SCENE, K2_SCENE["budget"], args.seed, fast)
+    main_k3 = {fast: k3_case(dev, MAIN, budget, args.seed, fast)
+               for fast in (False, True)}
+    ragged_seg_cases(dev)
+    case = main_k3[False]
+    segs = {mode: seg_case(case["binning"], case["dfeat"], mode,
+                           "main path") for mode in ("f32", "bf16x2")}
+
+    # --- phase 8: whole-render gradients on the card --------------------
+    worst_ref, worst_16 = small_grad_check(dev)
+    print(f"phase 8: small scene gradients on the card: tile vs ref "
+          f"largest error / max|g| {worst_ref:.3e}; bf16x2 vs f32 "
+          f"{worst_16:.3e}", flush=True)
+
+    # --- phase 9: the training main path at full width ------------------
+    pps, fb_ms, fb_nr = fwd_bwd_rate(dev, args.seed)
+    print(f"phase 9: fwd+bwd (render + L1 + gradients, bf16x2) at "
+          f"{MAIN['width']}x{MAIN['height']}, num_rendered {fb_nr}, budget "
+          f"{BENCH_BUDGET}: {fb_ms:.3f} ms, {pps:.4e} pixels/s; {smi}",
+          flush=True)
+    train_l, f32_l = train_main_path(dev, args.seed, smi)
+    kernels += [report_k3(case, train_l["tile_bwd"]),
+                report_seg(*segs["f32"], "f32", f32_l["seg_reduce_f32"]),
+                report_seg(*segs["bf16x2"], "bf16x2",
+                           train_l["seg_reduce_packed"])]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -633,6 +817,426 @@ def _profile_frames(pv, views, budget, smi):
     for dev_us, count, key in rows[:PROFILE_TOP]:
         print(f"phase 6: {dev_us / nv / 1e3:9.4f} ms/frame x{count / nv:<6.1f}"
               f" {key[:100]}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phases 7-9: the training step
+# ---------------------------------------------------------------------------
+
+def k3_case(dev, scene, budget, seed, fast):
+    """K3 against its plain version at one scene; returns a dict with the
+    inputs, the kernel's dfeat and the comparison."""
+    import torch
+
+    from reduced3dgs_torch.ops import tile_render as ttr
+
+    w, h = scene["width"], scene["height"]
+    _, b, (feat, ranges, limit) = kernel_inputs(
+        dev, w, h, scene["n"], scene["scales"], budget, seed, fast=fast)
+    gx = -(-w // 16)
+    packed = ttr._tile_fwd_cuda(feat, ranges, limit, gx, w, h)
+    g = k3_cotangent(packed, seed)
+    got = ttr._tile_bwd_cuda(feat, ranges, limit, gx, w, h, g, packed)
+    want = ttr.tile_bwd_plain(feat, ranges, limit, gx, w, h, g, packed)
+    torch.cuda.synchronize()
+    walked = walked_slots(ranges, limit, feat.shape[1])
+    check(bool((got[:, ~walked] == 0).all()),
+          "K3: a slot outside the walked ranges is not exactly 0")
+    err, rel, share = compare_k3(got, want)
+    check(rel <= 5e-3 and share >= 0.999,
+          f"K3 {w}x{h} fast={fast}: kernel != plain ({rel:.3e}, {share})")
+    print(f"phase 7: K3 {w}x{h} {'bf16x2' if fast else 'f32'} table, "
+          f"num_rendered {int(b.num_rendered)}: max abs err {err:.3e}, "
+          f"largest error / row max {rel:.3e}, share within 1e-4 of the "
+          f"row max {share:.6f}; {int((~walked).sum())} unwalked slots "
+          "exactly 0", flush=True)
+    return dict(binning=b, k3in=(feat, ranges, limit, gx, w, h, g, packed),
+                dfeat=got, err=err)
+
+
+def report_k3(case, launches):
+    """K3's times at the main path's shapes, its bound and the JSON row."""
+    from reduced3dgs_torch.ops import tile_render as ttr
+
+    feat, ranges, limit, gx, w, h, g, packed = case["k3in"]
+    ms = time_ms(lambda: ttr._tile_bwd_cuda(*case["k3in"]), 20)
+    plain_ms = time_ms(lambda: ttr.tile_bwd_plain(*case["k3in"]), 1)
+    _, pairs = ttr.tile_fwd_plain(feat, ranges, limit, gx, w, h,
+                                  count_pairs=True)
+    inst = int((ranges[1] - ranges[0]).sum())
+    tiles = ranges.shape[1]
+    nbytes = (4 * ttr.TABLE_ROWS * inst + 8 * tiles
+              + 2 * 4 * ttr.PIX_ROWS * ttr.NPIX * tiles
+              + 4 * ttr.TABLE_ROWS * feat.shape[1])
+    ops = (K2_OPS_WALKED * pairs["walked"]
+           + (K3_OPS_BLEND + K3_OPS_REDUCE) * pairs["blended"]
+           + K2_OPS_STOP * pairs["stopped"])
+    bms, by, b_ms, o_ms = bound(nbytes, ops)
+    red_ms = K3_OPS_REDUCE * pairs["blended"] / F32_OPS_PER_S * 1e3
+    tree_ms = K3_OPS_WARP_TREE * pairs["warp_blended"] / F32_OPS_PER_S * 1e3
+    print(f"phase 7: K3 tiles={tiles} instances={inst} pairs walked "
+          f"{pairs['walked']}, blended {pairs['blended']}, stopped "
+          f"{pairs['stopped']}; warps blending an instance "
+          f"{pairs['warp_blended']}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}; bytes {b_ms:.4f}, "
+          f"operations {o_ms:.4f}, of which the per-instance sums "
+          f"{red_ms:.4f}; the shuffle tree's adds would take {tree_ms:.4f}),"
+          f" roofline share {bms / ms * 100:.1f} %", flush=True)
+    return {"name": "tile_bwd", "route": "cuda",
+            "source": "reduced3dgs_torch/csrc/tile_bwd.cu",
+            "replaces": "reduced3dgs_tpu/ops/tile_render.py:468",
+            "launches": launches, "max_abs_err": case["err"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None}
+
+
+def seg_case(binning, dfeat, mode, what):
+    """K5 (f32) or K6 (bf16x2) against its plain version and the float64
+    sums; returns (inputs, max |kernel - plain|)."""
+    import torch
+
+    from reduced3dgs_torch.ops import tile_render as ttr
+
+    packed = mode == "bf16x2"
+    rows, order, bounds = seg_inputs(binning, dfeat, mode)
+    got = ttr._seg_reduce_cuda(rows, order, bounds, packed)
+    want = ttr.seg_reduce_plain(rows, order, bounds, packed)
+    ref, mag = seg_reference(rows, order, bounds, packed)
+    torch.cuda.synchronize()
+    e_ref = check_seg(got, ref, mag, f"K{6 if packed else 5} {what}")
+    check_seg(want, ref, mag, f"plain K{6 if packed else 5} {what}")
+    err = float((got - want).abs().max())
+    print(f"phase 7: K{6 if packed else 5} ({mode}) {what}: P="
+          f"{bounds.shape[0] - 1}, instances {int(bounds[-1])}: max abs err"
+          f" {err:.3e} against the plain version, {e_ref:.3e} against the "
+          "float64 sums", flush=True)
+    return (rows, order, bounds), err
+
+
+def report_seg(inputs, err, mode, launches):
+    """K5 / K6 times at the main path's shapes, bound and JSON row."""
+    import torch
+
+    from reduced3dgs_torch.ops import tile_render as ttr
+
+    packed = mode == "bf16x2"
+    rows, order, bounds = inputs
+    ms = time_ms(lambda: ttr._seg_reduce_cuda(rows, order, bounds, packed),
+                 50)
+    plain_ms = time_ms(lambda: ttr.seg_reduce_plain(rows, order, bounds,
+                                                    packed), 5)
+    n = int(bounds[-1])
+    num_p = bounds.shape[0] - 1
+    vals = rows[:, order[:n]]
+    if packed:
+        hi, lo = ttr.unpack_bf16x2(vals)
+        vals = torch.stack([hi, lo], dim=1).reshape(-1, n)
+    data = vals[:9].T.contiguous()  # (n, 9) in segment order
+    lens = (bounds[1:] - bounds[:-1]).long()
+    lib_ms = time_ms(lambda: torch.segment_reduce(data, "sum",
+                                                  lengths=lens), 20)
+    nbytes = (SEG_ROW_BYTES[mode] + 8) * n + 4 * (num_p + 1) + 36 * num_p
+    bms, by, b_ms, o_ms = bound(nbytes, 9 * n)
+    name = "seg_reduce_packed" if packed else "seg_reduce_f32"
+    print(f"phase 7: {name} P={num_p} instances={n}: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, torch.segment_reduce {lib_ms:.4f} ms, "
+          f"bound {bms:.4f} ms ({by}; bytes {b_ms:.4f}, operations "
+          f"{o_ms:.4f}), roofline share {bms / ms * 100:.1f} %", flush=True)
+    return {"name": name, "route": "cuda",
+            "source": "reduced3dgs_torch/csrc/seg_reduce.cu",
+            "replaces": ("reduced3dgs_tpu/ops/tile_render.py:1117" if packed
+                         else "reduced3dgs_tpu/ops/tile_render.py:1083"),
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib_ms}
+
+
+def ragged_seg_cases(dev):
+    """K5 and K6 on the ragged multi-window layouts (P = 700, 2500)."""
+    import torch
+
+    from reduced3dgs_torch.ops import binning as tbin
+
+    for p in (700, 2500):
+        fields, cols, _ = ragged_segments(p)
+        b = tbin.BinningOut(**{k: torch.as_tensor(np.asarray(v), device=dev)
+                               for k, v in fields.items()})
+        for mode in ("f32", "bf16x2"):
+            seg_case(b, torch.as_tensor(cols, device=dev), mode,
+                     f"ragged P={p}")
+
+
+def render_grads(dev, arrs, cp, bg, width, height, backend, grad_reduce):
+    """Gradients of |color|.mean() + 0.1 final_t.mean() w.r.t. the five
+    parameter arrays (numpy in, tensors out)."""
+    import torch
+
+    from reduced3dgs_torch.renderer import render
+
+    leaves = [torch.as_tensor(a, device=dev).requires_grad_(True)
+              for a in arrs[:5]]
+    out = render(*leaves, torch.as_tensor(arrs[5], device=dev), cp, bg,
+                 width=width, height=height, instance_budget=4096,
+                 backend=backend, grad_reduce=grad_reduce)
+    loss = out.color.abs().mean() + 0.1 * out.final_t.mean()
+    return torch.autograd.grad(loss, leaves)
+
+
+def small_grad_check(dev):
+    """Phase 8: tile (K2 + K3 + K5) against the differentiable oracle at
+    atol 2e-4 max|g| / rtol 2e-3, and bf16x2 against f32 within
+    2e-2 max|g|, on the 56x40, 300-primitive scene (opacity below the
+    0.99 clamp, which the oracle's autodiff gates)."""
+    import torch
+
+    from reduced3dgs_torch.cameras import Camera
+
+    arrs = bench_scene(300, (0.02, 0.12), 1)
+    cp = Camera.look_at(eye=(0, 0, -3.2), target=(0, 0, 0), width=56,
+                        height=40).params(dev)
+    bg = torch.tensor([0.2, 0.1, 0.4], device=dev)
+    g = {(be, gr): render_grads(dev, arrs, cp, bg, 56, 40, be, gr)
+         for be, gr in (("ref", "f32"), ("tile", "f32"),
+                        ("tile", "bf16x2"))}
+    worst_ref = worst_16 = 0.0
+    for i, name in enumerate(("xyz", "features", "scales", "rots",
+                              "opacity")):
+        a = g["ref", "f32"][i]
+        b = g["tile", "f32"][i]
+        c = g["tile", "bf16x2"][i]
+        scale = float(a.abs().max())
+        check(bool(torch.allclose(b, a, atol=2e-4 * scale, rtol=2e-3)),
+              f"tile vs ref gradient of {name}")
+        check(float((c - b).abs().max()) < 2e-2 * scale,
+              f"bf16x2 vs f32 gradient of {name}")
+        worst_ref = max(worst_ref, float((b - a).abs().max()) / scale)
+        worst_16 = max(worst_16, float((c - b).abs().max()) / scale)
+    return worst_ref, worst_16
+
+
+def fwd_bwd_rate(dev, seed):
+    """bench.py's quantity on the card: pixels/s through one
+    differentiable 1080p render (bf16x2) plus the L1 loss and its
+    gradients, on the bench scene seen from (0, 0, -3.6)."""
+    import torch
+
+    from reduced3dgs_torch.cameras import Camera
+    from reduced3dgs_torch.renderer import render
+
+    w, h = MAIN["width"], MAIN["height"]
+    arrs = [torch.as_tensor(a, device=dev)
+            for a in bench_scene(MAIN["n"], MAIN["scales"], seed)]
+    cp = Camera.look_at(eye=(0, 0, -3.6), target=(0, 0, 0), width=w,
+                        height=h).params(dev)
+    bg = torch.zeros(3, device=dev)
+    leaves = [a.requires_grad_(True) for a in arrs[:5]]
+    nr = []
+
+    def step():
+        out = render(*leaves, arrs[5], cp, bg, width=w, height=h,
+                     instance_budget=BENCH_BUDGET, grad_reduce="bf16x2")
+        torch.autograd.grad(out.color.abs().mean(), leaves)
+        nr.append(out.num_rendered)
+
+    ms = time_ms(step, 10)
+    n = int(nr[-1])
+    check(n <= BENCH_BUDGET, "fwd+bwd: the bench budget truncates")
+    return w * h / (ms / 1e3), ms, n
+
+
+def train_cameras(dev, seed):
+    """The ring views with the bench scene rendered by the port as their
+    ground truth; returns (cameras, the scene's numpy leaves)."""
+    import torch
+
+    from reduced3dgs_torch.models.gaussians import (
+        padded_leaves, pool_from_numpy,
+    )
+    from reduced3dgs_torch.render import PoolView, render_view
+
+    arrs = make_arrays(MAIN["n"], MAIN["scales"], seed)
+    cams = ring_cameras(MAIN["width"], MAIN["height"])
+    leaves = padded_leaves(arrs, capacity=MAIN["n"])
+    pv = PoolView(pool_from_numpy(leaves, dev))
+    bg = torch.zeros(3, device=dev)
+    budget = 1 << 19
+    for cam in cams:
+        out, budget = render_view(pv, cam, bg, budget)
+        cam.image = out.color.clamp(0, 1).cpu().numpy()
+    return cams, leaves
+
+
+def student_pool(dev, leaves, seed):
+    """The ground-truth leaves with DC colours and opacity logits plus
+    normal noise drawn from `seed`."""
+    from reduced3dgs_torch.models.gaussians import pool_from_numpy
+
+    rng = np.random.default_rng(seed + 1)
+    s = dict(leaves)
+    s["features_dc"] = (leaves["features_dc"] + rng.normal(
+        0, TRAIN["dc_noise"], leaves["features_dc"].shape)).astype(np.float32)
+    s["opacity"] = (leaves["opacity"] + rng.normal(
+        0, TRAIN["opacity_noise"], leaves["opacity"].shape)).astype(
+        np.float32)
+    return pool_from_numpy(s, dev)
+
+
+def make_trainer(pool, cams, seed, grad_reduce="bf16x2"):
+    """The port's Trainer with the default configuration, its densify
+    cadence moved into the first TRAIN['steps'] iterations."""
+    import dataclasses
+
+    import torch
+
+    from reduced3dgs_torch.config import OptimizationParams
+    from reduced3dgs_torch.train.trainer import Trainer
+
+    cfg = dataclasses.replace(
+        OptimizationParams(), densify_from_iter=TRAIN["densify_from"],
+        densification_interval=TRAIN["densify_interval"],
+        percent_dense=TRAIN["percent_dense"],
+        densify_grad_threshold=TRAIN["grad_threshold"])
+    extent = 1.1 * RING_RADIUS  # the NeRF++ radius of the ring
+    tr = Trainer(pool, cfg, cams, spatial_lr_scale=extent,
+                 background=torch.zeros(3, device=pool.device),
+                 backend="tile", seed=seed,
+                 initial_budget=TRAIN["initial_budget"],
+                 grad_reduce=grad_reduce)
+    tr.extent = extent
+    return tr
+
+
+def run_steps(tr, first, count):
+    """Trainer steps first..first+count-1; returns (losses, host ms per
+    step, each ending in a synchronize)."""
+    import torch
+
+    losses, ms = [], []
+    for it in range(first, first + count):
+        t0 = time.perf_counter()
+        m = tr.step(it)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    return losses, ms
+
+
+def train_main_path(dev, seed, smi):
+    """Phase 9.  Returns the launch counts of the bf16x2 run (K1, K2, K3,
+    K6) and of the f32 run (K5)."""
+    import torch
+
+    from reduced3dgs_torch.ops import binning as tbin
+    from reduced3dgs_torch.ops import tile_render as ttr
+    from reduced3dgs_torch.train.trainer import TRAIN_STAGES
+
+    kernels = {"expand": tbin.EXPAND, "tile_fwd": ttr.TILE_FWD,
+               "tile_bwd": ttr.TILE_BWD,
+               "seg_reduce_packed": ttr.SEG_REDUCE_PACKED,
+               "seg_reduce_f32": ttr.SEG_REDUCE_F32}
+    t0 = time.perf_counter()
+    cams, leaves = train_cameras(dev, seed)
+    tr = make_trainer(student_pool(dev, leaves, seed), cams, seed)
+    del leaves
+    print(f"phase 9: ground truth of {len(cams)} views and the student "
+          f"pool in {time.perf_counter() - t0:.3f} s", flush=True)
+
+    for k in kernels.values():
+        k.launches = 0
+    steps = TRAIN["steps"]
+    losses, ms = run_steps(tr, 1, steps)
+    launches = {n: k.launches for n, k in kernels.items()}
+    renders = launches["expand"]
+    check(renders >= steps and all(launches[n] == renders for n in (
+        "tile_fwd", "tile_bwd", "seg_reduce_packed"))
+        and launches["seg_reduce_f32"] == 0,
+        f"bf16x2 steps: not one K1, K2, K3 and K6 per render: {launches}")
+    check(all(math.isfinite(x) for x in losses), "non-finite loss")
+    nv = len(cams)
+    first, last = np.mean(losses[:nv]), np.mean(losses[2 * nv:3 * nv])
+    check(last < first, f"loss did not fall: {first:.5f} -> {last:.5f}")
+    pool = tr.state.pool
+    print(f"phase 9: {steps} bf16x2 steps at {MAIN['width']}x"
+          f"{MAIN['height']}: loss over the first {nv} views {first:.6f}, "
+          f"over views {2 * nv + 1}..{3 * nv} {last:.6f}; median step "
+          f"{float(np.median(ms)):.3f} ms (host wall, synchronized; steps "
+          f"{', '.join(f'{v:.1f}' for v in ms)}); {renders} renders for "
+          f"{steps} steps (budget regrows redo a step); budgets "
+          f"{sorted(set(tr.budgets.values()))}; densify {tr.stats}; pool "
+          f"capacity {pool.capacity}, alive {int(pool.num_alive)}; "
+          f"launches {launches}; {smi}", flush=True)
+    check(pool.capacity > MAIN["n"], "the densify step did not grow the pool")
+    check(tr.stats.get("n_points_cloned", 0)
+          + tr.stats.get("n_points_split", 0) > 0, "nothing was densified")
+
+    # stage times by CUDA events over a few more steps
+    it = steps + 1
+    stage = np.zeros(len(TRAIN_STAGES))
+    for _ in range(TRAIN["timed_steps"]):
+        marks = []
+        tr.step(it, marks=marks)
+        torch.cuda.synchronize()
+        it += 1
+        check(len(marks) == len(TRAIN_STAGES) + 1, "stage marks missing")
+        stage += [marks[i].elapsed_time(marks[i + 1])
+                  for i in range(len(TRAIN_STAGES))]
+    stage /= TRAIN["timed_steps"]
+    print("phase 9: stage ms per step (CUDA events, bf16x2) "
+          + ", ".join(f"{n} {v:.3f}" for n, v in zip(TRAIN_STAGES, stage))
+          + f"; sum {stage.sum():.3f} ms; {smi}", flush=True)
+
+    profile_step(tr, it, smi)
+    it += 1
+
+    tr.grad_reduce = "f32"
+    for k in kernels.values():
+        k.launches = 0
+    f32_losses, f32_ms = run_steps(tr, it, TRAIN["f32_steps"])
+    f32_launches = {n: k.launches for n, k in kernels.items()}
+    check(f32_launches["seg_reduce_f32"] == f32_launches["tile_bwd"]
+          == f32_launches["expand"] >= TRAIN["f32_steps"]
+          and f32_launches["seg_reduce_packed"] == 0,
+          f"f32 steps: not one K5 per render: {f32_launches}")
+    check(all(math.isfinite(x) for x in f32_losses), "non-finite f32 loss")
+    print(f"phase 9: {TRAIN['f32_steps']} f32 steps: losses "
+          f"{', '.join(f'{v:.6f}' for v in f32_losses)}; median step "
+          f"{float(np.median(f32_ms)):.3f} ms; launches {f32_launches}",
+          flush=True)
+    return launches, f32_launches
+
+
+def profile_step(tr, it, smi):
+    """One bf16x2 Trainer step under torch.profiler: kernel launches and
+    kernel time against the CUDA-event span of that same step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        tr.step(it)
+        end.record()
+        end.synchronize()
+    span = start.elapsed_time(end)
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+        if dev_us > 0:
+            rows.append((dev_us, e.count, e.key))
+    rows.sort(reverse=True)
+    check(rows, "profiler saw no kernel of the train step")
+    busy = sum(r[0] for r in rows) / 1e3
+    print(f"phase 9: profiled step: {sum(r[1] for r in rows)} kernel "
+          f"launches and {busy:.3f} ms of kernel time over a CUDA-event "
+          f"span of {span:.3f} ms (profiler on, CUDA activity only): "
+          f"device idle {(1 - busy / span) * 100:.1f} %; {smi}", flush=True)
+    for dev_us, count, key in rows[:PROFILE_TOP]:
+        print(f"phase 9: {dev_us / 1e3:9.4f} ms x{count:<5d} {key[:100]}",
+              flush=True)
 
 
 if __name__ == "__main__":

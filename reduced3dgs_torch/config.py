@@ -1,9 +1,9 @@
-"""Config — the parts of reduced3dgs_tpu/config.py the render path reads.
+"""Config — counterpart of reduced3dgs_tpu/config.py.
 
 Field names, shorthand flags and defaults match the reference arguments,
 so model directories written by training (their ``cfg_args`` file in the
-``Namespace(...)`` repr format) load here unchanged; ``get_combined_args``
-merges that file with CLI overrides.
+``Namespace(...)`` repr format, ``dump_cfg_args``) load here unchanged;
+``get_combined_args`` merges that file with CLI overrides.
 """
 
 from __future__ import annotations
@@ -58,12 +58,54 @@ class ModelParams:
 class PipelineParams:
     """convert_SHs_python / compute_cov3D_python / debug are accepted for
     CLI parity; ``backend`` picks the compositor: "tile" (kernels) or
-    "ref" (the masked oracle)."""
+    "ref" (the masked oracle).  ``fused_steps`` > 1 (several steps per
+    launch) is not ported yet.  ``grad_reduce`` is the per-primitive
+    gradient reduction: "bf16x2" (the training default, packed payload and
+    the fast feature table) or "f32" (full precision, the parity mode)."""
 
     convert_SHs_python: bool = False
     compute_cov3D_python: bool = False
     debug: bool = False
     backend: str = "tile"
+    fused_steps: int = 1
+    grad_reduce: str = "bf16x2"
+
+
+@dataclass(frozen=True)
+class OptimizationParams:
+    """The reference OptimizationParams, with the JAX package's
+    defaults."""
+
+    iterations: int = 30_000
+    position_lr_init: float = 0.00016
+    position_lr_final: float = 0.0000016
+    position_lr_delay_mult: float = 0.01
+    position_lr_max_steps: int = 30_000
+    feature_lr: float = 0.0025
+    opacity_lr: float = 0.05
+    scaling_lr: float = 0.005
+    rotation_lr: float = 0.001
+    percent_dense: float = 0.01
+    lambda_dssim: float = 0.2
+    densification_interval: int = 100
+    opacity_reset_interval: int = 3000
+    densify_from_iter: int = 500
+    densify_until_iter: int = 15_000
+    densify_grad_threshold: float = 0.0002
+    random_background: bool = False
+    lambda_alpha_regul: float = 0.0
+    mercy_points: bool = False
+    lambda_mercy: float = 1.0
+    box_size: float = 1.0
+    lambda_sh_sparsity: float = 0.0
+    prune_dead_points: bool = False
+    store_grads: bool = False
+    mercy_interval: int = 10
+    cdist_threshold: float = 0.0
+    std_threshold: float = 0.0
+    mercy_minimum: int = 3
+    variable_sh_bands: bool = False
+    mercy_type: str = "redundancy_opacity"
 
 
 def add_model_params(parser, fill_none=False):
@@ -72,6 +114,22 @@ def add_model_params(parser, fill_none=False):
 
 def add_pipeline_params(parser, fill_none=False):
     _add_group(parser, PipelineParams, "Pipeline Parameters", fill_none)
+
+
+def add_optimization_params(parser, fill_none=False):
+    _add_group(parser, OptimizationParams, "Optimization Parameters",
+               fill_none)
+
+
+def extract_optimization(args) -> OptimizationParams:
+    return _extract(OptimizationParams, args)
+
+
+def dump_cfg_args(model_path: str, args: Namespace):
+    """Write the reference-format cfg_args file."""
+    os.makedirs(model_path, exist_ok=True)
+    with open(os.path.join(model_path, "cfg_args"), "w") as f:
+        f.write(str(Namespace(**vars(args))))
 
 
 def extract_model(args) -> ModelParams:

@@ -204,14 +204,14 @@ def bin_gaussians(prep: PreprocessOut, width: int, height: int,
               | (torch.clamp(rx1 - rx0, min=1) - 1)).to(i32)
 
     # --- depth renumbering: stable sort on the depth bits -------------
-    order = torch.sort(depth_key(prep.depths), stable=True).indices
+    order = torch.sort(depth_key(prep.depths.detach()), stable=True).indices
     rectpack = rpack0[order]
     counts = counts0[order]
-    feat_rank = torch.stack(
-        [prep.means2d[:, 0], prep.means2d[:, 1], prep.conic[:, 0],
-         prep.conic[:, 1], prep.conic[:, 2], prep.opacity,
-         prep.color[:, 0], prep.color[:, 1], prep.color[:, 2]],
-        dim=1)[order].to(torch.float32)
+    # detached (the JAX package's stop_gradient): the renderer's autograd
+    # Function carries the gradients of these nine columns
+    feat_rank = torch.cat(
+        [prep.means2d, prep.conic, prep.opacity[:, None], prep.color],
+        dim=1).detach()[order].to(torch.float32)
     prim_inv = torch.empty(p, dtype=i32, device=dev)
     prim_inv[order] = torch.arange(p, dtype=i32, device=dev)
 

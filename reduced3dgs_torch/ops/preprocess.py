@@ -2,8 +2,10 @@
 
 Counterpart of reduced3dgs_tpu/ops/preprocess.py.  Vectorized over the
 primitive axis; culled primitives are masked (radius 0 / 0 tiles touched)
-rather than removed, so every output keeps P rows.  The serving path runs
-it under torch.no_grad; autograd through it comes with training.
+rather than removed, so every output keeps P rows.  Differentiable in
+the raw parameters (training); ties of max/min split the gradient as JAX
+does (torch.maximum / torch.minimum, never torch.clamp, on the
+differentiable values).
 """
 
 from __future__ import annotations
@@ -104,12 +106,15 @@ def preprocess(
     alive_mask=None,
     scale_modifier=1.0,
     color_precomp=None,
+    screen_offset=None,
 ):
     """Project + cull + shade all primitives (raw parameters in).
 
     degrees: (P,) int32 per-primitive SH degree; alive_mask: optional (P,)
     bool, dead pool slots are culled; color_precomp: optional (P, 3)
-    colours used instead of the SH evaluation.
+    colours used instead of the SH evaluation; screen_offset: optional
+    zero-valued (P, 2) tensor added to the pixel centres, whose gradient
+    is dL/dmean2d (the densification statistics).
     """
     grid_x, grid_y = tile_grid(cam.width, cam.height)
     focal_x = cam.width / (2.0 * cam.tan_fovx)
@@ -122,8 +127,8 @@ def preprocess(
     live = in_front if alive_mask is None else (in_front & alive_mask)
 
     # culled lanes get a harmless substitute point (no 0/0, 1/tz NaNs)
-    safe_pt = torch.tensor([0.0, 0.0, 1.0], dtype=p_view.dtype,
-                           device=p_view.device)
+    safe_pt = torch.zeros(3, dtype=p_view.dtype, device=p_view.device)
+    safe_pt[2] = 1.0
     t_safe = torch.where(live[:, None], p_view, safe_pt)
 
     # project to NDC then pixels
@@ -133,6 +138,8 @@ def preprocess(
     mean2d = torch.stack(
         [tf.ndc2pix(p_proj[:, 0], cam.width),
          tf.ndc2pix(p_proj[:, 1], cam.height)], dim=-1)
+    if screen_offset is not None:
+        mean2d = mean2d + screen_offset
 
     scales = torch.exp(scales_raw)
     cov3d = tf.build_cov3d(scales, rotations_raw, scale_modifier)

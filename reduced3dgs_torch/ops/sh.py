@@ -68,8 +68,11 @@ def sh_basis(dirs):
 def degree_mask(degrees, num_coeffs=16):
     """(P,) int degrees -> (P, num_coeffs) float mask of the coefficients
     whose band <= degree."""
-    band = torch.tensor(_COEFF_BAND[:num_coeffs], dtype=degrees.dtype,
-                        device=degrees.device)
+    # band of coefficient i is floor(sqrt(i)) (_COEFF_BAND), computed on
+    # the device: a host tensor here would cost a copy per render
+    band = torch.arange(num_coeffs, dtype=torch.float32,
+                        device=degrees.device).sqrt().floor().to(
+        degrees.dtype)
     return (band[None, :] <= degrees[:, None]).to(torch.float32)
 
 
@@ -85,4 +88,5 @@ def eval_sh_color(sh, dirs, degrees):
 def eval_sh_color_clamped(sh, dirs, degrees):
     """Full forward colour: + 0.5 shift, clamped to >= 0."""
     rgb = eval_sh_color(sh, dirs, degrees) + 0.5
-    return torch.clamp(rgb, min=0.0)
+    return torch.maximum(rgb, torch.zeros((), dtype=rgb.dtype,
+                                          device=rgb.device))

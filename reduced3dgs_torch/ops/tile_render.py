@@ -1,21 +1,30 @@
-"""Tile rasterizer, forward (PyTorch + CUDA kernel K2).
+"""Tile rasterizer (PyTorch + CUDA kernels K2, K3, K5 and K6).
 
-Counterpart of the forward half of reduced3dgs_tpu/ops/tile_render.py
-(f32 mode), with the same compositing semantics:
+Counterpart of reduced3dgs_tpu/ops/tile_render.py, with the same
+compositing semantics:
 
   power = -0.5 d^T conic d;  a lane is kept where power <= POWER_EPS
   alpha = min(0.99, opacity * exp(min(power, 0))),  skip if alpha < 1/255
   stop the pixel before a blend that would push T below 1e-4
   C += c * alpha * T;  T *= 1 - alpha
 
-Instance features are feature-major (16, B_pad) rows [x, y, cxx, cxy, cyy,
-op, r, g, b, 0...] gathered in binning's K-aligned slot order; the
-per-pixel result is (num_tiles, 8, 256) rows [r, g, b, T_final, 0...],
-empty tiles colour 0 and T 1.  The background is added outside.
+Instance features are feature-major (9, B_pad) rows [x, y, cxx, cxy, cyy,
+op, r, g, b] gathered in binning's K-aligned slot order; the per-pixel
+result is (num_tiles, 8, 256) rows [r, g, b, T_final, 0...], empty tiles
+colour 0 and T 1.  The background is added outside.
 
-K2 (csrc/tile_fwd.cu) walks one 16x16 tile per 256-thread block;
-``tile_fwd_plain`` is its plain version, vectorised over tiles and
-128-instance chunks (cumulative products along each chunk).
+Kernels, each with its plain version beside it (the CPU runs the plain
+version; a CUDA tensor launches the kernel or raises):
+
+  K2  csrc/tile_fwd.cu    forward compositing, one 16x16 tile per block
+  K3  csrc/tile_bwd.cu    backward re-walk: per-instance gradients of the
+                          9 features, written once per slot
+  K5  csrc/seg_reduce.cu  per-primitive sums of the 9 gradient rows
+  K6  csrc/seg_reduce.cu  the same on bf16x2-packed rows
+
+``_RasterizeCore`` is the autograd Function around them (the JAX
+package's custom VJP): means2d, conic, opacity and colour in, packed tile
+rows out.
 """
 
 from __future__ import annotations
@@ -32,8 +41,7 @@ from reduced3dgs_torch.ops.preprocess import (
 
 K = ALIGN  # = 128 instances per chunk / shared-memory batch
 NPIX = TILE_X * TILE_Y  # 256 pixels per tile
-FEAT_ROWS = 16  # packed feature rows per instance (9 live)
-TABLE_ROWS = 9
+TABLE_ROWS = 9  # feature / gradient rows per instance
 PIX_ROWS = 8  # packed per-pixel rows: [r, g, b, T, 0, 0, 0, 0]
 ALPHA_CLAMP = 0.99
 ALPHA_MIN = 1.0 / 255.0
@@ -41,86 +49,122 @@ T_EPS = 1.0e-4
 # Lanes are kept up to power <= POWER_EPS (not 0) and the exponent is
 # clamped to <= 0, matching the JAX kernels (tile_render.py:99-107).
 POWER_EPS = 1.0e-3
-TILE_GROUP = 256  # tiles the plain version composites at once
+TILE_GROUP = 256  # tiles the plain versions walk at once
+GRAD_REDUCE = ("f32", "bf16x2")
+# u16 fixed-point scale of the fast table's opacity (tile_render.py:852)
+OP_FIX = 65535.0
+PACKED_ROWS = 5  # bf16x2 pairs of the 9 gradient rows (10th is padding)
+
+
+def _argtypes(*names):
+    return [ctypes.c_void_p if n == "p" else ctypes.c_longlong if n == "l"
+            else ctypes.c_int for n in names]
+
+
+# ---------------------------------------------------------------------------
+# shared plain-version chunk state
+# ---------------------------------------------------------------------------
+
+def _tile_pixels(tiles, grid_x, width, height):
+    pix = torch.arange(NPIX, device=tiles.device)
+    px = (tiles % grid_x * TILE_X)[:, None] + pix % TILE_X  # (G, 256)
+    py = (tiles // grid_x * TILE_Y)[:, None] + pix // TILE_X
+    done = (px >= width) | (py >= height)  # cropped pixels start done
+    return (px.to(torch.float32)[:, :, None],
+            py.to(torch.float32)[:, :, None], done)
+
+
+def _chunk(feat, s, e, c, pxf, pyf, t_cur, done):
+    """Blend state of chunk c of a group of tiles, (G, 256, K) arrays."""
+    b_pad = feat.shape[1]
+    lane = torch.arange(K, device=feat.device)
+    idx = s[:, None] + c * K + lane  # (G, K)
+    inr = idx < e[:, None]
+    f = feat[:TABLE_ROWS, torch.clamp(idx, max=b_pad - 1)]  # (9, G, K)
+    fb = f[:, :, None, :]  # broadcast over pixels
+    dx = fb[0] - pxf
+    dy = fb[1] - pyf
+    power = (-0.5 * (fb[2] * dx * dx + fb[4] * dy * dy)
+             - fb[3] * dx * dy)  # (G, 256, K)
+    opm = torch.where(inr[:, None, :], fb[5], 0.0)
+    g = torch.where(power <= POWER_EPS,
+                    torch.exp(torch.clamp(power, max=0.0)), 0.0)
+    alpha = torch.clamp(opm * g, max=ALPHA_CLAMP)
+    live = alpha >= ALPHA_MIN
+    a = torch.where(live, alpha, 0.0)
+    t_inc = t_cur[..., None] * torch.cumprod(1.0 - a, dim=-1)
+    t_exc = torch.cat([t_cur[..., None], t_inc[..., :-1]], dim=-1)
+    contrib = live & ~done[..., None] & (t_inc >= T_EPS)
+    return dict(idx=idx, inr=inr, f=f, dx=dx, dy=dy, g=g, a=a, t_inc=t_inc,
+                t_exc=t_exc, contrib=contrib,
+                w=torch.where(contrib, a * t_exc, 0.0),
+                rgb=f[6:9].permute(1, 0, 2))  # (G, 3, K)
+
+
+def _advance(st, t_cur):
+    t_next = torch.where(st["contrib"], st["t_inc"],
+                         t_cur[..., None]).amin(-1)
+    crossed = st["t_inc"] < T_EPS  # monotone along the chunk
+    return t_next, crossed
+
+
+def _busy_tiles(ranges, limit):
+    starts = ranges[0].long()
+    ends = torch.minimum(ranges[1].long(), limit.long())
+    return starts, ends, torch.nonzero(ends > starts).flatten()
 
 
 # ---------------------------------------------------------------------------
 # K2: forward compositing
 # ---------------------------------------------------------------------------
 
-TILE_FWD = _cuda.Kernel("tile_fwd", "tile_fwd_launch", [
-    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p, ctypes.c_void_p])
+TILE_FWD = _cuda.Kernel("tile_fwd", "tile_fwd_launch",
+                        _argtypes("p", "l", "p", "i", "p", "i", "i", "i", "p",
+                             "p"))
 
 
 def tile_fwd_plain(feat, ranges, limit, grid_x: int, width: int,
                    height: int, count_pairs: bool = False):
     """Plain version of K2.
 
-    feat: (16, B_pad) f32; ranges: (2, num_tiles) int32 K-aligned
+    feat: (9, B_pad) f32; ranges: (2, num_tiles) int32 K-aligned
     [start, end); limit: () int32, no instance at or past it is read.
     Returns (num_tiles, 8, 256) f32; with count_pairs, also a dict of the
     (pixel, instance) pairs K2's sequential walk visits: "walked" (each
     pixel up to and including its stopping instance), "blended" (those
     that add colour) and "stopped" (pixels whose T would fall below
-    T_EPS, one pair each), as Python ints.
+    T_EPS, one pair each), and "warp_blended", the (32-pixel warp,
+    instance) pairs with a blend in the warp, as Python ints.
     """
     num_tiles = ranges.shape[1]
     dev = feat.device
-    b_pad = feat.shape[1]
     out = torch.zeros((num_tiles, PIX_ROWS, NPIX), dtype=torch.float32,
                       device=dev)
     out[:, 3, :] = 1.0
-    starts = ranges[0].long()
-    ends = torch.minimum(ranges[1].long(), limit.long())
-    busy = torch.nonzero(ends > starts).flatten()
-    lane = torch.arange(K, device=dev)
-    pix = torch.arange(NPIX, device=dev)
-    pairs = dict(walked=0, blended=0, stopped=0)
+    starts, ends, busy = _busy_tiles(ranges, limit)
+    pairs = dict(walked=0, blended=0, stopped=0, warp_blended=0)
     for g0 in range(0, busy.numel(), TILE_GROUP):
         tiles = busy[g0:g0 + TILE_GROUP]
         s, e = starts[tiles], ends[tiles]
-        px = (tiles % grid_x * TILE_X)[:, None] + pix % TILE_X  # (G,256)
-        py = (tiles // grid_x * TILE_Y)[:, None] + pix // TILE_X
-        done = (px >= width) | (py >= height)  # cropped pixels start done
-        pxf = px.to(torch.float32)[:, :, None]
-        pyf = py.to(torch.float32)[:, :, None]
-        t_cur = torch.ones(px.shape, dtype=torch.float32, device=dev)
-        acc = torch.zeros(px.shape + (3,), dtype=torch.float32, device=dev)
+        pxf, pyf, done = _tile_pixels(tiles, grid_x, width, height)
+        t_cur = torch.ones(done.shape, dtype=torch.float32, device=dev)
+        acc = torch.zeros(done.shape + (3,), dtype=torch.float32, device=dev)
         n_chunks = int(((e - s + K - 1) // K).max())
         for c in range(n_chunks):
             if bool(done.all()):
                 break
-            idx = s[:, None] + c * K + lane  # (G, K)
-            inr = idx < e[:, None]
-            f = feat[:TABLE_ROWS, torch.clamp(idx, max=b_pad - 1)]  # (9,G,K)
-            f = f[:, :, None, :]  # broadcast over pixels
-            dx = f[0] - pxf
-            dy = f[1] - pyf
-            power = (-0.5 * (f[2] * dx * dx + f[4] * dy * dy)
-                     - f[3] * dx * dy)  # (G, 256, K)
-            opm = torch.where(inr[:, None, :], f[5], 0.0)
-            g = torch.where(power <= POWER_EPS,
-                            torch.exp(torch.clamp(power, max=0.0)), 0.0)
-            alpha = torch.clamp(opm * g, max=ALPHA_CLAMP)
-            live = alpha >= ALPHA_MIN
-            a = torch.where(live, alpha, 0.0)
-            t_inc = t_cur[..., None] * torch.cumprod(1.0 - a, dim=-1)
-            t_exc = torch.cat([t_cur[..., None], t_inc[..., :-1]], dim=-1)
-            contrib = live & ~done[..., None] & (t_inc >= T_EPS)
-            w = torch.where(contrib, a * t_exc, 0.0)
-            rgb = f[6:9, :, 0, :].permute(1, 2, 0)  # (G, K, 3)
-            acc = acc + torch.bmm(w, rgb)
-            t_cur = torch.where(contrib, t_inc, t_cur[..., None]).amin(-1)
-            crossed = t_inc < T_EPS  # monotone along the chunk
+            st = _chunk(feat, s, e, c, pxf, pyf, t_cur, done)
+            acc = acc + torch.bmm(st["w"], st["rgb"].transpose(1, 2))
+            t_cur, crossed = _advance(st, t_cur)
             if count_pairs:
                 stop = crossed[..., -1] & ~done
                 first = crossed.to(torch.int32).argmax(dim=-1) + 1
-                n_in = inr.sum(dim=-1)[:, None]
+                n_in = st["inr"].sum(dim=-1)[:, None]
                 need = torch.where(stop, first, n_in)
                 pairs["walked"] += int(torch.where(done, 0, need).sum())
-                pairs["blended"] += int(contrib.sum())
+                pairs["blended"] += int(st["contrib"].sum())
+                pairs["warp_blended"] += int(st["contrib"].reshape(
+                    len(tiles), NPIX // 32, 32, K).any(2).sum())
                 pairs["stopped"] += int(stop.sum())
             done = done | crossed[..., -1]
         out[tiles, 0:3, :] = acc.permute(0, 2, 1)
@@ -130,20 +174,24 @@ def tile_fwd_plain(feat, ranges, limit, grid_x: int, width: int,
     return out
 
 
-def _tile_fwd_cuda(feat, ranges, limit, grid_x: int, width: int,
-                   height: int):
-    num_tiles = ranges.shape[1]
+def _check_walk_inputs(name, feat, ranges, limit):
     if feat.dtype != torch.float32 or feat.ndim != 2 \
             or feat.shape[0] < TABLE_ROWS or feat.stride(1) != 1:
-        raise ValueError("tile_fwd: feat must be (>=9, B_pad) f32 rows")
+        raise ValueError(f"{name}: feat must be (>=9, B_pad) f32 rows")
     if ranges.dtype != torch.int32 or not ranges.is_contiguous() \
             or ranges.shape[0] != 2:
-        raise ValueError("tile_fwd: ranges must be contiguous (2, T) int32")
+        raise ValueError(f"{name}: ranges must be contiguous (2, T) int32")
     if limit.dtype != torch.int32 or limit.numel() != 1:
-        raise ValueError("tile_fwd: limit must be one int32")
+        raise ValueError(f"{name}: limit must be one int32")
     for t in (ranges, limit):
         if t.device != feat.device:
-            raise ValueError("tile_fwd: inputs must share one device")
+            raise ValueError(f"{name}: inputs must share one device")
+
+
+def _tile_fwd_cuda(feat, ranges, limit, grid_x: int, width: int,
+                   height: int):
+    _check_walk_inputs("tile_fwd", feat, ranges, limit)
+    num_tiles = ranges.shape[1]
     out = torch.empty((num_tiles, PIX_ROWS, NPIX), dtype=torch.float32,
                       device=feat.device)
     with torch.cuda.device(feat.device):
@@ -164,17 +212,248 @@ def tile_fwd(feat, ranges, limit, grid_x: int, width: int, height: int):
 
 
 # ---------------------------------------------------------------------------
-# packing / assembly helpers
+# K3: backward re-walk
 # ---------------------------------------------------------------------------
 
-def _pack_features(binning: BinningOut):
-    """Gather aligned instances into a feature-major (16, B_pad) f32 array
-    (f32 mode) from binning's depth-rank feature table.  Padding slots
-    pull rank 0's row but sit outside every tile's [start, end) range."""
-    b_pad = binning.gauss_aligned.shape[0]
-    feat = torch.zeros((FEAT_ROWS, b_pad), dtype=torch.float32,
-                       device=binning.feat_rank.device)
-    feat[:TABLE_ROWS] = binning.feat_rank[binning.gauss_id().long()].T
+TILE_BWD = _cuda.Kernel("tile_bwd", "tile_bwd_launch",
+                        _argtypes("p", "l", "p", "i", "p", "i", "i", "i", "p",
+                             "p", "p", "l", "p"))
+
+
+def tile_bwd_plain(feat, ranges, limit, grid_x: int, width: int,
+                   height: int, g_packed, packed):
+    """Plain version of K3.
+
+    feat/ranges/limit as K2; g_packed: (num_tiles, 8, 256) f32 cotangent
+    of K2's output (rows dL/dC, dL/dT_final); packed: K2's output.
+    Returns dfeat (9, B_pad) f32, the gradient of each slot's features;
+    slots the walk never reaches are exactly 0.  Front-to-back, as the
+    JAX kernel: dalpha = gc t_exc - (q - incl) / (1 - a) with gc = g.rgb,
+    incl the running prefix of w gc and q = g.C + g_T T_final per pixel.
+    """
+    dev = feat.device
+    dfeat = torch.zeros((TABLE_ROWS, feat.shape[1]), dtype=torch.float32,
+                        device=dev)
+    starts, ends, busy = _busy_tiles(ranges, limit)
+    for g0 in range(0, busy.numel(), TILE_GROUP):
+        tiles = busy[g0:g0 + TILE_GROUP]
+        s, e = starts[tiles], ends[tiles]
+        pxf, pyf, done = _tile_pixels(tiles, grid_x, width, height)
+        gpix = g_packed[tiles]  # (G, 8, 256)
+        spix = packed[tiles]
+        gcol = gpix[:, 0:3, :].permute(0, 2, 1)  # (G, 256, 3)
+        q = (gcol * spix[:, 0:3, :].permute(0, 2, 1)).sum(-1) \
+            + gpix[:, 3, :] * spix[:, 3, :]  # (G, 256)
+        t_cur = torch.ones(done.shape, dtype=torch.float32, device=dev)
+        prefix = torch.zeros(done.shape, dtype=torch.float32, device=dev)
+        n_chunks = int(((e - s + K - 1) // K).max())
+        for c in range(n_chunks):
+            if bool(done.all()):
+                break
+            st = _chunk(feat, s, e, c, pxf, pyf, t_cur, done)
+            w, a, f = st["w"], st["a"], st["f"]
+            gc = torch.bmm(gcol, st["rgb"])  # (G, 256, K)
+            incl = prefix[..., None] + torch.cumsum(w * gc, dim=-1)
+            # 1 - a >= 0.01 on every lane (a is clamped)
+            dalpha = torch.where(
+                st["contrib"],
+                gc * st["t_exc"] - (q[..., None] - incl) / (1.0 - a), 0.0)
+            ge = st["g"] * dalpha
+            dpower = f[5][:, None, :] * ge
+            dx, dy = st["dx"], st["dy"]
+            cxx, cxy, cyy = (f[r][:, None, :] for r in (2, 3, 4))
+            rows = [
+                (-(cxx * dx + cxy * dy) * dpower).sum(1),
+                (-(cyy * dy + cxy * dx) * dpower).sum(1),
+                (-0.5 * dx * dx * dpower).sum(1),
+                (-dx * dy * dpower).sum(1),
+                (-0.5 * dy * dy * dpower).sum(1),
+                ge.sum(1),
+            ]
+            dcol = torch.bmm(w.transpose(1, 2), gcol)  # (G, K, 3)
+            vals = torch.cat([torch.stack(rows), dcol.permute(2, 0, 1)])
+            inr = st["inr"]
+            dfeat[:, st["idx"][inr]] = vals[:, inr]
+            t_cur, crossed = _advance(st, t_cur)
+            prefix = incl[..., -1]
+            done = done | crossed[..., -1]
+    return dfeat
+
+
+def _tile_bwd_cuda(feat, ranges, limit, grid_x: int, width: int,
+                   height: int, g_packed, packed):
+    _check_walk_inputs("tile_bwd", feat, ranges, limit)
+    num_tiles = ranges.shape[1]
+    shape = (num_tiles, PIX_ROWS, NPIX)
+    for name, t in (("g_packed", g_packed), ("packed", packed)):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape \
+                or not t.is_contiguous() or t.device != feat.device:
+            raise ValueError(f"tile_bwd: {name} must be contiguous "
+                             f"{shape} f32 on the features' device")
+    # zeros: slots the walk never reaches must read exactly 0
+    dfeat = torch.zeros((TABLE_ROWS, feat.shape[1]), dtype=torch.float32,
+                        device=feat.device)
+    with torch.cuda.device(feat.device):
+        TILE_BWD(_cuda.ptr(feat), feat.stride(0), _cuda.ptr(ranges),
+                 num_tiles, _cuda.ptr(limit), grid_x, width, height,
+                 _cuda.ptr(g_packed), _cuda.ptr(packed), _cuda.ptr(dfeat),
+                 dfeat.stride(0), _cuda.stream_of(feat))
+    return dfeat
+
+
+def tile_bwd(feat, ranges, limit, grid_x: int, width: int, height: int,
+             g_packed, packed):
+    """K3 dispatch: the CUDA kernel on a CUDA tensor, the plain version on
+    a CPU tensor (no fallback between them)."""
+    if feat.device.type == "cuda":
+        return _tile_bwd_cuda(feat, ranges, limit, grid_x, width, height,
+                              g_packed, packed)
+    if feat.device.type == "cpu":
+        return tile_bwd_plain(feat, ranges, limit, grid_x, width, height,
+                              g_packed, packed)
+    raise ValueError(f"tile_bwd: unsupported device {feat.device}")
+
+
+# ---------------------------------------------------------------------------
+# K5 / K6: per-primitive segmented sums
+# ---------------------------------------------------------------------------
+
+_SEG_ARGS = _argtypes("p", "l", "p", "p", "i", "p", "l", "p")
+SEG_REDUCE_F32 = _cuda.Kernel("seg_reduce", "seg_reduce_f32_launch",
+                              _SEG_ARGS)
+SEG_REDUCE_PACKED = _cuda.Kernel("seg_reduce", "seg_reduce_packed_launch",
+                                 _SEG_ARGS)
+
+
+def unpack_bf16x2(v):
+    """int32 rows of (bf16 hi << 16 | bf16 lo) -> (hi, lo) f32: widening a
+    bf16 is appending 16 zero bits (hi = v & 0xFFFF0000, lo = v << 16)."""
+    return (v & -65536).view(torch.float32), (v << 16).view(torch.float32)
+
+
+def pack_bf16x2(a, b):
+    """Two f32 rows -> one int32 row of (bf16(a) << 16 | bf16(b)),
+    rounded to nearest even as the JAX package's astype(bfloat16)."""
+    ah = a.to(torch.bfloat16).view(torch.int16).to(torch.int32)
+    bh = b.to(torch.bfloat16).view(torch.int16).to(torch.int32) & 0xFFFF
+    return (ah << 16) | bh  # ah's sign extension is shifted out
+
+
+def seg_reduce_plain(rows, order, bounds, packed: bool):
+    """Plain version of K5 (packed=False: rows (9, B) f32) and K6
+    (packed=True: rows (5, B) int32 bf16x2 pairs).  Segment r is
+    order[bounds[r]:bounds[r+1]]; returns the (9, P) f32 sums, P =
+    len(bounds) - 1, in segment (depth-rank) order."""
+    num_p = bounds.shape[0] - 1
+    n = int(bounds[-1])
+    sel = order[:n]
+    if packed:
+        hi, lo = unpack_bf16x2(rows[:, sel])
+        vals = torch.stack([hi, lo], dim=1).reshape(-1, n)[:TABLE_ROWS]
+    else:
+        vals = rows[:TABLE_ROWS, sel]
+    lens = (bounds[1:] - bounds[:-1]).long()
+    seg = torch.repeat_interleave(
+        torch.arange(num_p, device=rows.device), lens, output_size=n)
+    out = torch.zeros((TABLE_ROWS, num_p), dtype=torch.float32,
+                      device=rows.device)
+    return out.index_add_(1, seg, vals)
+
+
+def _seg_reduce_cuda(rows, order, bounds, packed: bool):
+    want = (PACKED_ROWS, torch.int32) if packed else (TABLE_ROWS,
+                                                      torch.float32)
+    if rows.ndim != 2 or rows.shape[0] < want[0] or rows.dtype != want[1] \
+            or rows.stride(1) != 1:
+        raise ValueError(f"seg_reduce: rows must be (>={want[0]}, B) "
+                         f"{want[1]} with unit stride")
+    if order.dtype != torch.int64 or order.ndim != 1 \
+            or not order.is_contiguous() or order.shape[0] != rows.shape[1]:
+        raise ValueError("seg_reduce: order must be a contiguous (B,) "
+                         "int64 permutation")
+    if bounds.dtype != torch.int32 or bounds.ndim != 1 \
+            or not bounds.is_contiguous():
+        raise ValueError("seg_reduce: bounds must be contiguous int32")
+    for t in (order, bounds):
+        if t.device != rows.device:
+            raise ValueError("seg_reduce: inputs must share one device")
+    num_p = bounds.shape[0] - 1
+    out = torch.empty((TABLE_ROWS, num_p), dtype=torch.float32,
+                      device=rows.device)
+    kernel = SEG_REDUCE_PACKED if packed else SEG_REDUCE_F32
+    with torch.cuda.device(rows.device):
+        kernel(_cuda.ptr(rows), rows.stride(0), _cuda.ptr(order),
+               _cuda.ptr(bounds), num_p, _cuda.ptr(out), out.stride(0),
+               _cuda.stream_of(rows))
+    return out
+
+
+def seg_reduce(rows, order, bounds, packed: bool):
+    """K5 / K6 dispatch: the CUDA kernel on a CUDA tensor, the plain
+    version on a CPU tensor (no fallback between them)."""
+    if rows.device.type == "cuda":
+        return _seg_reduce_cuda(rows, order, bounds, packed)
+    if rows.device.type == "cpu":
+        return seg_reduce_plain(rows, order, bounds, packed)
+    raise ValueError(f"seg_reduce: unsupported device {rows.device}")
+
+
+def segment_reduce_by_src(dfeat, binning: BinningOut, grad_reduce="f32"):
+    """Per-primitive sums of the (9, B_pad) per-slot gradient rows, (9, P)
+    in original primitive order.
+
+    The slots are sorted on key = where(pad, P, depth rank) (pads, slack
+    and truncated slots sort past every real one), so depth rank r's
+    instances are order[seg_bounds[r]:seg_bounds[r+1]].  bf16x2 packs the
+    rows in pairs (the JAX package's sort payload) and K6 unpacks them in
+    registers; f32 hands K5 the rows as they are.
+    """
+    if grad_reduce not in GRAD_REDUCE:
+        raise ValueError(f"unknown grad_reduce {grad_reduce!r}")
+    num_p = binning.seg_bounds.shape[0] - 1
+    key = torch.where(binning.pad_mask, num_p, binning.gauss_aligned)
+    order = torch.sort(key, stable=True).indices
+    bounds = binning.seg_bounds.contiguous()
+    if grad_reduce == "bf16x2":
+        rows = torch.cat([dfeat[:TABLE_ROWS], torch.zeros_like(dfeat[:1])])
+        rows = pack_bf16x2(rows[0::2], rows[1::2])  # (5, B_pad)
+        sums = seg_reduce(rows, order, bounds, packed=True)
+    else:
+        sums = seg_reduce(dfeat, order, bounds, packed=False)
+    return sums[:, binning.prim_inv.long()]  # depth rank -> original id
+
+
+# ---------------------------------------------------------------------------
+# feature tables / assembly helpers
+# ---------------------------------------------------------------------------
+
+def _pack_features(binning: BinningOut, fast: bool = False):
+    """Gather aligned instances into a feature-major (9, B_pad) f32 array
+    from binning's depth-rank feature table.  Padding slots pull rank 0's
+    row but sit outside every tile's [start, end) range.
+
+    fast (grad_reduce="bf16x2"): the gathered table is 8 int32 columns —
+    [x, y, cxx, cxy, cyy, r, g] bitcast f32 and one column of (u16
+    fixed-point opacity << 16 | bf16 blue) — unpacked after the gather to
+    the same f32 rows, so the kernels are the same in both modes.  The
+    packed column's sign bit is set for opacity >= 0.5, so its opacity is
+    shifted out and masked (torch's >> on int32 is arithmetic).
+    """
+    per = binning.feat_rank
+    gid = binning.gauss_id().long()
+    b_pad = gid.shape[0]
+    if not fast:
+        return per[gid].T.contiguous(), b_pad
+    f32cols = per[:, (0, 1, 2, 3, 4, 6, 7)].contiguous().view(torch.int32)
+    opq = torch.clamp(torch.round(per[:, 5] * OP_FIX), 0.0, OP_FIX)
+    bbits = per[:, 8].to(torch.bfloat16).view(torch.int16).to(torch.int32)
+    col7 = (opq.to(torch.int32) << 16) | (bbits & 0xFFFF)
+    g8 = torch.cat([f32cols, col7[:, None]], dim=1)[gid].T  # (8, B_pad)
+    r7 = g8[7]
+    op_row = ((r7 >> 16) & 0xFFFF).to(torch.float32) * (1.0 / OP_FIX)
+    f32rows = g8[0:7].contiguous().view(torch.float32)
+    feat = torch.cat([f32rows[0:5], op_row[None], f32rows[5:7],
+                      unpack_bf16x2(r7)[1][None]])
     return feat, b_pad
 
 
@@ -187,15 +466,59 @@ def _packed_to_images(packed, grid_x, grid_y, width, height):
     return img[:, :, 0:3], img[:, :, 3]
 
 
-def _core_fwd(binning: BinningOut, width: int, height: int):
-    """Packed (num_tiles, 8, 256) tile output of K2 for one binning."""
-    grid_x, _ = tile_grid(width, height)
-    feat, b_pad = _pack_features(binning)
+def _walk_inputs(binning: BinningOut, width: int, fast: bool):
+    grid_x, _ = tile_grid(width, 1)
+    feat, b_pad = _pack_features(binning, fast)
     # clamp: under slack overflow total_padded may exceed b_pad (the host
     # redoes the frame, see renderer.py); nothing past b_pad is read
     limit = torch.clamp(binning.total_padded, max=b_pad).to(torch.int32)
-    return tile_fwd(feat, binning.tile_ranges.contiguous(), limit, grid_x,
-                    width, height)
+    return feat, binning.tile_ranges.contiguous(), limit, grid_x
+
+
+def _core_fwd(binning: BinningOut, width: int, height: int,
+              fast: bool = False):
+    """Packed (num_tiles, 8, 256) tile output of K2 for one binning."""
+    feat, ranges, limit, grid_x = _walk_inputs(binning, width, fast)
+    return tile_fwd(feat, ranges, limit, grid_x, width, height)
+
+
+def _mark(marks):
+    if marks is not None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+
+
+class _RasterizeCore(torch.autograd.Function):
+    """Packed tile rows with K3 + K5/K6 as the backward (the JAX package's
+    custom VJP, tile_render.py:952).  The values come from
+    binning.feat_rank (built from detached tensors); the gradients go to
+    the four differentiable inputs.  ``marks`` (a list, on the card)
+    receives an event at the start of the backward, after K3 and after
+    the reduction."""
+
+    @staticmethod
+    def forward(ctx, means2d, conic, opacity, color, binning, width, height,
+                grad_reduce, marks):
+        fast = grad_reduce == "bf16x2"
+        feat, ranges, limit, grid_x = _walk_inputs(binning, width, fast)
+        packed = tile_fwd(feat, ranges, limit, grid_x, width, height)
+        ctx.save_for_backward(feat, ranges, limit, packed)
+        ctx.meta = (binning, grid_x, width, height, grad_reduce, marks)
+        return packed
+
+    @staticmethod
+    def backward(ctx, g_packed):
+        feat, ranges, limit, packed = ctx.saved_tensors
+        binning, grid_x, width, height, grad_reduce, marks = ctx.meta
+        _mark(marks)
+        dfeat = tile_bwd(feat, ranges, limit, grid_x, width, height,
+                         g_packed.contiguous(), packed)
+        _mark(marks)
+        sums = segment_reduce_by_src(dfeat, binning, grad_reduce)
+        _mark(marks)
+        return (sums[0:2].T, sums[2:5].T, sums[5], sums[6:9].T,
+                None, None, None, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -204,11 +527,12 @@ def _core_fwd(binning: BinningOut, width: int, height: int):
 
 def tile_render(prep: PreprocessOut, binning: BinningOut, background,
                 width: int, height: int, want_transmittance: bool = False,
-                tile_rows=None, grad_reduce: str = "f32"):
-    """Tile-rendered image with reference-parity semantics.
+                tile_rows=None, grad_reduce: str = "f32", marks=None):
+    """Tile-rendered image with reference-parity semantics, differentiable
+    in prep.means2d, conic, opacity and color.
 
     Returns (color (H,W,3), final_T (H,W), None, None); the last two are
-    the transmittance outputs, which this slice does not port yet.
+    the transmittance outputs, which the port does not have yet.
     """
     if want_transmittance:
         raise NotImplementedError(
@@ -217,12 +541,12 @@ def tile_render(prep: PreprocessOut, binning: BinningOut, background,
     if tile_rows is not None:
         raise NotImplementedError("strip rendering (tile_rows) is not "
                                   "ported yet")
-    if grad_reduce != "f32":
-        raise NotImplementedError(
-            f"grad_reduce={grad_reduce!r}: only the f32 forward is ported")
+    if grad_reduce not in GRAD_REDUCE:
+        raise ValueError(f"unknown grad_reduce {grad_reduce!r}")
     grid_x, grid_y = tile_grid(width, height)
-    del prep  # its features rode the binning sort (binning.feat_rank)
-    packed = _core_fwd(binning, width, height)
+    packed = _RasterizeCore.apply(prep.means2d, prep.conic, prep.opacity,
+                                  prep.color, binning, width, height,
+                                  grad_reduce, marks)
     color, t_fin = _packed_to_images(packed, grid_x, grid_y, width, height)
     bg = torch.as_tensor(background, dtype=torch.float32,
                          device=color.device)

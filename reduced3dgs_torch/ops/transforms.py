@@ -86,7 +86,10 @@ def normalize(v, axis=-1, eps=0.0):
     # sqrt of the sum of squares, as jnp.linalg.norm computes it
     n = torch.sqrt((v * v).sum(dim=axis, keepdim=True))
     if eps:
-        n = torch.clamp(n, min=eps)
+        # torch.maximum, not clamp: at a tie it splits the gradient as
+        # jnp.maximum does (torch.full: no host-to-device copy)
+        n = torch.maximum(n, torch.full((), eps, dtype=n.dtype,
+                                        device=n.device))
     return v / n
 
 

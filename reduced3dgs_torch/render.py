@@ -67,11 +67,12 @@ def render_once(pv: PoolView, cp, background, budget: int,
     (marks: see renderer.render)."""
     from reduced3dgs_torch.renderer import render
 
-    return render(
-        pv.xyz, pv.features, pv.scaling, pv.rotation, pv.opacity,
-        pv.degrees, cp, background, width=cp.width, height=cp.height,
-        instance_budget=budget, alive_mask=pv.alive, backend=backend,
-        marks=marks)
+    with torch.inference_mode():
+        return render(
+            pv.xyz, pv.features, pv.scaling, pv.rotation, pv.opacity,
+            pv.degrees, cp, background, width=cp.width, height=cp.height,
+            instance_budget=budget, alive_mask=pv.alive, backend=backend,
+            marks=marks)
 
 
 def render_view(pv: PoolView, cam, background, budget: int = VIEW_START_BUDGET,

@@ -1,12 +1,16 @@
 """Renderer facade (PyTorch): preprocess -> tile binning -> compositing.
 
-Counterpart of reduced3dgs_tpu/renderer.py for the serving path (no
-autograd yet: it runs under torch.no_grad).  Backends:
+Counterpart of reduced3dgs_tpu/renderer.py.  Differentiable in the raw
+parameters (and ``screen_offset``); callers that only serve wrap it in
+torch.inference_mode (reduced3dgs_torch/render.py), so no graph is built.
+Backends:
 
-  * "tile" — the tile rasterizer (ops/tile_render.py): kernels K1 + K2 on
-             a CUDA tensor, their plain versions on a CPU tensor.
+  * "tile" — the tile rasterizer (ops/tile_render.py): kernels K1 + K2
+             forward and K3 + K5/K6 backward on a CUDA tensor, their plain
+             versions on a CPU tensor.
   * "ref"  — the masked pixel-by-instance oracle (ops/render_ref.py),
-             O(pixels * B); small images and tests only.
+             O(pixels * B), differentiable by autograd: the gradient
+             oracle; small images and tests only.
 
 The per-frame instance count is data-dependent; callers pass a static
 ``instance_budget`` and ``out.num_rendered`` reports the true count (plus
@@ -53,7 +57,6 @@ class RenderOut(NamedTuple):
     pixels_touched: torch.Tensor | None = None  # not ported yet
 
 
-@torch.no_grad()
 def render(
     xyz,
     features,  # (P, 16, 3) SH coefficients (dc + rest)
@@ -71,12 +74,18 @@ def render(
     scale_modifier: float = 1.0,
     backend: str = "tile",
     color_precomp=None,
+    screen_offset=None,
+    grad_reduce: str = "f32",
     marks: list | None = None,
 ) -> RenderOut:
     """Render one view; every tensor lies on one device (the camera's).
 
-    marks: on a CUDA device, a list that receives a timing event recorded
-    before the first stage and after each of STAGES (stage times).
+    grad_reduce: the "tile" backend's per-primitive gradient reduction,
+    "f32" or "bf16x2" (packed payload and the fast feature table, as in
+    the JAX package).  marks: on a CUDA device, a list that receives a
+    timing event recorded before the first stage and after each of
+    STAGES (stage times); the tile backward appends three more (see
+    tile_render._RasterizeCore).
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; use one of "
@@ -85,7 +94,7 @@ def render(
     prep = prep_ops.preprocess(
         xyz, scaling_raw, rotation_raw, opacity_raw, features, degrees, cam,
         alive_mask=alive_mask, scale_modifier=scale_modifier,
-        color_precomp=color_precomp)
+        color_precomp=color_precomp, screen_offset=screen_offset)
     _mark(marks)
     b = binning_ops.bin_gaussians(prep, width, height, instance_budget)
     _mark(marks)
@@ -107,7 +116,8 @@ def render(
         from reduced3dgs_torch.ops.tile_render import tile_render
 
         color, final_t, _, _ = tile_render(prep, b, background, width,
-                                           height)
+                                           height, grad_reduce=grad_reduce,
+                                           marks=marks)
     _mark(marks)
     return RenderOut(
         color=color,

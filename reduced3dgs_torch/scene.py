@@ -1,21 +1,49 @@
-"""Scene: dataset detection, camera lists and model loading.
+"""Scene: dataset detection, camera lists, model loading and saving.
 
-Counterpart of the loading path of reduced3dgs_tpu/scene.py: COLMAP vs
-Blender auto-detection, resolution-scaled camera lists, cameras_extent,
-and the point_cloud[_quantised][_half].ply / _quantised_pack naming.
-Training-side setup (initial point cloud, camera JSON dump, saving,
-redundancy) comes with training.
+Counterpart of reduced3dgs_tpu/scene.py: COLMAP vs Blender
+auto-detection, resolution-scaled camera lists, cameras_extent, the
+point_cloud[_quantised][_half].ply / _quantised_pack naming, and the
+training setup (input.ply and cameras.json copied into the model
+directory, the initial pool from the scene's point cloud).  The
+redundancy metric (mercy culling) is not ported yet.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import random
+import shutil
+
+import numpy as np
 
 from reduced3dgs_torch.cameras import Camera
 from reduced3dgs_torch.config import ModelParams
 from reduced3dgs_torch.data import dataset_readers as readers
-from reduced3dgs_torch.models.ply_io import load_gaussian_ply, pool_from_arrays
+from reduced3dgs_torch.models import gaussians as G
+from reduced3dgs_torch.models.ply_io import (
+    load_gaussian_ply, pool_from_arrays, save_gaussian_ply,
+)
+from reduced3dgs_torch.ops.transforms import fov2focal
+
+
+def camera_to_json(idx, cam: Camera):
+    """The reference's camera_to_JSON entry of cameras.json."""
+    rt = np.zeros((4, 4))
+    rt[:3, :3] = cam.R.transpose()
+    rt[:3, 3] = cam.T
+    rt[3, 3] = 1.0
+    w2c = np.linalg.inv(rt)
+    return {
+        "id": idx,
+        "img_name": cam.image_name,
+        "width": cam.width,
+        "height": cam.height,
+        "position": w2c[:3, 3].tolist(),
+        "rotation": [x.tolist() for x in w2c[:3, :3]],
+        "fy": fov2focal(cam.fov_y, cam.height),
+        "fx": fov2focal(cam.fov_x, cam.width),
+    }
 
 
 def search_max_iteration(folder):
@@ -30,19 +58,24 @@ def ply_name(quantised=False, half_float=False, pack_xyz=False):
 
 
 class Scene:
+    """load_iteration: -1 (the latest), an iteration, or None for
+    training, which copies input.ply and writes cameras.json into the
+    model directory and builds ``self.pool`` from the scene's point cloud
+    on `device` (default: the card) unless a pool is given."""
+
     def __init__(self, args: ModelParams, load_iteration=-1, shuffle=True,
-                 resolution_scales=(1.0,), lazy_images=False):
+                 resolution_scales=(1.0,), lazy_images=False, pool=None,
+                 device=None):
         self.model_path = args.model_path
-        if load_iteration is None:
-            raise NotImplementedError(
-                "a scene without a trained model (training setup) is not "
-                "ported yet")
+        self.pool = pool
+        self.loaded_iter = None
         if load_iteration == -1:
             self.loaded_iter = search_max_iteration(
                 os.path.join(self.model_path, "point_cloud"))
-        else:
+        elif load_iteration is not None:
             self.loaded_iter = load_iteration
-        print(f"Loading trained model at iteration {self.loaded_iter}")
+        if self.loaded_iter is not None:
+            print(f"Loading trained model at iteration {self.loaded_iter}")
 
         if os.path.exists(os.path.join(args.source_path, "sparse")):
             info = readers.read_colmap_scene(
@@ -55,6 +88,17 @@ class Scene:
         else:
             raise ValueError(
                 f"Could not recognize scene type: {args.source_path}")
+
+        if self.loaded_iter is None and self.model_path:
+            os.makedirs(self.model_path, exist_ok=True)
+            shutil.copyfile(info.ply_path,
+                            os.path.join(self.model_path, "input.ply"))
+            cams = info.train_cameras + info.test_cameras
+            with open(os.path.join(self.model_path, "cameras.json"),
+                      "w") as f:
+                json.dump([camera_to_json(i, self._make_camera(c, 1.0, args,
+                                                               True))
+                           for i, c in enumerate(cams)], f)
 
         if shuffle:
             random.shuffle(info.train_cameras)
@@ -70,6 +114,9 @@ class Scene:
             self.test_cameras[scale] = [
                 self._make_camera(c, scale, args, lazy_images)
                 for c in info.test_cameras]
+        if self.loaded_iter is None and self.pool is None:
+            xyz, colors = info.point_cloud
+            self.pool = G.create_from_pcd(xyz, colors, device=device)
 
     @staticmethod
     def _make_camera(info, scale, args, lazy):
@@ -91,6 +138,12 @@ class Scene:
         arrs = load_gaussian_ply(path, quantised=quantised or pack_xyz,
                                  half_float=half_float or pack_xyz)
         return pool_from_arrays(arrs, device)
+
+    def save(self, iteration):
+        """point_cloud/iteration_N/point_cloud.ply of ``self.pool``."""
+        save_gaussian_ply(
+            os.path.join(self.model_path, "point_cloud",
+                         f"iteration_{iteration}", ply_name()), self.pool)
 
     def get_train_cameras(self, scale=1.0):
         return self.train_cameras[scale]

@@ -1,0 +1,189 @@
+"""Training CLI of the port — counterpart of the root train.py.
+
+    python -m reduced3dgs_torch.train -s <scene> [-m <model_dir>] \\
+        [--iterations N] [--grad_reduce bf16x2|f32] [--device cpu]
+
+Same flags, loop and saves as train.py (point_cloud/iteration_N/
+point_cloud.ply at every --save_iterations entry and at the end), on the
+card unless --device cpu is given.  Not ported yet, and refused up front:
+--mercy_points, --cull_SH, --start_checkpoint / --checkpoint_iterations,
+--variable_sh_bands and --fused_steps > 1.  The final compression of
+train.py (k-means codebooks and the quantised / half PLYs) is not run.
+No TensorBoard and no network GUI.
+"""
+
+from __future__ import annotations
+
+import os
+import random
+import sys
+import time
+import uuid
+from argparse import ArgumentParser
+
+import numpy as np
+
+NOT_COMPRESSED = ("the final compression (k-means codebooks, quantised and "
+                  "half PLYs) is not ported yet and was not run")
+
+
+def build_parser():
+    from reduced3dgs_torch import config as C
+
+    parser = ArgumentParser(
+        description="Training script parameters (PyTorch port); "
+                    + NOT_COMPRESSED)
+    C.add_model_params(parser)
+    C.add_optimization_params(parser)
+    C.add_pipeline_params(parser)
+    parser.add_argument("--ip", type=str, default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=6009)
+    parser.add_argument("--debug_from", type=int, default=-1)
+    parser.add_argument("--detect_anomaly", action="store_true")
+    parser.add_argument("--test_iterations", nargs="+", type=int,
+                        default=[7_000, 30_000])
+    parser.add_argument("--save_iterations", nargs="+", type=int,
+                        default=[7_000, 30_000])
+    parser.add_argument("--quiet", action="store_true")
+    parser.add_argument("--checkpoint_iterations", nargs="+", type=int,
+                        default=[])
+    parser.add_argument("--start_checkpoint", type=str, default=None)
+    parser.add_argument("--cull_SH", nargs="+", type=int, default=[])
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default) or cpu (plain PyTorch "
+                             "versions of the kernels)")
+    return parser
+
+
+def refuse_unported(args):
+    """Raise NotImplementedError for the options this port lacks."""
+    unported = {
+        "--mercy_points": args.mercy_points,
+        "--cull_SH": bool(args.cull_SH),
+        "--start_checkpoint": args.start_checkpoint is not None,
+        "--checkpoint_iterations": bool(args.checkpoint_iterations),
+        "--variable_sh_bands": args.variable_sh_bands,
+        "--fused_steps > 1": args.fused_steps > 1,
+    }
+    bad = [k for k, v in unported.items() if v]
+    if bad:
+        raise NotImplementedError(
+            f"{', '.join(bad)}: not ported to reduced3dgs_torch yet")
+
+
+def main(argv=None):
+    import torch
+
+    from reduced3dgs_torch import config as C
+    from reduced3dgs_torch.device import resolve
+
+    args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
+    refuse_unported(args)
+    device = resolve(args.device)
+    args.save_iterations.append(args.iterations)
+    dataset = C.extract_model(args)
+    opt = C.extract_optimization(args)
+    pipe = C.extract_pipeline(args)
+
+    if not args.model_path:
+        args.model_path = os.path.join("./output/", str(uuid.uuid4())[:10])
+        dataset = dataset.__class__(**{**dataset.__dict__,
+                                       "model_path": args.model_path})
+    print(f"Optimizing {args.model_path} on {device}")
+    os.makedirs(args.model_path, exist_ok=True)
+    C.dump_cfg_args(args.model_path, args)
+
+    random.seed(args.seed)
+    np.random.seed(args.seed)
+    torch.manual_seed(args.seed)
+    if args.detect_anomaly:
+        torch.autograd.set_detect_anomaly(True)
+
+    from reduced3dgs_torch.ops.losses import psnr
+    from reduced3dgs_torch.renderer import render
+    from reduced3dgs_torch.scene import Scene
+    from reduced3dgs_torch.train.trainer import Trainer, prune_dead_step
+
+    scene = Scene(dataset, load_iteration=None, device=device)
+    background = torch.tensor(
+        [1.0, 1.0, 1.0] if dataset.white_background else [0.0, 0.0, 0.0],
+        device=device)
+    backend = ("ref" if (pipe.convert_SHs_python
+                         or pipe.compute_cov3D_python) else pipe.backend)
+    trainer = Trainer(
+        scene.pool, opt, scene.get_train_cameras(),
+        spatial_lr_scale=scene.cameras_extent, background=background,
+        backend=backend, max_sh_degree=dataset.sh_degree, seed=args.seed,
+        cull_sh_iterations=args.cull_SH, scene=scene,
+        white_background=dataset.white_background,
+        grad_reduce=pipe.grad_reduce)
+    trainer.extent = scene.cameras_extent
+
+    def eval_report(iteration):
+        train_cams = scene.get_train_cameras()
+        sample = ([train_cams[i % len(train_cams)]
+                   for i in range(5, 30, 5)] if train_cams else [])
+        pool = trainer.state.pool
+        for name, cams in [("test", scene.get_test_cameras()),
+                           ("train", sample)]:
+            if not cams:
+                continue
+            ps, l1s = [], []
+            for cam in cams:
+                with torch.inference_mode():
+                    out = render(
+                        pool.params.xyz, pool.features(),
+                        pool.params.scaling, pool.params.rotation,
+                        pool.params.opacity[:, 0], pool.degrees,
+                        cam.params(device), background, width=cam.width,
+                        height=cam.height,
+                        instance_budget=trainer._budget_for(cam.uid),
+                        alive_mask=pool.alive, backend=backend)
+                gt = torch.as_tensor(np.clip(cam.image, 0, 1),
+                                     device=device)
+                img = torch.clamp(out.color, 0, 1)
+                ps.append(float(psnr(img, gt)))
+                l1s.append(float((img - gt).abs().mean()))
+            print(f"\n[ITER {iteration}] Evaluating {name}: "
+                  f"L1 {np.mean(l1s):.5f} PSNR {np.mean(ps):.2f}")
+
+    ema = 0.0
+    t_start = time.perf_counter()
+    for iteration in range(1, opt.iterations + 1):
+        metrics = trainer.step(iteration)
+        if iteration % 10 == 0 or iteration == opt.iterations:
+            loss = float(metrics["loss"])
+            if not np.isfinite(loss):
+                snap = os.path.join(args.model_path, "snapshot_fw.npz")
+                pool = trainer.state.pool
+                np.savez(snap, iteration=iteration,
+                         **{f"param_{k}": v.cpu().numpy() for k, v in
+                            pool.params._asdict().items()},
+                         alive=pool.alive.cpu().numpy(),
+                         degrees=pool.degrees.cpu().numpy())
+                raise FloatingPointError(
+                    f"non-finite loss at iteration {iteration}; state "
+                    f"snapshot written to {snap}")
+            ema = 0.4 * loss + 0.6 * ema
+            if not args.quiet:
+                print(f"[ITER {iteration}] loss {ema:.7f} "
+                      f"N {int(metrics['num_alive'])}", flush=True)
+        if iteration in args.test_iterations:
+            eval_report(iteration)
+        if iteration in args.save_iterations:
+            print(f"\n[ITER {iteration}] Saving Gaussians")
+            if opt.prune_dead_points:
+                trainer.state, _ = prune_dead_step(
+                    trainer.state, float(trainer.extent))
+            scene.pool = trainer.state.pool
+            scene.save(iteration)
+
+    scene.pool = trainer.state.pool
+    scene.save(opt.iterations)
+    print(f"\nTraining complete in {time.perf_counter() - t_start:.1f} s; "
+          + NOT_COMPRESSED + ".")
+
+
+if __name__ == "__main__":
+    main()

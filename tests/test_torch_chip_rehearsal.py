@@ -1,0 +1,111 @@
+"""chip_smoke.py's training phases (7-9) rehearsed on the CPU at a tiny
+size.  The CUDA wrappers are replaced by their plain versions, which here
+count launches as the kernels do; CUDA events by a host clock; the
+profiled step is skipped.  What this checks is the phases' control flow,
+shapes and checks, not the kernels (tests/test_torch_gpu.py does that on
+a card)."""
+
+import time
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke as cs
+from reduced3dgs_torch.ops import binning as tbin
+from reduced3dgs_torch.ops import tile_render as ttr
+from reduced3dgs_torch.train import trainer as ttrainer
+
+SMALL = dict(width=96, height=64, n=3000, scales=(0.02, 0.08))
+
+
+class _HostEvent:
+    def __init__(self, enable_timing=True):
+        self.t = None
+
+    def record(self):
+        self.t = time.perf_counter()
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, other):
+        return (other.t - self.t) * 1e3
+
+
+def _counting(fn, kernel):
+    def run(*a, **kw):
+        kernel.launches += 1
+        return fn(*a, **kw)
+    return run
+
+
+@pytest.fixture
+def cpu_card(monkeypatch):
+    monkeypatch.setattr(cs, "MAIN", SMALL)
+    monkeypatch.setattr(cs, "K2_SCENE", dict(SMALL, budget=1 << 15))
+    monkeypatch.setattr(cs, "TRAIN", dict(cs.TRAIN, grad_threshold=1e-6))
+    monkeypatch.setattr(cs, "BENCH_BUDGET", 1 << 16)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "Event", _HostEvent)
+    monkeypatch.setattr(cs, "profile_step", lambda *a: None)
+    monkeypatch.setattr(ttr, "_tile_fwd_cuda", ttr.tile_fwd_plain)
+    monkeypatch.setattr(ttr, "_tile_bwd_cuda", ttr.tile_bwd_plain)
+    monkeypatch.setattr(ttr, "_seg_reduce_cuda", ttr.seg_reduce_plain)
+    monkeypatch.setattr(tbin, "expand_marks_plain", _counting(
+        tbin.expand_marks_plain, tbin.EXPAND))
+    monkeypatch.setattr(ttr, "tile_fwd_plain", _counting(
+        ttr.tile_fwd_plain, ttr.TILE_FWD))
+    monkeypatch.setattr(ttr, "tile_bwd_plain", _counting(
+        ttr.tile_bwd_plain, ttr.TILE_BWD))
+    plain_seg = ttr.seg_reduce_plain
+
+    def seg(rows, order, bounds, packed):
+        k = ttr.SEG_REDUCE_PACKED if packed else ttr.SEG_REDUCE_F32
+        k.launches += 1
+        return plain_seg(rows, order, bounds, packed)
+
+    monkeypatch.setattr(ttr, "seg_reduce_plain", seg)
+    return torch.device("cpu")
+
+
+def test_phase7_kernel_cases(cpu_card):
+    case = cs.k3_case(cpu_card, cs.MAIN, 1 << 15, 0, fast=True)
+    assert case["dfeat"].shape[0] == 9 and case["err"] == 0.0
+    walked = cs.walked_slots(case["k3in"][1], case["k3in"][2],
+                             case["dfeat"].shape[1])
+    assert 0 < int(walked.sum()) < walked.numel()
+    cs.ragged_seg_cases(cpu_card)
+    for mode in ("f32", "bf16x2"):
+        inputs, err = cs.seg_case(case["binning"], case["dfeat"], mode, "x")
+        assert err == 0.0
+        row = cs.report_seg(inputs, err, mode, 3)
+        assert row["launches"] == 3 and row["bound_by"] == "bytes"
+        assert row["library_ms"] > 0
+    row = cs.report_k3(case, 5)
+    assert row["bound_by"] == "operations" and row["plain_ms"] > 0
+
+
+def test_phase8_and_9_rehearsal(cpu_card):
+    worst_ref, worst_16 = cs.small_grad_check(cpu_card)
+    assert worst_ref < 2e-3 and worst_16 < 2e-2
+    pps, ms, nr = cs.fwd_bwd_rate(cpu_card, 0)
+    assert pps > 0 and 0 < nr <= cs.BENCH_BUDGET
+    train_l, f32_l = cs.train_main_path(cpu_card, 0, "cpu")
+    assert train_l["seg_reduce_packed"] >= cs.TRAIN["steps"]
+    assert f32_l["seg_reduce_f32"] >= cs.TRAIN["f32_steps"]
+
+
+def test_student_is_a_perturbed_copy():
+    cams = cs.ring_cameras(32, 24, n_views=2)
+    assert len(cams) == 2
+    leaves = cs.make_arrays(64, (0.01, 0.02), 1)
+    from reduced3dgs_torch.models.gaussians import padded_leaves
+
+    pl = padded_leaves(leaves, capacity=64)
+    pool = cs.student_pool("cpu", pl, 0)
+    dc = pool.features()[:, 0].numpy()
+    d = dc - pl["features_dc"][:, 0]
+    assert 0.2 < d.std() < 0.4
+    np.testing.assert_array_equal(pool.params.xyz.numpy(), pl["xyz"])
+    assert ttrainer.TRAIN_STAGES[-1] == "adam"

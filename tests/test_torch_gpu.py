@@ -6,7 +6,12 @@ Run them on a machine with a card with `python -m pytest
 tests/test_torch_gpu.py -n 0`.  K1 must be bit-exact; K2 within 5e-3 on
 every value and 1e-4 on >= 99.9 % of them (a sequential walk and the
 vectorised plain version may flip one blend at a threshold); the whole
-render on the card within atol 2e-5 / rtol 1e-4 of the CPU render.
+render on the card within atol 2e-5 / rtol 1e-4 of the CPU render.  K3
+holds to the same criterion relative to each gradient row's max, with
+exact zeros outside the walked ranges; K5 / K6 to the float64 segment
+sums within 2e-5 relative plus 1e-5 of the segment's sum of magnitudes;
+one train step on the card matches the same step on the CPU (loss to
+1e-5 relative, gradients at atol 2e-4 max|g| / rtol 2e-3).
 """
 
 import numpy as np
@@ -53,6 +58,67 @@ def test_tile_fwd_kernel_matches_plain(cuda):
     assert err <= 5e-3 and share >= 0.999, (err, share)
     # empty tiles and rows 4..7
     assert torch.equal(got[:, 4:], torch.zeros_like(got[:, 4:]))
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_tile_bwd_kernel_matches_plain(cuda, fast):
+    import chip_smoke as cs
+    from reduced3dgs_torch.ops import tile_render
+
+    scene = dict(width=200, height=136, n=20000, scales=(0.01, 0.05))
+    before = tile_render.TILE_BWD.launches
+    case = cs.k3_case(cuda, scene, 1 << 17, 0, fast)
+    assert tile_render.TILE_BWD.launches == before + 1
+    assert case["err"] < 1e-2
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16x2"])
+def test_seg_reduce_kernels_match_plain(cuda, mode):
+    import chip_smoke as cs
+    from reduced3dgs_torch.ops import binning, tile_render
+
+    kernel = (tile_render.SEG_REDUCE_PACKED if mode == "bf16x2"
+              else tile_render.SEG_REDUCE_F32)
+    fields, cols, _ = cs.ragged_segments(2500)
+    b = binning.BinningOut(**{k: torch.as_tensor(np.asarray(v), device=cuda)
+                              for k, v in fields.items()})
+    before = kernel.launches
+    _, err = cs.seg_case(b, torch.as_tensor(cols, device=cuda), mode, "test")
+    assert kernel.launches == before + 1
+    assert err < 1e-3
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    import chip_smoke as cs
+    from reduced3dgs_torch.cameras import Camera
+    from reduced3dgs_torch.config import OptimizationParams
+    from reduced3dgs_torch.models.gaussians import (
+        padded_leaves, pool_from_numpy,
+    )
+    from reduced3dgs_torch.train import adam
+    from reduced3dgs_torch.train.trainer import TrainState, train_step
+
+    leaves = padded_leaves(cs.make_arrays(3000, (0.02, 0.08), 3))
+    cam = Camera.look_at(eye=(0.4, 0.1, -3.4), target=(0, 0, 0), width=120,
+                         height=72)
+    gt = np.random.default_rng(0).uniform(0, 1, (72, 120, 3)).astype(
+        np.float32)
+    outs = []
+    for dev in (torch.device("cpu"), cuda):
+        pool = pool_from_numpy(leaves, dev)
+        st = TrainState(pool, adam.init(pool.params), torch.Generator(dev))
+        outs.append(train_step(
+            st, cam.params(dev), torch.as_tensor(gt, device=dev),
+            torch.zeros(3, device=dev), 1, width=120, height=72,
+            budget=1 << 15, backend="tile", opt_cfg=OptimizationParams(),
+            spatial_lr_scale=1.0, skip_update=True, grad_reduce="f32"))
+    (_, m_cpu, g_cpu), (_, m_gpu, g_gpu) = outs
+    np.testing.assert_allclose(float(m_gpu["loss"]), float(m_cpu["loss"]),
+                               rtol=1e-5)
+    for a, b in zip(g_cpu, g_gpu):
+        scale = float(a.abs().max())
+        np.testing.assert_allclose(b.cpu().numpy(), a.numpy(),
+                                   atol=2e-4 * scale, rtol=2e-3)
 
 
 def test_render_on_card_matches_cpu(cuda):

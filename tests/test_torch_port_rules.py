@@ -68,16 +68,24 @@ def test_kernel_wrappers_never_fall_back():
     or raise; here a 'meta' tensor must raise, not run a plain version."""
     from reduced3dgs_torch.ops import binning, tile_render
 
-    before = (binning.EXPAND.launches, tile_render.TILE_FWD.launches)
+    kernels = (binning.EXPAND, tile_render.TILE_FWD, tile_render.TILE_BWD,
+               tile_render.SEG_REDUCE_F32, tile_render.SEG_REDUCE_PACKED)
+    before = [k.launches for k in kernels]
     meta = torch.empty(8, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         binning.expand_marks(meta, meta, meta, 16)
-    feat = torch.empty((16, 128), device="meta")
+    feat = torch.empty((9, 128), device="meta")
     ranges = torch.empty((2, 1), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tile_render.tile_fwd(feat, ranges, meta[:1], 1, 16, 16)
-    assert (binning.EXPAND.launches,
-            tile_render.TILE_FWD.launches) == before
+    pix = torch.empty((1, 8, 256), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tile_render.tile_bwd(feat, ranges, meta[:1], 1, 16, 16, pix, pix)
+    order = torch.empty(128, dtype=torch.int64, device="meta")
+    for packed in (False, True):
+        with pytest.raises(ValueError, match="unsupported device"):
+            tile_render.seg_reduce(feat, order, meta[:3], packed)
+    assert [k.launches for k in kernels] == before
 
 
 def test_chip_smoke_main_path_rehearsal(tmp_path):

@@ -189,5 +189,5 @@ def test_unported_options_raise(jax_prep):
         ttr.tile_render(tp, tb, bg, W, H, want_transmittance=True)
     with pytest.raises(NotImplementedError):
         ttr.tile_render(tp, tb, bg, W, H, tile_rows=(0, 1))
-    with pytest.raises(NotImplementedError):
-        ttr.tile_render(tp, tb, bg, W, H, grad_reduce="bf16x2")
+    with pytest.raises(ValueError, match="grad_reduce"):
+        ttr.tile_render(tp, tb, bg, W, H, grad_reduce="bf16")
