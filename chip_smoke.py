@@ -45,7 +45,22 @@ before the final line:
     a few f32 steps; the loss must be finite and fall, and K1, K2, K3 and
     K6 (K5 in f32 mode) must run once per render.  It prints the median
     step time, the fwd+bwd pixels/s bench.py reports, the stage times by
-    CUDA events and the launches and idle share of one profiled step.
+    CUDA events and the launches and idle share of one profiled step;
+10. K4 (csrc/tile_trans.cu) against its plain version at the 512p and the
+    1080p kernel inputs, per slot and per primitive, with exact zeros on
+    every slot outside the walked ranges; its time beside K2's, the plain
+    version's and its bound;
+11. a small scene on the card: render(want_transmittance=True) through
+    the tile backend (K1 + K2 + K4) against the "ref" oracle;
+12. the compression main path at full width, on the trainer of phase 9:
+    Trainer.step runs one mercy pass (redundancy metric over 2^19+
+    primitives and the 8 ring views) and one SH-band cull at the paper's
+    thresholds (and, if that demotes under 5 % or over 95 % of this
+    synthetic scene's degree-3 primitives, a second cull at thresholds
+    taken from the scene's own statistics), then the training CLI's final
+    compression writes the four PLYs, point_cloud_quantised_half.ply is
+    loaded back and the ring is rendered with and without the variable-SH
+    path.
 
 The last line is {"ok": true, "device": {...}}.  Without a card, or
 without the rest of the repository beside it, it exits non-zero first.
@@ -106,6 +121,16 @@ K1_OPS_PER_STEP = 4  # load, compare, select, shift per search step
 K3_OPS_BLEND = 45
 K3_OPS_REDUCE = 9
 K3_OPS_WARP_TREE = 45
+# f32 operations of csrc/tile_trans.cu's inner loop, counted in its SASS
+# (cuobjdump -sass of the built library, sm_90a) as for K2: every walked
+# pair repeats K2's walk exactly (26, K2_OPS_WALKED; K2_OPS_STOP for the
+# pair that stops a pixel).  A blended pair adds 1 - alpha, T (1 - alpha)
+# and its test (1 FADD, 1 FMUL, 1 FSETP: 3) and needs the two sums' adds
+# over the tile's pixels (2).  The kernel's shuffle
+# sum spends 5 SHFL and 5 FADD per warp that blends an instance
+# (K4_OPS_WARP_TREE); the count comes from one __ballot_sync + POPC.
+K4_OPS_BLEND = 5
+K4_OPS_WARP_TREE = 5
 PROFILE_TOP = 12  # kernels listed by phases 6 and 9
 SEG_ROW_BYTES = {"f32": 36, "bf16x2": 20}  # gradient payload per instance
 # phase 9: the trainer's schedule on the bench scene.  Three passes over
@@ -130,7 +155,11 @@ class Codebook(NamedTuple):
 
 def quantile_codebooks(arrs, num_clusters=256):
     """The 20 codebooks save_gaussian_ply stores, from numpy quantiles of
-    each attribute's values (nearest center per value)."""
+    each attribute's values (nearest center per value).  Phase 4 keeps
+    this stand-in for its serving model: the port's k-means fit
+    (ops/kmeans.produce_clusters) runs once at full width in phase 12,
+    on the trained pool, and a second fit here would only repeat its
+    seconds."""
     cols = {
         "features_dc": arrs["features_dc"][:, 0, :],
         "opacity": arrs["opacity"],
@@ -642,11 +671,26 @@ def main(argv=None):
           f"{MAIN['width']}x{MAIN['height']}, num_rendered {fb_nr}, budget "
           f"{BENCH_BUDGET}: {fb_ms:.3f} ms, {pps:.4e} pixels/s; {smi}",
           flush=True)
-    train_l, f32_l = train_main_path(dev, args.seed, smi)
+    train_l, f32_l, trainer, next_it = train_main_path(dev, args.seed, smi)
     kernels += [report_k3(case, train_l["tile_bwd"]),
                 report_seg(*segs["f32"], "f32", f32_l["seg_reduce_f32"]),
                 report_seg(*segs["bf16x2"], "bf16x2",
                            train_l["seg_reduce_packed"])]
+    del case, segs, main_k3
+
+    # --- phase 10: K4 against its plain version ---------------------------
+    k4_case(dev, K2_SCENE, K2_SCENE["budget"], args.seed)
+    k4_main = k4_case(dev, MAIN, budget, args.seed)
+
+    # --- phase 11: transmittance render, tile vs ref, on the card ---------
+    e_sum, d_touch = small_trans_check(dev)
+    print(f"phase 11: small scene render(want_transmittance) on the card, "
+          f"tile vs ref: trans_sum max abs err {e_sum:.3e}, touched differs "
+          f"by at most {d_touch}", flush=True)
+
+    # --- phase 12: the compression main path at full width -----------------
+    comp_l = compression_main_path(dev, trainer, next_it, root, smi)
+    kernels.insert(3, report_k4(k4_main, comp_l["tile_trans"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1078,6 +1122,7 @@ def student_pool(dev, leaves, seed):
     s["opacity"] = (leaves["opacity"] + rng.normal(
         0, TRAIN["opacity_noise"], leaves["opacity"].shape)).astype(
         np.float32)
+    s["active_sh_degree"] = 3  # every primitive of the scene has degree 3
     return pool_from_numpy(s, dev)
 
 
@@ -1123,7 +1168,7 @@ def run_steps(tr, first, count):
 
 def train_main_path(dev, seed, smi):
     """Phase 9.  Returns the launch counts of the bf16x2 run (K1, K2, K3,
-    K6) and of the f32 run (K5)."""
+    K6) and of the f32 run (K5), the trainer and the next iteration."""
     import torch
 
     from reduced3dgs_torch.ops import binning as tbin
@@ -1202,7 +1247,7 @@ def train_main_path(dev, seed, smi):
           f"{', '.join(f'{v:.6f}' for v in f32_losses)}; median step "
           f"{float(np.median(f32_ms)):.3f} ms; launches {f32_launches}",
           flush=True)
-    return launches, f32_launches
+    return launches, f32_launches, tr, it + TRAIN["f32_steps"]
 
 
 def profile_step(tr, it, smi):
@@ -1237,6 +1282,378 @@ def profile_step(tr, it, smi):
     for dev_us, count, key in rows[:PROFILE_TOP]:
         print(f"phase 9: {dev_us / 1e3:9.4f} ms x{count:<5d} {key[:100]}",
               flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phases 10-12: the compression path
+# ---------------------------------------------------------------------------
+
+def compare_k4(got, want):
+    """K4 against its plain version, per slot.  Returns a dict: the
+    largest |sum error|, the share of slots whose sum is within atol 1e-3
+    / rtol 1e-3, the number of slots whose count differs and the largest
+    count difference.  A sequential expf walk and the vectorised
+    torch.exp one may flip single blends at the alpha = 1/255 and T =
+    1e-4 thresholds; a flip moves a slot's count by one and its sum by
+    that pixel's T (<= 1), and every later sum of that pixel by at most
+    alpha = 1/255 of its term."""
+    d = (got[0] - want[0]).abs()
+    ok = d <= 1e-3 + 1e-3 * want[0].abs()
+    dc = (got[1] - want[1]).abs()
+    return dict(err=float(d.max()), share=float(ok.double().mean()),
+                flips=int((dc != 0).sum()), max_flip=float(dc.max()))
+
+
+def k4_case(dev, scene, budget, seed):
+    """K4 against its plain version at one scene's kernel inputs; exact
+    zeros on every slot outside the walked ranges.  Slots: every sum
+    within 1.01 (one flipped pixel) and >= 99.99 % within atol 1e-3 / rtol
+    1e-3; counts differ on <= 0.01 % of the slots, by at most 2.  Per
+    primitive (the sums the culling reads): trans_sum within atol 1e-3 /
+    rtol 1e-3 on >= 99.99 %, touched differs by at most 2."""
+    import torch
+
+    from reduced3dgs_torch.ops import tile_render as ttr
+
+    w, h = scene["width"], scene["height"]
+    _, b, (feat, ranges, limit) = kernel_inputs(
+        dev, w, h, scene["n"], scene["scales"], budget, seed)
+    gx = -(-w // 16)
+    got = ttr._tile_trans_cuda(feat, ranges, limit, gx, w, h)
+    want = ttr.tile_trans_plain(feat, ranges, limit, gx, w, h)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    walked = walked_slots(ranges, limit, feat.shape[1])
+    check(got.shape == (2, feat.shape[1]) and got.dtype == torch.float32,
+          "K4: output shape")
+    check(bool((got[:, ~walked] == 0).all()),
+          "K4: a slot outside the walked ranges is not exactly 0")
+    c = compare_k4(got, want)
+    what = f"K4 {w}x{h}"
+    check(c["err"] <= 1.01 and c["share"] >= 0.9999,
+          f"{what}: sums off the plain version ({c})")
+    check(c["flips"] <= 1e-4 * got.shape[1] and c["max_flip"] <= 2,
+          f"{what}: counts off the plain version ({c})")
+    # per primitive, as tile_render.transmittance_by_primitive sums them
+    num_p = b.prim_inv.shape[0]
+    slot = torch.arange(feat.shape[1], device=dev)
+    seg = torch.where(b.pad_mask | (slot >= b.total_padded), num_p,
+                      b.gauss_aligned).long()
+    zero = torch.zeros((num_p + 1, 2), dtype=torch.float32, device=dev)
+    pg = zero.clone().index_add_(0, seg, got.T)[:num_p]
+    pw = zero.index_add_(0, seg, want.T)[:num_p]
+    p_ok = (pg[:, 0] - pw[:, 0]).abs() <= 1e-3 + 1e-3 * pw[:, 0].abs()
+    p_touch = float((pg[:, 1] - pw[:, 1]).abs().max())
+    p_share = float(p_ok.double().mean())
+    check(p_share >= 0.9999 and p_touch <= 2,
+          f"{what}: per-primitive sums off ({p_share}, {p_touch})")
+    print(f"phase 10: {what} num_rendered {int(b.num_rendered)}: per slot "
+          f"max abs err of the sums {c['err']:.3e}, share within 1e-3 "
+          f"{c['share']:.6f}, counts differ on {c['flips']} slots (by at "
+          f"most {c['max_flip']:.0f}); per primitive share within 1e-3 "
+          f"{p_share:.6f}, touched differs by at most {p_touch:.0f}; "
+          f"{int((~walked).sum())} unwalked slots exactly 0", flush=True)
+    return dict(k4in=(feat, ranges, limit, gx, w, h), err=c["err"])
+
+
+def report_k4(case, launches):
+    """K4's times at the main path's shapes, its bound and the JSON row."""
+    from reduced3dgs_torch.ops import tile_render as ttr
+
+    feat, ranges, limit, gx, w, h = case["k4in"]
+    ms = time_ms(lambda: ttr._tile_trans_cuda(*case["k4in"]), 20)
+    k2_ms = time_ms(lambda: ttr._tile_fwd_cuda(*case["k4in"]), 20)
+    plain_ms = time_ms(lambda: ttr.tile_trans_plain(*case["k4in"]), 1)
+    _, pairs = ttr.tile_fwd_plain(*case["k4in"], count_pairs=True)
+    inst = int((ranges[1] - ranges[0]).sum())
+    tiles = ranges.shape[1]
+    nbytes = 4 * 6 * inst + 8 * tiles + 4 * 2 * feat.shape[1]
+    ops = (K2_OPS_WALKED * pairs["walked"] + K4_OPS_BLEND * pairs["blended"]
+           + K2_OPS_STOP * pairs["stopped"])
+    bms, by, b_ms, o_ms = bound(nbytes, ops)
+    tree_ms = K4_OPS_WARP_TREE * pairs["warp_blended"] / F32_OPS_PER_S * 1e3
+    print(f"phase 10: K4 tiles={tiles} instances={inst} pairs walked "
+          f"{pairs['walked']}, blended {pairs['blended']}, stopped "
+          f"{pairs['stopped']}; warps blending an instance "
+          f"{pairs['warp_blended']}: kernel {ms:.4f} ms (K2 on the same "
+          f"inputs in this loop {k2_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+          f"bound {bms:.4f} ms ({by}; bytes {b_ms:.4f}, operations "
+          f"{o_ms:.4f}; the shuffle sums' adds would take {tree_ms:.4f}), "
+          f"roofline share {bms / ms * 100:.1f} %", flush=True)
+    return {"name": "tile_trans", "route": "cuda",
+            "source": "reduced3dgs_torch/csrc/tile_trans.cu",
+            "replaces": "reduced3dgs_tpu/ops/tile_render.py:674",
+            "launches": launches, "max_abs_err": case["err"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None}
+
+
+def small_trans_check(dev):
+    """Phase 11: render(want_transmittance=True) through the tile backend
+    (K1 + K2 + K4 on the card) against the "ref" oracle on the 56x40,
+    300-primitive scene: trans_sum within atol 1e-3 / rtol 1e-3, touched
+    within 2 per primitive (one flipped blend at a threshold)."""
+    import torch
+
+    from reduced3dgs_torch.cameras import Camera
+    from reduced3dgs_torch.renderer import render
+
+    a = [torch.as_tensor(x, device=dev)
+         for x in bench_scene(300, (0.02, 0.12), 1)]
+    cp = Camera.look_at(eye=(0, 0, -3.2), target=(0, 0, 0), width=56,
+                        height=40).params(dev)
+    bg = torch.zeros(3, device=dev)
+    with torch.inference_mode():
+        tile, ref = (render(*a, cp, bg, width=56, height=40,
+                            instance_budget=4096, backend=be,
+                            want_transmittance=True)
+                     for be in ("tile", "ref"))
+    check(int(tile.pixels_touched.sum()) > 1000, "small scene too sparse")
+    check(tile.pixels_touched.dtype == torch.int32, "touched must be int32")
+    err = float((tile.transmittance_sum - ref.transmittance_sum).abs().max())
+    check(bool(torch.allclose(tile.transmittance_sum, ref.transmittance_sum,
+                              atol=1e-3, rtol=1e-3)),
+          f"trans_sum tile vs ref: {err:.3e}")
+    d_touch = int((tile.pixels_touched - ref.pixels_touched).abs().max())
+    check(d_touch <= 2, f"touched tile vs ref differs by {d_touch}")
+    return err, d_touch
+
+
+def degree_histogram(pool):
+    """Alive primitives per SH degree 0..3, as Python ints."""
+    import torch
+
+    return torch.bincount(pool.degrees[pool.alive].long(),
+                          minlength=4)[:4].tolist()
+
+
+def second_thresholds(pool, cams, budget, quantile=0.3):
+    """(std_threshold, cdist_threshold) that demote a share of this scene:
+    the `quantile` of the alive primitives' colour std and of their
+    degree-2 colour distance (in the CLI's units: distance 255 / sqrt 3),
+    from one pass of the culling statistics."""
+    import torch
+
+    from reduced3dgs_torch.ops.sh_culling import calculate_colours_variance
+
+    dists, var, _ = calculate_colours_variance(pool, cams, budget=budget)
+    alive = pool.alive
+    std = torch.nan_to_num(torch.sqrt(var)).mean(dim=2)[:, 0][alive]
+    d2 = torch.nan_to_num(dists)[:, 2][alive]
+    return (float(torch.quantile(std, quantile)),
+            float(torch.quantile(d2, quantile)) * 255.0 / math.sqrt(3))
+
+
+def ring_images(pv, views, bg, budget):
+    """Clamped renders of the views, (V, H, W, 3) on the pool's device."""
+    import torch
+
+    from reduced3dgs_torch.render import render_view
+
+    imgs = []
+    for cam in views:
+        out, budget = render_view(pv, cam, bg, budget)
+        check(bool(torch.isfinite(out.color).all()), "non-finite image")
+        imgs.append(out.color.clamp(0, 1))
+    return torch.stack(imgs), budget
+
+
+def compression_main_path(dev, tr, it, root, smi):
+    """Phase 12 on the trainer of phase 9 (its pool has been densified
+    past 2^19 primitives): Trainer.step with mercy_points and
+    cull_sh_iterations set inside the schedule, the CLI's final
+    compression, and both render paths on the loaded quantised_half
+    model.  Returns the kernels' launch counts over the whole path."""
+    import dataclasses
+
+    import torch
+
+    from reduced3dgs_torch.config import ModelParams
+    from reduced3dgs_torch.ops import binning as tbin
+    from reduced3dgs_torch.ops import tile_render as ttr
+    from reduced3dgs_torch.render import PoolView, measure_fps, render_once
+    from reduced3dgs_torch.scene import Scene
+    from reduced3dgs_torch.train.__main__ import final_compression
+
+    kernels = {"expand": tbin.EXPAND, "tile_fwd": ttr.TILE_FWD,
+               "tile_bwd": ttr.TILE_BWD, "tile_trans": ttr.TILE_TRANS}
+    cams = tr.cameras
+    nv = len(cams)
+    shutil.rmtree(root, ignore_errors=True)
+    src = os.path.join(root, "source")
+    write_colmap_text(src, cams)
+    scene = Scene(ModelParams(source_path=src,
+                              model_path=os.path.join(root, "model"),
+                              resolution=1),
+                  load_iteration=None, shuffle=False, lazy_images=True,
+                  pool=tr.state.pool, device=dev)
+    views = scene.get_train_cameras()
+    check(len(views) == nv, "scene cameras do not match the ring")
+
+    # the schedule: densification over, a mercy pass at the next multiple
+    # of 4, the cull two steps later (the paper's thresholds)
+    mercy_it = -(-it // 4) * 4
+    cull_it = mercy_it + 2
+    tr.grad_reduce = "bf16x2"
+    tr.scene = scene
+    tr.opt_cfg = dataclasses.replace(
+        tr.opt_cfg, densify_until_iter=it, densification_interval=4,
+        mercy_interval=1, mercy_points=True, std_threshold=0.04,
+        cdist_threshold=6.0)
+    tr.fine_tune_start = tr.opt_cfg.iterations - 3000
+    tr.cull_sh_iterations = (cull_it,)
+    for k in kernels.values():
+        k.launches = 0
+
+    def step(i):
+        before = {n: k.launches for n, k in kernels.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.step(i)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check(math.isfinite(float(m["loss"])), f"non-finite loss at {i}")
+        return dt, {n: k.launches - before[n] for n, k in kernels.items()}
+
+    def check_cull(d, what):
+        check(d["tile_trans"] == 2 * nv
+              and d["expand"] - d["tile_bwd"] == 2 * nv
+              and d["tile_fwd"] - d["tile_bwd"] == 2 * nv,
+              f"{what}: not one K1, K2 and K4 per cull render: {d}")
+
+    step_s = []
+    alive_before = int(tr.state.pool.num_alive)
+    for i in range(it, cull_it + 1):
+        hist = degree_histogram(tr.state.pool)
+        dt, d = step(i)
+        step_s.append(dt)
+        if i == mercy_it:
+            st = tr.stats
+            check("n_points_mercied" in st, "the mercy pass did not run")
+            # the redundancy metric once more, its kNN timed apart
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scene.pool = tr.state.pool
+            red, _ = scene.calculate_redundancy_metric(
+                pixel_scale=tr.opt_cfg.box_size)
+            torch.cuda.synchronize()
+            t_metric = time.perf_counter() - t0
+            t_knn = timed_knn(tr.state.pool)
+            print(f"phase 12: mercy at iteration {i}: {alive_before} alive, "
+                  f"{st['n_points_mercied']} mercied (redundancy threshold "
+                  f"{st['redundancy_threshold']:.4f}, opacity threshold "
+                  f"{st['opacity_threshold']:.4f}; lambda_mercy "
+                  f"{tr.opt_cfg.lambda_mercy}, mercy_minimum "
+                  f"{tr.opt_cfg.mercy_minimum}); step {dt:.3f} s; the "
+                  f"redundancy metric alone {t_metric:.3f} s of which the "
+                  f"exact 30-NN search {t_knn:.3f} s; redundancy max "
+                  f"{int(red.max())}; {smi}", flush=True)
+        if i == cull_it:
+            check_cull(d, "cull")
+            after = degree_histogram(tr.state.pool)
+            print(f"phase 12: cull at iteration {i} (std_threshold 0.04, "
+                  f"cdist_threshold 6, budget "
+                  f"{max(tr.budgets.values())}): degrees 0..3 {hist} -> "
+                  f"{after}; step with {2 * nv} transmittance renders "
+                  f"{dt:.3f} s (a plain step {step_s[0]:.3f} s); launches "
+                  f"{d}; {smi}", flush=True)
+    i = cull_it + 1
+    kept = after[3] / max(hist[3], 1)  # still at degree 3
+    if kept > 0.95 or kept < 0.05:
+        std2, cd2 = second_thresholds(tr.state.pool, cams,
+                                      max(tr.budgets.values()))
+        tr.opt_cfg = dataclasses.replace(tr.opt_cfg, std_threshold=std2,
+                                         cdist_threshold=cd2)
+        tr.cull_sh_iterations = (i,)
+        dt, d = step(i)
+        check_cull(d, "second cull")
+        after2 = degree_histogram(tr.state.pool)
+        print(f"phase 12: the paper's thresholds demote "
+              f"{(1 - kept) * 100:.3f} % of the degree-3 primitives of this "
+              f"synthetic scene; second cull at iteration {i} at the 0.3 "
+              f"quantiles of its own statistics (std_threshold {std2:.5f}, "
+              f"cdist_threshold {cd2:.4f}): degrees 0..3 {after} -> "
+              f"{after2}; step {dt:.3f} s; launches {d}", flush=True)
+        check(after2 != after and after2[0] < sum(after2),
+              "the second cull demoted nothing or everything")
+        i += 1
+    dt, _ = step(i)  # the culled pool trains on
+    print(f"phase 12: one more step on the culled pool {dt:.3f} s",
+          flush=True)
+    # did a cull render overflow the shared budget? (it is not redone)
+    budget = max(tr.budgets.values())
+    pool = tr.state.pool
+    bg = torch.zeros(3, device=dev)
+    need = max(int(render_once(PoolView(pool), c.params(dev), bg,
+                               budget).num_rendered) for c in views)
+    print(f"phase 12: the cull's shared budget {budget} against the views' "
+          f"largest instance count {need}: "
+          f"{'OVERFLOW (truncated, not redone)' if need > budget else 'fits'}",
+          flush=True)
+    launches = {n: k.launches for n, k in kernels.items()}
+
+    # final compression, as the training CLI ends
+    scene.pool = pool
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    paths = final_compression(scene, i, stats=stats)
+    t_comp = time.perf_counter() - t0
+    sizes = stats["bytes"]
+    plain = sizes["point_cloud.ply"]
+    print(f"phase 12: final compression of {int(pool.num_alive)} "
+          f"primitives in {t_comp:.3f} s: produce_clusters "
+          f"{stats['fit_s']:.3f} s, Lloyd steps per codebook "
+          f"{stats['lloyd_steps']}; bytes "
+          + ", ".join(f"{k} {v} (x{plain / v:.3f})" for k, v in sizes.items())
+          + f"; {smi}", flush=True)
+    check(len(paths) == 4 and all(os.path.getsize(p) > 0 for p in paths),
+          "the final compression did not write four files")
+
+    # load quantised_half back; both render paths
+    scene.loaded_iter = i
+    qpool = scene.load_model(quantised=True, half_float=True, device=dev)
+    check(int(qpool.num_alive) == int(pool.num_alive), "loaded pool size")
+    check(degree_histogram(qpool) == degree_histogram(pool),
+          "the stored degrees differ from the pool's")
+    want, budget = ring_images(PoolView(pool), views, bg, budget)
+    dense_pv = PoolView(qpool)
+    ragged_pv = PoolView(qpool, variable_sh=True)
+    dense, budget = ring_images(dense_pv, views, bg, budget)
+    ragged, budget = ring_images(ragged_pv, views, bg, budget)
+    level = float((dense - ragged).abs().max()) * 255.0
+    check(level <= 1.0, f"variable-SH render differs from the dense one by "
+                        f"{level:.3f} 8-bit levels")
+    q_psnr = psnr(dense, want)
+    check(q_psnr > 20.0, f"quantised_half PSNR {q_psnr:.2f} dB")
+    fps_d = measure_fps(dense_pv, views, bg, budget=budget)
+    fps_r = measure_fps(ragged_pv, views, bg, budget=budget)
+    sh_dense = qpool.capacity * 48
+    sh_ragged = sum(n * (d + 1) ** 2 * 3
+                    for d, n in enumerate(ragged_pv.ragged.sizes))
+    print(f"phase 12: quantised_half loaded back: PSNR against the "
+          f"unquantised pool's renders {q_psnr:.3f} dB; variable-SH vs "
+          f"dense render within {level:.4f} 8-bit levels; "
+          f"{fps_d['fps']:.3f} FPS dense, {fps_r['fps']:.3f} FPS "
+          f"variable-SH over {nv} views (budget {fps_d['budget']}); SH "
+          f"floats held {sh_dense} dense, {sh_ragged} ragged; launches of "
+          f"the path {launches}; {smi}", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def timed_knn(pool, k=30):
+    """Seconds of the exact k-NN search over the pool's alive points."""
+    import torch
+
+    from reduced3dgs_torch.ops.knn import knn_exact
+
+    pts = pool.params.xyz[pool.alive]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    knn_exact(pts, k)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
 
 
 if __name__ == "__main__":

@@ -46,6 +46,8 @@ class Camera:
         self.full_proj_transform = (
             self.world_view_transform @ self.projection_matrix
         ).astype(np.float32)
+        self.inverse_full_proj_transform = np.linalg.inv(
+            self.full_proj_transform).astype(np.float32)
         self.camera_center = np.linalg.inv(
             self.world_view_transform)[3, :3].astype(np.float32)
 

@@ -31,7 +31,7 @@ PIXEL_CHUNK = 4096  # pixels composited at once (bounds the (N, B) arrays)
 def _composite_chunk(pix_xy, pix_tile, inst_tile, inst_xy, inst_conic,
                      inst_opac, inst_color, background):
     """Composite one chunk of pixels against ALL B instances.
-    Returns (color (N,3), t_final (N,))."""
+    Returns (color (N,3), t_final (N,), t_prev (N,B), contrib (N,B))."""
     d = inst_xy[None, :, :] - pix_xy[:, None, :]  # (N,B,2)
     power = (
         -0.5 * (inst_conic[None, :, 0] * d[..., 0] ** 2
@@ -53,12 +53,15 @@ def _composite_chunk(pix_xy, pix_tile, inst_tile, inst_xy, inst_conic,
     color = w @ inst_color  # (N,3)
     t_final = torch.where(contrib, t_incl, 1.0).amin(dim=1)
     out = color + t_final[:, None] * background[None, :]
-    return out, t_final
+    return out, t_final, t_prev, contrib
 
 
 def render_ref(prep: PreprocessOut, binning: BinningOut, background,
-               width: int, height: int):
-    """Render the full image: (color (H,W,3), final_T (H,W))."""
+               width: int, height: int, want_transmittance: bool = False):
+    """Render the full image: (color (H,W,3), final_T (H,W)); with
+    want_transmittance also (trans_sum (P,), touched (P,) int32), the
+    per-primitive sum of the transmittance before each blend and the
+    count of blending pixels (no gradient)."""
     grid_x, _ = tile_grid(width, height)
     dev = prep.means2d.device
     # binning ids are depth ranks; translate to original primitive ids
@@ -80,12 +83,26 @@ def render_ref(prep: PreprocessOut, binning: BinningOut, background,
                 + xs.to(torch.int32) // TILE_X).reshape(-1)
 
     outs, ts = [], []
+    b = inst_tile.shape[0]
+    trans_sum = torch.zeros(b, dtype=torch.float32, device=dev)
+    touch_sum = torch.zeros(b, dtype=torch.int32, device=dev)
     for i in range(0, pix_xy.shape[0], PIXEL_CHUNK):
-        out, t = _composite_chunk(
+        out, t, t_prev, contrib = _composite_chunk(
             pix_xy[i:i + PIXEL_CHUNK], pix_tile[i:i + PIXEL_CHUNK],
             inst_tile, inst_xy, inst_conic, inst_opac, inst_color, bg)
+        if want_transmittance:
+            with torch.no_grad():
+                trans_sum += torch.where(contrib, t_prev, 0.0).sum(dim=0)
+                touch_sum += contrib.sum(dim=0).to(torch.int32)
         outs.append(out)
         ts.append(t)
     color = torch.cat(outs, dim=0).reshape(height, width, 3)
     t_final = torch.cat(ts, dim=0).reshape(height, width)
+    if want_transmittance:
+        num_p = prep.means2d.shape[0]
+        g_trans = torch.zeros(num_p, dtype=torch.float32,
+                              device=dev).index_add_(0, gauss_id, trans_sum)
+        g_touch = torch.zeros(num_p, dtype=torch.int32,
+                              device=dev).index_add_(0, gauss_id, touch_sum)
+        return color, t_final, g_trans, g_touch
     return color, t_final

@@ -90,3 +90,21 @@ def eval_sh_color_clamped(sh, dirs, degrees):
     rgb = eval_sh_color(sh, dirs, degrees) + 0.5
     return torch.maximum(rgb, torch.zeros((), dtype=rgb.dtype,
                                           device=rgb.device))
+
+
+def eval_sh_color_per_degree(sh, dirs, degrees, max_degree=3):
+    """Colours at each cumulative degree 0..max_degree, (P, max_degree+1,
+    3), for adaptive SH-band culling.  The running sum is not clamped
+    between stages, only each emitted colour is; entries above a
+    primitive's own degree are 0."""
+    terms = sh_basis(dirs)[..., None] * sh  # (P, 16, 3)
+    running = terms[:, 0, :] + 0.5
+    outs = [torch.clamp(running, min=0.0)]
+    bounds = (1, 4, 9, 16)
+    for d in range(1, max_degree + 1):
+        running = running + terms[:, bounds[d - 1]:bounds[d], :].sum(dim=1)
+        outs.append(torch.clamp(running, min=0.0))
+    stacked = torch.stack(outs, dim=1)
+    deg_ok = (torch.arange(max_degree + 1, device=degrees.device)[None, :]
+              <= degrees[:, None])
+    return stacked * deg_ok[..., None].to(stacked.dtype)

@@ -1,4 +1,4 @@
-"""Tile rasterizer (PyTorch + CUDA kernels K2, K3, K5 and K6).
+"""Tile rasterizer (PyTorch + CUDA kernels K2, K3, K4, K5 and K6).
 
 Counterpart of reduced3dgs_tpu/ops/tile_render.py, with the same
 compositing semantics:
@@ -19,6 +19,9 @@ version; a CUDA tensor launches the kernel or raises):
   K2  csrc/tile_fwd.cu    forward compositing, one 16x16 tile per block
   K3  csrc/tile_bwd.cu    backward re-walk: per-instance gradients of the
                           9 features, written once per slot
+  K4  csrc/tile_trans.cu  inference-only walk for SH-band culling: per
+                          slot, the sum of the transmittance before each
+                          blend and the count of blending pixels
   K5  csrc/seg_reduce.cu  per-primitive sums of the 9 gradient rows
   K6  csrc/seg_reduce.cu  the same on bf16x2-packed rows
 
@@ -315,6 +318,93 @@ def tile_bwd(feat, ranges, limit, grid_x: int, width: int, height: int,
 
 
 # ---------------------------------------------------------------------------
+# K4: per-instance transmittance statistics (feeds SH-band culling)
+# ---------------------------------------------------------------------------
+
+TILE_TRANS = _cuda.Kernel("tile_trans", "tile_trans_launch",
+                          _argtypes("p", "l", "p", "i", "p", "i", "i", "i",
+                                    "p", "l", "p"))
+
+
+def tile_trans_plain(feat, ranges, limit, grid_x: int, width: int,
+                     height: int):
+    """Plain version of K4.
+
+    feat/ranges/limit as K2.  Returns (2, B_pad) f32 rows [trans_sum,
+    touched]: per slot, over the tile's pixels that blend the instance,
+    the sum of the transmittance before the blend and the number of those
+    pixels.  The pair that stops a pixel adds nothing, and slots the walk
+    never reaches are exactly 0.
+    """
+    dev = feat.device
+    out = torch.zeros((2, feat.shape[1]), dtype=torch.float32, device=dev)
+    starts, ends, busy = _busy_tiles(ranges, limit)
+    for g0 in range(0, busy.numel(), TILE_GROUP):
+        tiles = busy[g0:g0 + TILE_GROUP]
+        s, e = starts[tiles], ends[tiles]
+        pxf, pyf, done = _tile_pixels(tiles, grid_x, width, height)
+        t_cur = torch.ones(done.shape, dtype=torch.float32, device=dev)
+        n_chunks = int(((e - s + K - 1) // K).max())
+        for c in range(n_chunks):
+            if bool(done.all()):
+                break
+            st = _chunk(feat, s, e, c, pxf, pyf, t_cur, done)
+            contrib = st["contrib"]
+            vals = torch.stack([
+                torch.where(contrib, st["t_exc"], 0.0).sum(1),
+                contrib.sum(1).to(torch.float32)])  # (2, G, K)
+            inr = st["inr"]
+            out[:, st["idx"][inr]] = vals[:, inr]
+            t_cur, crossed = _advance(st, t_cur)
+            done = done | crossed[..., -1]
+    return out
+
+
+def _tile_trans_cuda(feat, ranges, limit, grid_x: int, width: int,
+                     height: int):
+    _check_walk_inputs("tile_trans", feat, ranges, limit)
+    # zeros: slots the walk never reaches must read exactly 0
+    out = torch.zeros((2, feat.shape[1]), dtype=torch.float32,
+                      device=feat.device)
+    with torch.cuda.device(feat.device):
+        TILE_TRANS(_cuda.ptr(feat), feat.stride(0), _cuda.ptr(ranges),
+                   ranges.shape[1], _cuda.ptr(limit), grid_x, width, height,
+                   _cuda.ptr(out), out.stride(0), _cuda.stream_of(feat))
+    return out
+
+
+def tile_trans(feat, ranges, limit, grid_x: int, width: int, height: int):
+    """K4 dispatch: the CUDA kernel on a CUDA tensor, the plain version on
+    a CPU tensor (no fallback between them)."""
+    if feat.device.type == "cuda":
+        return _tile_trans_cuda(feat, ranges, limit, grid_x, width, height)
+    if feat.device.type == "cpu":
+        return tile_trans_plain(feat, ranges, limit, grid_x, width, height)
+    raise ValueError(f"tile_trans: unsupported device {feat.device}")
+
+
+@torch.no_grad()
+def transmittance_by_primitive(binning: BinningOut, width: int, height: int):
+    """(trans_sum (P,) f32, touched (P,) int32) in original primitive
+    order: K4 on the exact f32 feature table (whatever grad_reduce is),
+    then a scatter-add per primitive.  The accumulators are all positive,
+    so a direct sum per primitive keeps the precision the culling
+    statistics need; padding slots and slots at or past total_padded go
+    to a dump row."""
+    feat, ranges, limit, grid_x = _walk_inputs(binning, width, fast=False)
+    acc = tile_trans(feat, ranges, limit, grid_x, width, height)
+    b_pad = feat.shape[1]
+    num_p = binning.prim_inv.shape[0]
+    slot = torch.arange(b_pad, device=feat.device)
+    seg_id = torch.where(binning.pad_mask | (slot >= binning.total_padded),
+                         num_p, binning.gauss_aligned).long()
+    asum = torch.zeros((num_p + 1, 2), dtype=torch.float32,
+                       device=feat.device).index_add_(0, seg_id, acc.T)
+    asum = asum[:num_p][binning.prim_inv.long()]  # depth rank -> original id
+    return asum[:, 0], asum[:, 1].to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
 # K5 / K6: per-primitive segmented sums
 # ---------------------------------------------------------------------------
 
@@ -531,13 +621,10 @@ def tile_render(prep: PreprocessOut, binning: BinningOut, background,
     """Tile-rendered image with reference-parity semantics, differentiable
     in prep.means2d, conic, opacity and color.
 
-    Returns (color (H,W,3), final_T (H,W), None, None); the last two are
-    the transmittance outputs, which the port does not have yet.
+    Returns (color (H,W,3), final_T (H,W), trans_sum (P,) | None, touched
+    (P,) int32 | None); the last two (want_transmittance, kernel K4) carry
+    no gradient.
     """
-    if want_transmittance:
-        raise NotImplementedError(
-            "want_transmittance (SH culling, kernel _trans_kernel) is not "
-            "ported yet")
     if tile_rows is not None:
         raise NotImplementedError("strip rendering (tile_rows) is not "
                                   "ported yet")
@@ -551,4 +638,7 @@ def tile_render(prep: PreprocessOut, binning: BinningOut, background,
     bg = torch.as_tensor(background, dtype=torch.float32,
                          device=color.device)
     color = color + t_fin[:, :, None] * bg[None, None, :]
-    return color, t_fin, None, None
+    g_trans = g_touch = None
+    if want_transmittance:
+        g_trans, g_touch = transmittance_by_primitive(binning, width, height)
+    return color, t_fin, g_trans, g_touch

@@ -1,7 +1,8 @@
 """Rendering / FPS CLI of the port — counterpart of the root render.py.
 
     python -m reduced3dgs_torch.render -m <model_dir> \\
-        [--models baseline quantised_half quantised_pack] [--device cpu]
+        [--models baseline quantised_half quantised_pack] \\
+        [--variable_sh_bands] [--device cpu]
 
 Loads a trained model directory (self-describing via cfg_args), renders
 the train/test splits of each requested variant into
@@ -15,7 +16,9 @@ host clock), writing ``fps_results.json``:
   quantised_pack  point_cloud_quantised_pack.ply (u16c xyz codec)
 
 The instance budget climbs the {2^k, 3*2^(k-1)} ladder until the views'
-true instance counts fit.
+true instance counts fit.  --variable_sh_bands reorders each loaded pool
+by SH degree once and shades from one packed coefficient block per band
+(models/variable_sh.py); the colours enter the renderer as color_precomp.
 """
 
 from __future__ import annotations
@@ -48,11 +51,21 @@ def next_budget(budget: int, needed: int) -> int:
 
 
 class PoolView:
-    """A pool's render inputs, gathered once (features concatenated)."""
+    """A pool's render inputs, gathered once (features concatenated).
+    variable_sh: the pool is reordered by SH degree and shaded per view
+    from its ragged blocks; the dense (P, 16, 3) features are not kept."""
 
-    def __init__(self, pool):
+    def __init__(self, pool, variable_sh: bool = False):
+        self.ragged = None
+        if variable_sh:
+            from reduced3dgs_torch.models.variable_sh import build_ragged
+
+            pool, self.ragged = build_ragged(pool)
         self.xyz = pool.params.xyz
-        self.features = pool.features()
+        self.features = (pool.features() if self.ragged is None else
+                         torch.zeros((pool.capacity, 1, 3),
+                                     dtype=torch.float32,
+                                     device=pool.device))
         self.scaling = pool.params.scaling
         self.rotation = pool.params.rotation
         self.opacity = pool.params.opacity[:, 0].contiguous()
@@ -68,11 +81,16 @@ def render_once(pv: PoolView, cp, background, budget: int,
     from reduced3dgs_torch.renderer import render
 
     with torch.inference_mode():
+        color_precomp = None
+        if pv.ragged is not None:
+            from reduced3dgs_torch.models.variable_sh import eval_colors
+
+            color_precomp = eval_colors(pv.ragged, pv.xyz, cp.campos)
         return render(
             pv.xyz, pv.features, pv.scaling, pv.rotation, pv.opacity,
             pv.degrees, cp, background, width=cp.width, height=cp.height,
             instance_budget=budget, alive_mask=pv.alive, backend=backend,
-            marks=marks)
+            color_precomp=color_precomp, marks=marks)
 
 
 def render_view(pv: PoolView, cam, background, budget: int = VIEW_START_BUDGET,
@@ -159,9 +177,6 @@ def main(argv=None):
                         help="cuda (default) or cpu (plain PyTorch "
                              "versions of the kernels)")
     args = C.get_combined_args(parser, argv)
-    if args.variable_sh_bands:
-        raise NotImplementedError(
-            "--variable_sh_bands (ragged SH inference) is not ported yet")
     device = resolve(args.device)
     print(f"Rendering {args.model_path} on {device}")
 
@@ -177,7 +192,8 @@ def main(argv=None):
         conf = MODELS_CONFIG[model]
         pv = PoolView(scene.load_model(
             quantised=conf["quantised"], half_float=conf["half_float"],
-            pack_xyz=conf.get("pack_xyz", False), device=device))
+            pack_xyz=conf.get("pack_xyz", False), device=device),
+            variable_sh=args.variable_sh_bands)
         sets = []
         if not args.skip_train:
             sets.append(("train", scene.get_train_cameras()))

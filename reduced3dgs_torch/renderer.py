@@ -6,8 +6,9 @@ torch.inference_mode (reduced3dgs_torch/render.py), so no graph is built.
 Backends:
 
   * "tile" — the tile rasterizer (ops/tile_render.py): kernels K1 + K2
-             forward and K3 + K5/K6 backward on a CUDA tensor, their plain
-             versions on a CPU tensor.
+             forward, K3 + K5/K6 backward and K4 for the transmittance
+             statistics on a CUDA tensor, their plain versions on a CPU
+             tensor.
   * "ref"  — the masked pixel-by-instance oracle (ops/render_ref.py),
              O(pixels * B), differentiable by autograd: the gradient
              oracle; small images and tests only.
@@ -53,8 +54,10 @@ class RenderOut(NamedTuple):
     visibility: torch.Tensor  # (P,) bool (radii > 0)
     means2d: torch.Tensor  # (P,2) pixel centers
     num_rendered: torch.Tensor  # () int32
-    transmittance_sum: torch.Tensor | None = None  # not ported yet
-    pixels_touched: torch.Tensor | None = None  # not ported yet
+    # with want_transmittance (SH-band culling): per primitive, the sum
+    # of the transmittance before each of its blends and their count
+    transmittance_sum: torch.Tensor | None = None  # (P,) f32
+    pixels_touched: torch.Tensor | None = None  # (P,) int32
 
 
 def render(
@@ -76,6 +79,7 @@ def render(
     color_precomp=None,
     screen_offset=None,
     grad_reduce: str = "f32",
+    want_transmittance: bool = False,
     marks: list | None = None,
 ) -> RenderOut:
     """Render one view; every tensor lies on one device (the camera's).
@@ -111,13 +115,17 @@ def render(
     if backend == "ref":
         from reduced3dgs_torch.ops.render_ref import render_ref
 
-        color, final_t = render_ref(prep, b, background, width, height)
+        out = render_ref(prep, b, background, width, height,
+                         want_transmittance=want_transmittance)
+        color, final_t = out[:2]
+        g_trans, g_touch = out[2:] if want_transmittance else (None, None)
     else:
         from reduced3dgs_torch.ops.tile_render import tile_render
 
-        color, final_t, _, _ = tile_render(prep, b, background, width,
-                                           height, grad_reduce=grad_reduce,
-                                           marks=marks)
+        color, final_t, g_trans, g_touch = tile_render(
+            prep, b, background, width, height,
+            want_transmittance=want_transmittance, grad_reduce=grad_reduce,
+            marks=marks)
     _mark(marks)
     return RenderOut(
         color=color,
@@ -126,4 +134,6 @@ def render(
         visibility=prep.radii > 0,
         means2d=prep.means2d,
         num_rendered=nr_report,
+        transmittance_sum=g_trans,
+        pixels_touched=g_touch,
     )

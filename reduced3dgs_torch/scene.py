@@ -4,8 +4,8 @@ Counterpart of reduced3dgs_tpu/scene.py: COLMAP vs Blender
 auto-detection, resolution-scaled camera lists, cameras_extent, the
 point_cloud[_quantised][_half].ply / _quantised_pack naming, and the
 training setup (input.ply and cameras.json copied into the model
-directory, the initial pool from the scene's point cloud).  The
-redundancy metric (mercy culling) is not ported yet.
+directory, the initial pool from the scene's point cloud), and the
+redundancy metric of the training cameras that mercy culling reads.
 """
 
 from __future__ import annotations
@@ -139,14 +139,46 @@ class Scene:
                                  half_float=half_float or pack_xyz)
         return pool_from_arrays(arrs, device)
 
-    def save(self, iteration):
-        """point_cloud/iteration_N/point_cloud.ply of ``self.pool``."""
-        save_gaussian_ply(
-            os.path.join(self.model_path, "point_cloud",
-                         f"iteration_{iteration}", ply_name()), self.pool)
+    def save(self, iteration, codebook_dict=None, quantise=False,
+             half_float=False, pack_xyz=False):
+        """Write ``self.pool`` as point_cloud/iteration_N/<ply_name>: the
+        plain PLY, or with the codebooks the quantised one (uint8 ids +
+        centres; half_float: f16 centres and xyz; pack_xyz: the chunked
+        u16 xyz codec).  Returns the file's path."""
+        path = os.path.join(self.model_path, "point_cloud",
+                            f"iteration_{iteration}",
+                            ply_name(quantise, half_float, pack_xyz))
+        save_gaussian_ply(path, self.pool, codebook_dict, quantised=quantise,
+                          half_float=half_float,
+                          xyz_codec="u16c" if pack_xyz else None)
+        return path
 
     def get_train_cameras(self, scale=1.0):
         return self.train_cameras[scale]
 
     def get_test_cameras(self, scale=1.0):
         return self.test_cameras[scale]
+
+    def calculate_redundancy_metric(self, pixel_scale=1.0,
+                                    num_neighbours=30):
+        """(min_redundancy (C,) int32, cube_size (C,)) of ``self.pool``
+        over the training cameras (ops/redundancy.py)."""
+        import torch
+
+        from reduced3dgs_torch.ops.redundancy import redundancy_metric
+
+        cams = self.get_train_cameras()
+        pool = self.pool
+
+        def t(arrs, dtype):
+            return torch.as_tensor(np.stack(arrs), dtype=dtype,
+                                   device=pool.device)
+
+        return redundancy_metric(
+            pool.params.xyz, pool.get_scaling(), pool.get_rotation(),
+            pool.alive,
+            t([c.full_proj_transform for c in cams], torch.float32),
+            t([c.inverse_full_proj_transform for c in cams], torch.float32),
+            t([c.height for c in cams], torch.int32),
+            t([c.width for c in cams], torch.int32),
+            pixel_scale=pixel_scale, num_neighbours=num_neighbours)

@@ -4,12 +4,15 @@
         [--iterations N] [--grad_reduce bf16x2|f32] [--device cpu]
 
 Same flags, loop and saves as train.py (point_cloud/iteration_N/
-point_cloud.ply at every --save_iterations entry and at the end), on the
-card unless --device cpu is given.  Not ported yet, and refused up front:
---mercy_points, --cull_SH, --start_checkpoint / --checkpoint_iterations,
---variable_sh_bands and --fused_steps > 1.  The final compression of
-train.py (k-means codebooks and the quantised / half PLYs) is not run.
-No TensorBoard and no network GUI.
+point_cloud.ply at every --save_iterations entry), on the card unless
+--device cpu is given, including --mercy_points and --cull_SH, and ending
+with train.py's final compression: the k-means codebooks and the four
+PLYs point_cloud.ply, point_cloud_quantised.ply,
+point_cloud_quantised_half.ply and point_cloud_quantised_pack.ply of the
+last iteration.  Not ported, and refused up front: --start_checkpoint /
+--checkpoint_iterations, --variable_sh_bands (a rendering option; see
+reduced3dgs_torch.render) and --fused_steps > 1.  No TensorBoard and no
+network GUI.
 """
 
 from __future__ import annotations
@@ -23,16 +26,17 @@ from argparse import ArgumentParser
 
 import numpy as np
 
-NOT_COMPRESSED = ("the final compression (k-means codebooks, quantised and "
-                  "half PLYs) is not ported yet and was not run")
+# the stored variants of the final compression: (quantise, half_float,
+# pack_xyz) as Scene.save takes them
+FINAL_VARIANTS = ((False, False, False), (True, False, False),
+                  (True, True, False), (True, True, True))
 
 
 def build_parser():
     from reduced3dgs_torch import config as C
 
     parser = ArgumentParser(
-        description="Training script parameters (PyTorch port); "
-                    + NOT_COMPRESSED)
+        description="Training script parameters (PyTorch port)")
     C.add_model_params(parser)
     C.add_optimization_params(parser)
     C.add_pipeline_params(parser)
@@ -59,8 +63,6 @@ def build_parser():
 def refuse_unported(args):
     """Raise NotImplementedError for the options this port lacks."""
     unported = {
-        "--mercy_points": args.mercy_points,
-        "--cull_SH": bool(args.cull_SH),
         "--start_checkpoint": args.start_checkpoint is not None,
         "--checkpoint_iterations": bool(args.checkpoint_iterations),
         "--variable_sh_bands": args.variable_sh_bands,
@@ -70,6 +72,30 @@ def refuse_unported(args):
     if bad:
         raise NotImplementedError(
             f"{', '.join(bad)}: not ported to reduced3dgs_torch yet")
+
+
+def final_compression(scene, iteration, max_sh_degree=3, stats=None):
+    """The end of training: save ``scene.pool`` plain, fit the 20
+    codebooks (ops/kmeans.py) and save the quantised, quantised_half and
+    quantised_pack variants.  Returns the four paths in that order.
+    stats: a dict that receives the fit's seconds ("fit_s"), each
+    codebook's Lloyd steps ("lloyd_steps") and the files' sizes in bytes
+    ("bytes", by file name)."""
+    from reduced3dgs_torch.ops.kmeans import produce_clusters
+
+    paths = [scene.save(iteration)]
+    steps = {}
+    t0 = time.perf_counter()
+    codebooks = produce_clusters(scene.pool, max_sh_degree=max_sh_degree,
+                                 stats=steps)
+    fit_s = time.perf_counter() - t0
+    for quantise, half_float, pack_xyz in FINAL_VARIANTS[1:]:
+        paths.append(scene.save(iteration, codebooks, quantise=quantise,
+                                half_float=half_float, pack_xyz=pack_xyz))
+    if stats is not None:
+        stats.update(fit_s=fit_s, lloyd_steps=steps, bytes={
+            os.path.basename(p): os.path.getsize(p) for p in paths})
+    return paths
 
 
 def main(argv=None):
@@ -180,9 +206,13 @@ def main(argv=None):
             scene.save(iteration)
 
     scene.pool = trainer.state.pool
-    scene.save(opt.iterations)
-    print(f"\nTraining complete in {time.perf_counter() - t_start:.1f} s; "
-          + NOT_COMPRESSED + ".")
+    t_train = time.perf_counter() - t_start
+    stats = {}
+    final_compression(scene, opt.iterations, dataset.sh_degree, stats)
+    sizes = ", ".join(f"{k} {v}" for k, v in stats["bytes"].items())
+    print(f"\nFinal compression: codebooks fitted in {stats['fit_s']:.1f} s;"
+          f" bytes: {sizes}")
+    print(f"\nTraining complete in {t_train:.1f} s.")
 
 
 if __name__ == "__main__":

@@ -9,7 +9,7 @@ hold the same primitives in the same slots.
 
 Slot exhaustion drops the last allocations in slot order and reports the
 count, so the host can grow the pool.  Mercy culling (``mercy_points``)
-needs the redundancy metric (ops/redundancy.py) and is not ported yet.
+prunes by the redundancy metric of ops/redundancy.py.
 """
 
 from __future__ import annotations
@@ -167,3 +167,85 @@ def densify_and_prune(pool, opt, max_grad, min_opacity, extent,
     stats = {"n_points_cloned": n_cloned, "n_points_split": n_split,
              "n_points_pruned": n_pruned, "n_dropped_capacity": d1 + d2}
     return pool, opt, grads_tree, stats
+
+
+# ---------------------------------------------------------------------------
+# masked statistics (torch.quantile / torch.median over the masked subset)
+# ---------------------------------------------------------------------------
+
+def masked_quantile(values, mask, q):
+    """torch.quantile (linear interpolation) over the masked subset, with
+    static shapes as the JAX package computes it."""
+    s = torch.sort(torch.where(mask, values, torch.inf)).values
+    n = mask.sum()
+    last = values.shape[0] - 1
+    pos = q * (n.to(torch.float32) - 1.0)
+    lo = torch.clamp(torch.floor(pos).to(torch.int64), 0, last)
+    hi = torch.clamp(lo + 1, 0, last)
+    frac = pos - lo.to(torch.float32)
+    upper = torch.where(hi < n, s[hi], s[torch.clamp(n - 1, min=0)])
+    return s[lo] * (1.0 - frac) + upper * frac
+
+
+def masked_median(values, mask):
+    """torch.median over the masked subset: the lower of the two middle
+    elements."""
+    s = torch.sort(torch.where(mask, values, torch.inf)).values
+    n = mask.sum()
+    return s[torch.clamp((n - 1) // 2, min=0)]
+
+
+# ---------------------------------------------------------------------------
+# mercy culling
+# ---------------------------------------------------------------------------
+
+MERCY_TYPES = ("redundancy_opacity", "redundancy_random", "opacity",
+               "redundancy_opacity_opacity")
+
+
+def mercy_points(pool, opt, splat_counts, lambda_mercy=2.0, mercy_minimum=2,
+                 mercy_type="redundancy_opacity", generator=None,
+                 uniform=None):
+    """Prune over-represented primitives by redundancy score.
+
+    splat_counts: (C,) the per-primitive minimum redundancy value from
+    ops/redundancy.py.  redundancy_random keeps a coin flip per
+    primitive: `uniform` (C,) in [0, 1) if given (the tests pass the JAX
+    package's draws), else drawn from `generator` on the pool's device.
+    Returns (pool, opt, stats dict of 0-dim tensors)."""
+    if mercy_type not in MERCY_TYPES:
+        raise ValueError(f"unknown mercy_type {mercy_type!r}")
+    alive = pool.alive
+    counts = splat_counts.to(torch.float32)
+    n = alive.sum().to(torch.float32)
+    mean = torch.where(alive, counts, 0.0).sum() / torch.clamp(n, min=1.0)
+    var = torch.where(alive, (counts - mean) ** 2, 0.0).sum() \
+        / torch.clamp(n - 1.0, min=1.0)
+    redundancy_threshold = mean + lambda_mercy * torch.sqrt(var)
+    threshold = torch.clamp(redundancy_threshold, min=float(mercy_minimum))
+    mask = alive & (counts > threshold)
+    opacity = pool.get_opacity()[:, 0]
+    # the reference reports 0 for the redundancy-only types
+    opacity_threshold = torch.zeros((), dtype=torch.float32,
+                                    device=pool.device)
+
+    if mercy_type == "redundancy_opacity":
+        mask = mask & (opacity < masked_median(opacity, mask))
+    elif mercy_type == "redundancy_random":
+        if uniform is None:
+            uniform = torch.rand(mask.shape, generator=generator,
+                                 device=pool.device)
+        mask = mask & (uniform < 0.5)
+    elif mercy_type == "opacity":
+        opacity_threshold = masked_quantile(opacity, alive, 0.045)
+        mask = alive & (opacity < opacity_threshold)
+    else:  # redundancy_opacity_opacity
+        mask = mask & (opacity < masked_median(opacity, mask))
+        opacity_threshold = torch.clamp(
+            masked_quantile(opacity, alive, 0.03), max=0.05)
+        mask = mask | (alive & (opacity < opacity_threshold))
+
+    pool, opt, n_mercied = prune_points(pool, opt, mask)
+    return pool, opt, {"n_points_mercied": n_mercied,
+                       "redundancy_threshold": redundancy_threshold,
+                       "opacity_threshold": opacity_threshold}

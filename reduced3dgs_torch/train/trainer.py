@@ -9,21 +9,22 @@ backward) -> densification statistics -> Adam.  The host-side
 Trainer does: the random camera order and backgrounds (numpy's
 default_rng(seed), drawn at the same points), the SH-degree schedule,
 the densify / prune / opacity-reset cadence, the store_grads ordering of
-backward -> surgery -> optimizer step, pool-capacity growth and the
-per-camera instance budget on the {2^k, 3*2^(k-1)} ladder.
+backward -> surgery -> optimizer step, mercy culling by the redundancy
+metric, adaptive SH-band culling at the given iterations, pool-capacity
+growth and the per-camera instance budget on the {2^k, 3*2^(k-1)} ladder.
 
 Loss:
   (1-lambda_dssim) L1 + lambda_dssim (1-SSIM)
   + lambda_alpha_regul * mean(|sigmoid(opacity)| over visible)
   + lambda_sh_sparsity * mean(|f_rest| over visible)
 
-Not ported yet (they raise): fused steps (train_steps_fused /
-step_group, whose counterpart on the card is a CUDA graph), mercy
-culling and SH-band culling.
+Not ported (they raise): fused steps (train_steps_fused / step_group,
+whose counterpart on the card is a CUDA graph).
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -206,6 +207,20 @@ def densify_step(state: TrainState, extent, grads=None, *,
 
 
 @torch.no_grad()
+def mercy_step(state: TrainState, splat_counts, *, lambda_mercy,
+               mercy_minimum, mercy_type, uniform=None):
+    """mercy_points on the redundancy metric's per-primitive values; the
+    coin flips of "redundancy_random" come from the state's generator
+    (or `uniform`, see densify.mercy_points)."""
+    pool, opt, gen = state
+    pool, opt, stats = densify.mercy_points(
+        pool, opt, splat_counts, lambda_mercy=lambda_mercy,
+        mercy_minimum=mercy_minimum, mercy_type=mercy_type, generator=gen,
+        uniform=uniform)
+    return TrainState(pool, opt, gen), stats
+
+
+@torch.no_grad()
 def prune_dead_step(state: TrainState, extent):
     """prune(1/255) of dead points."""
     pool, opt, gen = state
@@ -244,13 +259,6 @@ class Trainer:
                  seed: int = 0, initial_budget: int = 1 << 17,
                  cull_sh_iterations=(), scene=None,
                  white_background: bool = False, grad_reduce: str = "f32"):
-        if opt_cfg.mercy_points:
-            raise NotImplementedError(
-                "mercy_points (ops/redundancy.py) is not ported yet")
-        if tuple(cull_sh_iterations):
-            raise NotImplementedError(
-                "SH-band culling (cull_sh_iterations, kernel _trans_kernel)"
-                " is not ported yet")
         self.opt_cfg = opt_cfg
         self.white_background = white_background
         self.cameras = list(cameras)
@@ -265,7 +273,12 @@ class Trainer:
         self.state = TrainState(pool, adam.init(pool.params), gen)
         self.rng = np.random.default_rng(seed)
         self.initial_budget = initial_budget
-        self.scene = scene
+        self.cull_sh_iterations = tuple(cull_sh_iterations)
+        self.scene = scene  # the redundancy metric (mercy) needs it
+        # start of the compression fine-tune phase: no mercy after it
+        self.fine_tune_start = opt_cfg.iterations
+        if self.cull_sh_iterations or opt_cfg.mercy_points:
+            self.fine_tune_start = opt_cfg.iterations - 3000
         self._stack: list[int] = []
         self.budgets: dict[int, int] = {}  # camera uid -> instance budget
         self._gt: dict[int, torch.Tensor] = {}  # camera uid -> GT image
@@ -293,7 +306,7 @@ class Trainer:
 
     def _events(self, iteration):
         """The reference's densification-cadence booleans (densify, reset,
-        prune dead) for one iteration."""
+        prune dead, mercy) for one iteration."""
         cfg = self.opt_cfg
         will_densify = (iteration < cfg.densify_until_iter
                         and iteration > cfg.densify_from_iter
@@ -305,7 +318,13 @@ class Trainer:
         will_prune_dead = (iteration >= cfg.densify_until_iter
                            and cfg.prune_dead_points
                            and iteration % cfg.densification_interval == 0)
-        return will_densify, will_reset, will_prune_dead
+        will_mercy = (cfg.mercy_points and self.scene is not None
+                      and iteration % (cfg.mercy_interval
+                                       * cfg.densification_interval) == 0
+                      and iteration <= self.fine_tune_start
+                      and (iteration >= cfg.densify_until_iter
+                           or iteration % cfg.opacity_reset_interval != 0))
+        return will_densify, will_reset, will_prune_dead, will_mercy
 
     def step_group(self, iterations):
         return train_steps_fused(iterations)
@@ -336,21 +355,25 @@ class Trainer:
         """One training iteration; returns the metrics dict (device
         tensors — only sync what you read).
 
-        Ordering as the reference: backward -> densify/prune surgery ->
-        optimizer step.  On a surgery iteration the step applies only to
-        the parameters that kept a .grad through it: all of them with
-        store_grads on a densify iteration, none on a dead-prune
-        iteration or a densify iteration without store_grads, everything
-        except opacity on a reset-only iteration.  The final iteration
-        never steps.  marks: see train_step (the last attempt's events).
+        Ordering as the reference: backward -> densify/prune/mercy
+        surgery -> optimizer step.  On a surgery iteration the step
+        applies only to the parameters that kept a .grad through it: all
+        of them with store_grads on a densify iteration, none on a mercy
+        or dead-prune iteration or a densify iteration without
+        store_grads, everything except opacity on a reset-only iteration.
+        The final iteration never steps.  An iteration listed in
+        cull_sh_iterations ends with the SH-band cull (two transmittance
+        renders per training camera).  marks: see train_step (the last
+        attempt's events).
         """
         cfg = self.opt_cfg
         self.iteration = iteration
         if iteration % 1000 == 0:
             self.state = self.state._replace(pool=one_up_sh_degree(
                 self.state.pool, self.max_sh_degree))
-        will_densify, will_reset, will_prune_dead = self._events(iteration)
-        surgery = will_densify or will_reset or will_prune_dead
+        will_densify, will_reset, will_prune_dead, will_mercy = (
+            self._events(iteration))
+        surgery = will_densify or will_reset or will_prune_dead or will_mercy
         final = iteration >= cfg.iterations
 
         camera = self.next_camera()
@@ -403,9 +426,38 @@ class Trainer:
             self.stats["n_points_pruned"] = int(n)
             pending = None  # prune() is called without store_grads
 
+        if will_mercy:
+            self.scene.pool = self.state.pool
+            red, _ = self.scene.calculate_redundancy_metric(
+                pixel_scale=cfg.box_size)
+            self.state, mstats = mercy_step(
+                self.state, red, lambda_mercy=cfg.lambda_mercy,
+                mercy_minimum=cfg.mercy_minimum, mercy_type=cfg.mercy_type)
+            self.stats["n_points_mercied"] = int(mstats["n_points_mercied"])
+            self.stats["redundancy_threshold"] = float(
+                mstats["redundancy_threshold"])
+            self.stats["opacity_threshold"] = float(
+                mstats["opacity_threshold"])
+            pending = None  # mercy_points prunes without store_grads
+
         if pending is not None and not final:
             self.state = apply_update_step(
                 self.state, pending, iteration, opt_cfg=cfg,
                 spatial_lr_scale=self.spatial_lr_scale,
                 skip_opacity=will_reset)
+
+        if iteration in self.cull_sh_iterations:
+            from reduced3dgs_torch.ops.sh_culling import cull_sh_bands
+
+            # one budget for every render of the cull, the largest any
+            # camera has needed so far; an overflow is not redone
+            pool = cull_sh_bands(
+                self.state.pool, self.cameras,
+                threshold=cfg.cdist_threshold * math.sqrt(3) / 255.0,
+                std_threshold=cfg.std_threshold,
+                budget=max(self.budgets.values(),
+                           default=self.initial_budget),
+                backend=self.backend, max_sh_degree=self.max_sh_degree,
+                active_sh_degree=int(self.state.pool.active_sh_degree))
+            self.state = self.state._replace(pool=pool)
         return metrics

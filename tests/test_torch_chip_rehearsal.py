@@ -1,6 +1,6 @@
-"""chip_smoke.py's training phases (7-9) rehearsed on the CPU at a tiny
-size.  The CUDA wrappers are replaced by their plain versions, which here
-count launches as the kernels do; CUDA events by a host clock; the
+"""chip_smoke.py's training and compression phases (7-12) rehearsed on
+the CPU at a tiny size.  The CUDA wrappers are replaced by their plain
+versions, which here count launches as the kernels do; CUDA events by a host clock; the
 profiled step is skipped.  What this checks is the phases' control flow,
 shapes and checks, not the kernels (tests/test_torch_gpu.py does that on
 a card)."""
@@ -52,6 +52,9 @@ def cpu_card(monkeypatch):
     monkeypatch.setattr(ttr, "_tile_fwd_cuda", ttr.tile_fwd_plain)
     monkeypatch.setattr(ttr, "_tile_bwd_cuda", ttr.tile_bwd_plain)
     monkeypatch.setattr(ttr, "_seg_reduce_cuda", ttr.seg_reduce_plain)
+    monkeypatch.setattr(ttr, "_tile_trans_cuda", ttr.tile_trans_plain)
+    monkeypatch.setattr(ttr, "tile_trans_plain", _counting(
+        ttr.tile_trans_plain, ttr.TILE_TRANS))
     monkeypatch.setattr(tbin, "expand_marks_plain", _counting(
         tbin.expand_marks_plain, tbin.EXPAND))
     monkeypatch.setattr(ttr, "tile_fwd_plain", _counting(
@@ -91,9 +94,41 @@ def test_phase8_and_9_rehearsal(cpu_card):
     assert worst_ref < 2e-3 and worst_16 < 2e-2
     pps, ms, nr = cs.fwd_bwd_rate(cpu_card, 0)
     assert pps > 0 and 0 < nr <= cs.BENCH_BUDGET
-    train_l, f32_l = cs.train_main_path(cpu_card, 0, "cpu")
+
+
+def test_phase9_and_12_rehearsal(cpu_card, tmp_path):
+    """The trainer of phase 9 goes on into phase 12: a mercy pass and the
+    culls inside Trainer.step, the final compression's four files, and
+    both render paths on the loaded quantised_half model."""
+    train_l, f32_l, tr, it = cs.train_main_path(cpu_card, 0, "cpu")
     assert train_l["seg_reduce_packed"] >= cs.TRAIN["steps"]
     assert f32_l["seg_reduce_f32"] >= cs.TRAIN["f32_steps"]
+    assert it == cs.TRAIN["steps"] + cs.TRAIN["timed_steps"] + 1 \
+        + cs.TRAIN["f32_steps"] + 1
+    assert tr.state.pool.active_sh_degree == 3
+    launches = cs.compression_main_path(cpu_card, tr, it,
+                                        str(tmp_path / "run"), "cpu")
+    nv = len(tr.cameras)
+    # two culls (the paper's thresholds demote next to nothing here) and
+    # one pass of statistics for the second pair of thresholds
+    assert launches["tile_trans"] == 5 * nv
+    # a render per step, per cull pass and view, and per view of the
+    # budget check
+    assert launches["expand"] == launches["tile_fwd"] \
+        == launches["tile_bwd"] + launches["tile_trans"] + nv
+    assert tr.stats["n_points_mercied"] >= 0
+    assert not (tmp_path / "run").exists()  # the phase removes its files
+
+
+def test_phase10_and_11_rehearsal(cpu_card):
+    case = cs.k4_case(cpu_card, cs.MAIN, 1 << 15, 0)
+    assert case["err"] == 0.0 and case["k4in"][0].shape[0] == 9
+    row = cs.report_k4(case, 16)
+    assert row["name"] == "tile_trans" and row["launches"] == 16
+    assert row["bound_by"] == "operations" and row["library_ms"] is None
+    assert row["plain_ms"] > 0 and row["bound_ms"] > 0
+    err, d_touch = cs.small_trans_check(cpu_card)
+    assert err <= 1e-3 and d_touch <= 2
 
 
 def test_student_is_a_perturbed_copy():

@@ -185,8 +185,13 @@ def test_unported_options_raise(jax_prep):
     tp = tprep.PreprocessOut(*(torch.as_tensor(a) for a in jax_prep))
     tb = tbin.bin_gaussians(tp, W, H, BUDGET)
     bg = torch.as_tensor(BG)
-    with pytest.raises(NotImplementedError):
-        ttr.tile_render(tp, tb, bg, W, H, want_transmittance=True)
+    # want_transmittance is ported: it adds the per-primitive statistics
+    # and leaves the image as it was
+    plain = ttr.tile_render(tp, tb, bg, W, H)
+    got = ttr.tile_render(tp, tb, bg, W, H, want_transmittance=True)
+    assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+    assert got[2].shape == got[3].shape == (tp.means2d.shape[0],)
+    assert got[3].dtype == torch.int32 and int(got[3].sum()) > 1000
     with pytest.raises(NotImplementedError):
         ttr.tile_render(tp, tb, bg, W, H, tile_rows=(0, 1))
     with pytest.raises(ValueError, match="grad_reduce"):

@@ -4,8 +4,17 @@
   and the budget ladder of tests/test_training.py, on
   reduced3dgs_torch.train.trainer.Trainer;
 * ``python -m reduced3dgs_torch.train --device cpu`` on the tiny Blender
-  scene of tests/test_cli_e2e.py; the options it does not have yet are
-  refused up front, and without --device it needs a card.
+  scene of tests/test_cli_e2e.py with the paper's compression flags
+  (--cull_SH, --std_threshold 0.04, --cdist_threshold 6, --mercy_points):
+  it ends with the final compression's four PLYs, which
+  ``python -m reduced3dgs_torch.render --variable_sh_bands`` renders; the
+  options the port does not have are refused up front, and without
+  --device both need a card.
+
+The CLI runs in subprocesses with one OpenMP thread each: under several
+test workers, each with its own full thread pools, a subprocess with a
+default-sized pool spends its time in the pool's spin-wait barriers (a run
+of seconds took many minutes and overran its limit).
 """
 
 import dataclasses
@@ -145,28 +154,69 @@ def test_budget_ladder_growth():
 
 
 def test_unported_trainer_options_raise():
+    """Fused steps stay refused; mercy_points and cull_sh_iterations are
+    accepted and set the fine-tune limit (no mercy in the last 3000
+    iterations)."""
     cams = target_scene(n=4)
     pool = G.empty_pool(1024, "cpu")
-    with pytest.raises(NotImplementedError):
-        Trainer(pool, OptimizationParams(mercy_points=True), cams,
-                spatial_lr_scale=1.0, background=torch.zeros(3))
-    with pytest.raises(NotImplementedError):
-        Trainer(pool, OptimizationParams(), cams, spatial_lr_scale=1.0,
-                background=torch.zeros(3), cull_sh_iterations=(5,))
+    tr = Trainer(pool, OptimizationParams(mercy_points=True), cams,
+                 spatial_lr_scale=1.0, background=torch.zeros(3))
+    assert tr.fine_tune_start == OptimizationParams().iterations - 3000
+    assert not tr._events(1000)[3]  # no scene: no redundancy metric
+    tr.scene = object()
+    assert tr._events(1000)[3] and not tr._events(1001)[3]
+    assert not tr._events(3000)[3]  # an opacity-reset iteration
+    assert not tr._events(28000)[3]  # past the fine-tune limit
+    tr = Trainer(pool, OptimizationParams(), cams, spatial_lr_scale=1.0,
+                 background=torch.zeros(3), cull_sh_iterations=(5,))
+    assert tr.cull_sh_iterations == (5,)
+    assert tr.fine_tune_start == OptimizationParams().iterations - 3000
     tr = Trainer(pool, OptimizationParams(), cams, spatial_lr_scale=1.0,
                  background=torch.zeros(3))
+    assert tr.fine_tune_start == OptimizationParams().iterations
     with pytest.raises(NotImplementedError):
         tr.step_group([1, 2])
 
 
-@pytest.mark.parametrize("flags", [["--mercy_points"], ["--cull_SH", "9"],
-                                   ["--start_checkpoint", "x.npz"],
+def test_trainer_cull_demotes_flat_primitives():
+    """cull_sh_iterations=(5,): the step at 5 ends with the SH-band cull.
+    The scene's colours are DC-only, so every alive primitive falls to
+    degree 0 at the paper's thresholds, and training goes on."""
+    tr = make_trainer(store_grads=False, densify_from_iter=100,
+                      std_threshold=0.04, cdist_threshold=6.0)
+    tr.cull_sh_iterations = (5,)
+    pool = tr.state.pool
+    tr.state = tr.state._replace(pool=pool.replace(
+        degrees=torch.where(pool.alive, 3, 0).to(torch.int32),
+        active_sh_degree=3))
+    for it in range(1, 5):
+        tr.step(it)
+    alive = tr.state.pool.alive
+    assert bool((tr.state.pool.degrees[alive] == 3).all())
+    tr.step(5)
+    pool = tr.state.pool
+    assert bool((pool.degrees[alive] == 0).all())
+    assert not pool.params.features_rest[alive].any()
+    assert steps_of(tr) == [5] * 6  # the step itself was applied first
+    tr.step(6)
+    assert steps_of(tr) == [6] * 6
+
+
+@pytest.mark.parametrize("flags", [["--start_checkpoint", "x.npz"],
                                    ["--checkpoint_iterations", "5"],
                                    ["--variable_sh_bands"],
                                    ["--fused_steps", "4"]])
 def test_cli_refuses_unported_flags(flags, tmp_path):
     with pytest.raises(NotImplementedError):
         train_cli.main(["-s", str(tmp_path), "--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("flags", [["--mercy_points"], ["--cull_SH", "9"]])
+def test_cli_accepts_compression_flags(flags, tmp_path):
+    args = train_cli.build_parser().parse_args(
+        ["-s", str(tmp_path), "--device", "cpu", *flags])
+    train_cli.refuse_unported(args)  # does not raise
+    assert args.mercy_points or args.cull_SH == [9]
 
 
 def test_cli_needs_card_or_explicit_cpu(tmp_path):
@@ -176,27 +226,102 @@ def test_cli_needs_card_or_explicit_cpu(tmp_path):
         train_cli.main(["-s", str(tmp_path), "-m", str(tmp_path / "m")])
 
 
-def test_train_cli_on_cpu(tmp_path):
-    """30 iterations with a densify at 15 and 25 (bf16x2 reduction, the
-    default), saving at 20 and at the end."""
-    src = os.path.join(tmp_path, "scene")
+ONE_THREAD = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
+FINAL_PLYS = ("point_cloud.ply", "point_cloud_quantised.ply",
+              "point_cloud_quantised_half.ply",
+              "point_cloud_quantised_pack.ply")
+
+
+def _run_cli(module, args, timeout=240):
+    return subprocess.run(
+        [sys.executable, "-m", module, *args], cwd=REPO,
+        env=dict(os.environ, **ONE_THREAD), capture_output=True, text=True,
+        timeout=timeout)
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """One CLI training with the paper's compression flags: 20
+    iterations, a densify at 10 and 15, an SH cull at 16, saves at 12 and
+    at the end (bf16x2 reduction, the default)."""
+    root = tmp_path_factory.mktemp("torch_train_cli")
+    src = os.path.join(root, "scene")
     make_blender_dataset(src)
-    model = os.path.join(tmp_path, "model")
-    r = subprocess.run(
-        [sys.executable, "-m", "reduced3dgs_torch.train", "-s", src, "-m",
-         model, "--device", "cpu", "--iterations", "30",
-         "--densify_from_iter", "10", "--densification_interval", "5",
-         "--save_iterations", "20", "--test_iterations", "30"],
-        cwd=REPO, capture_output=True, text=True, timeout=240)
+    model = os.path.join(root, "model")
+    r = _run_cli("reduced3dgs_torch.train", [
+        "-s", src, "-m", model, "--device", "cpu", "--iterations", "20",
+        "--densify_from_iter", "5", "--densification_interval", "5",
+        "--save_iterations", "12", "--test_iterations", "20",
+        "--cull_SH", "16", "--std_threshold", "0.04",
+        "--cdist_threshold", "6", "--mercy_points"])
+    return model, r
+
+
+def test_train_cli_on_cpu(trained):
+    model, r = trained
     assert r.returncode == 0, r.stderr[-3000:]
     lines = r.stdout.strip().splitlines()
-    assert "not ported yet and was not run" in lines[-1]
+    assert lines[-1].startswith("Training complete in")
     assert any("Evaluating train" in ln for ln in lines)
-    for it in (20, 30):
-        assert os.path.exists(os.path.join(
-            model, "point_cloud", f"iteration_{it}", "point_cloud.ply"))
+    final = [ln for ln in lines if ln.startswith("Final compression")]
+    assert len(final) == 1 and all(n in final[0] for n in FINAL_PLYS)
+    assert os.path.exists(os.path.join(
+        model, "point_cloud", "iteration_12", "point_cloud.ply"))
     for name in ("cfg_args", "cameras.json", "input.ply"):
         assert os.path.exists(os.path.join(model, name))
     losses = [float(ln.split()[3]) for ln in lines
               if ln.startswith("[ITER") and " loss " in ln]
-    assert len(losses) == 3 and np.isfinite(losses).all()
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    # the final compression: the four files exist and load to one size,
+    # with degrees the cull at 16 has demoted
+    from reduced3dgs_torch.models.ply_io import load_gaussian_ply
+
+    pc = os.path.join(model, "point_cloud", "iteration_20")
+    assert sorted(os.listdir(pc)) == sorted(FINAL_PLYS)
+    sizes = set()
+    for name in FINAL_PLYS:
+        q = "quantised" in name
+        arrs = load_gaussian_ply(os.path.join(pc, name), quantised=q,
+                                 half_float="half" in name or "pack" in name)
+        sizes.add(arrs["xyz"].shape[0])
+        assert all(np.isfinite(v).all() for v in arrs.values())
+        assert arrs["degrees"].max() == 0  # DC-only scene: all demoted
+    assert len(sizes) == 1 and sizes.pop() > 32
+
+
+def test_render_cli_variable_sh_on_trained_model(trained):
+    """--variable_sh_bands renders the compressed files of the last
+    iteration, and the save at 12, to the images the dense path writes
+    (within one 8-bit level).  The cull at 16 runs long before the SH
+    degree is raised (every 1000 iterations), where the reference's
+    statistics take a primitive's full-degree colour as 0: the final
+    model is black by that rule, so the save at 12 carries the check
+    that the images show the scene."""
+    from PIL import Image
+
+    model, r = trained
+    assert r.returncode == 0, r.stderr[-3000:]
+    outs = {}
+    for iteration, models in ((20, ["quantised_half", "quantised_pack"]),
+                              (12, ["baseline"])):
+        for flag in ([], ["--variable_sh_bands"]):
+            r = _run_cli("reduced3dgs_torch.render", [
+                "-m", model, "--device", "cpu", "--skip_test",
+                "--skip_measure_fps", "--iteration", str(iteration),
+                "--models", *models, *flag])
+            assert r.returncode == 0, r.stderr[-3000:]
+            for variant in models:
+                d = os.path.join(model, "train", variant,
+                                 f"ours_{iteration}", "renders")
+                names = sorted(os.listdir(d))
+                assert len(names) == 6  # without --eval every view trains
+                imgs = []
+                for n in names:
+                    with Image.open(os.path.join(d, n)) as im:
+                        imgs.append(np.asarray(im).astype(int))
+                outs[variant, bool(flag)] = np.stack(imgs)
+    for variant in ("quantised_half", "quantised_pack", "baseline"):
+        a, b = outs[variant, False], outs[variant, True]
+        assert a.shape == b.shape == (6, 64, 64, 3)
+        assert np.abs(a - b).max() <= 1
+    assert outs["baseline", True].max() > 50
