@@ -30,10 +30,15 @@ before the final line:
  7. the training kernels against their plain versions: K3
     (csrc/tile_bwd.cu) at 512p and at the 1080p main-path shapes with both
     feature tables (exact zeros on every slot outside the walked ranges),
-    K5 / K6 (csrc/seg_reduce.cu) at the main-path shapes and on the ragged
-    segment layouts of tests/test_tile_render.py (P = 700, 2500), also
-    against a float64 segment sum; times beside the plain versions, the
-    bound and torch.segment_reduce;
+    K5 / K6 (csrc/seg_reduce.cu) on K3's slot-major records at the
+    main-path shapes, on the ragged segment layouts of
+    tests/test_tile_render.py (P = 700, 2500) and on a skewed layout (64
+    segments of 20,000 slots and 1,024 of 33-1,024 among 2^19 of 0-3),
+    also against a float64 segment sum, bit for bit against the plain
+    version where a segment has at most two instances, and bit for bit
+    between two launches; times beside the plain versions, the bound,
+    torch.segment_reduce on a payload gathered beforehand, and the PyTorch
+    calls that compute the same sums from the kernels' own inputs;
  8. whole-render gradients on the card: the tile backend (K2 + K3 + K5)
     against the differentiable "ref" oracle on a small scene, and bf16x2
     against f32;
@@ -45,7 +50,9 @@ before the final line:
     a few f32 steps; the loss must be finite and fall, and K1, K2, K3 and
     K6 (K5 in f32 mode) must run once per render.  It prints the median
     step time, the fwd+bwd pixels/s bench.py reports, the stage times by
-    CUDA events and the launches and idle share of one profiled step;
+    CUDA events (the reduction stage also split into key sort, kernel
+    and reorder, on one step's own inputs) and the launches and idle
+    share of one profiled step;
 10. K4 (csrc/tile_trans.cu) against its plain version at the 512p and the
     1080p kernel inputs, per slot and per primitive, with exact zeros on
     every slot outside the walked ranges; its time beside K2's, the plain
@@ -133,6 +140,10 @@ K4_OPS_BLEND = 5
 K4_OPS_WARP_TREE = 5
 PROFILE_TOP = 12  # kernels listed by phases 6 and 9
 SEG_ROW_BYTES = {"f32": 36, "bf16x2": 20}  # gradient payload per instance
+# phase 7's skewed segment layout: a few primitives that cover far more
+# tiles than the rest (kernel tiers: one lane group, one warp, one block)
+SKEWED = dict(p=1 << 19, n_long=64, long_len=20000, n_mid=1024,
+              mid_len=(33, 1024), short_max=3)
 # phase 9: the trainer's schedule on the bench scene.  Three passes over
 # the 8 views; the densify iteration is the last of them (its loss is
 # taken before the surgery), so the loss check compares the first pass
@@ -382,17 +393,30 @@ def walked_slots(ranges, limit, b_pad):
     return torch.cumsum(mark, 0)[:b_pad] > 0
 
 
-def ragged_segments(p, seed=3):
+def skewed_lens(p, n_long, long_len, n_mid, mid_len, short_max, seed=5):
+    """Segment lengths of a skewed layout: p segments of 0..short_max
+    slots, of which n_mid have a length in mid_len and n_long have
+    long_len."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, short_max + 1, p).astype(np.int64)
+    where = rng.permutation(p)[:n_long + n_mid]
+    lens[where[:n_long]] = long_len
+    lens[where[n_long:]] = rng.integers(mid_len[0], mid_len[1] + 1, n_mid)
+    return lens
+
+
+def ragged_segments(p, seed=3, lens=None):
     """The segment layout of tests/test_tile_render.py::
     test_segment_reduce_multichunk_ragged_bounds (empty-segment clusters,
-    P + 1 not a multiple of any window), with the slots shuffled as the
-    tile layout scatters a primitive's instances.  Returns (BinningOut
-    fields as numpy arrays, (9, B_pad) f32 rows in slot order, the same
-    rows in segment order)."""
+    P + 1 not a multiple of any window), or the given segment lengths,
+    with the slots shuffled as the tile layout scatters a primitive's
+    instances.  Returns (BinningOut fields as numpy arrays, (9, B_pad) f32
+    rows in slot order, the same rows in segment order)."""
     rng = np.random.default_rng(seed)
-    lens = rng.poisson(9, p).astype(np.int64)
-    lens[:p // 10] = 0
-    lens[rng.integers(0, p, p // 16)] = 0
+    if lens is None:
+        lens = rng.poisson(9, p).astype(np.int64)
+        lens[:p // 10] = 0
+        lens[rng.integers(0, p, p // 16)] = 0
     offsets = np.cumsum(lens)
     nv = int(offsets[-1])
     b_pad = -(-(nv + 512) // 8192) * 8192
@@ -413,35 +437,30 @@ def ragged_segments(p, seed=3):
     return fields, shuffled, cols
 
 
-def seg_inputs(binning, dfeat, mode):
+def seg_inputs(binning, dfeat):
     """K5 / K6 inputs as segment_reduce_by_src builds them: (rows, order,
-    bounds)."""
-    import torch
-
+    bounds), the rows being K3's output as it is."""
     from reduced3dgs_torch.ops import tile_render as ttr
 
-    num_p = binning.seg_bounds.shape[0] - 1
-    key = torch.where(binning.pad_mask, num_p, binning.gauss_aligned)
-    order = torch.sort(key, stable=True).indices
-    rows = dfeat
-    if mode == "bf16x2":
-        z = torch.cat([dfeat[:9], torch.zeros_like(dfeat[:1])])
-        rows = ttr.pack_bf16x2(z[0::2], z[1::2])
-    return rows, order, binning.seg_bounds.contiguous()
+    return (dfeat, ttr.segment_order(binning),
+            binning.seg_bounds.contiguous())
+
+
+def seg_values(rows, order, bounds, packed):
+    """(9, n) f32: the values K5 / K6 add, in segment order (K6: rounded
+    to bf16 through the bf16x2 packing)."""
+    from reduced3dgs_torch.ops import tile_render as ttr
+
+    vals = rows[:9, order[:int(bounds[-1])]]
+    return ttr.through_bf16x2(vals) if packed else vals
 
 
 def seg_reference(rows, order, bounds, packed):
     """float64 segment sums and sums of magnitudes, (9, P) each."""
     import torch
 
-    from reduced3dgs_torch.ops import tile_render as ttr
-
-    n = int(bounds[-1])
-    vals = rows[:, order[:n]]
-    if packed:
-        hi, lo = ttr.unpack_bf16x2(vals)
-        vals = torch.stack([hi, lo], dim=1).reshape(-1, n)[:9]
-    vals = vals[:9].double()
+    vals = seg_values(rows, order, bounds, packed).double()
+    n = vals.shape[1]
     num_p = bounds.shape[0] - 1
     seg = torch.repeat_interleave(
         torch.arange(num_p, device=rows.device),
@@ -655,6 +674,7 @@ def main(argv=None):
     main_k3 = {fast: k3_case(dev, MAIN, budget, args.seed, fast)
                for fast in (False, True)}
     ragged_seg_cases(dev)
+    skewed_seg_case(dev)
     case = main_k3[False]
     segs = {mode: seg_case(case["binning"], case["dfeat"], mode,
                            "main path") for mode in ("f32", "bf16x2")}
@@ -936,29 +956,49 @@ def report_k3(case, launches):
 
 def seg_case(binning, dfeat, mode, what):
     """K5 (f32) or K6 (bf16x2) against its plain version and the float64
-    sums; returns (inputs, max |kernel - plain|)."""
+    sums; returns (inputs, max |kernel - plain|).  Two launches must give
+    the same bits.  Segments of at most two instances leave no order of
+    summation open, so there the kernel must equal the plain version bit
+    for bit (for K6 that is the bf16 rounding in registers against
+    pack_bf16x2 -> unpack_bf16x2); on longer ones the plain version's
+    index_add_ adds with atomics on the card, in no fixed order, and the
+    two are held to the float64 sums instead."""
     import torch
 
     from reduced3dgs_torch.ops import tile_render as ttr
 
     packed = mode == "bf16x2"
-    rows, order, bounds = seg_inputs(binning, dfeat, mode)
+    name = f"K{6 if packed else 5} {what}"
+    rows, order, bounds = seg_inputs(binning, dfeat)
     got = ttr._seg_reduce_cuda(rows, order, bounds, packed)
+    again = ttr._seg_reduce_cuda(rows, order, bounds, packed)
     want = ttr.seg_reduce_plain(rows, order, bounds, packed)
     ref, mag = seg_reference(rows, order, bounds, packed)
     torch.cuda.synchronize()
-    e_ref = check_seg(got, ref, mag, f"K{6 if packed else 5} {what}")
-    check_seg(want, ref, mag, f"plain K{6 if packed else 5} {what}")
+    check(torch.equal(got, again), f"{name}: two launches differ")
+    lens = bounds[1:] - bounds[:-1]
+    short = lens <= 2
+    check(torch.equal(got[:, short], want[:, short]),
+          f"{name}: segments of <= 2 instances differ from the plain version")
+    e_ref = check_seg(got, ref, mag, name)
+    check_seg(want, ref, mag, f"plain {name}")
     err = float((got - want).abs().max())
     print(f"phase 7: K{6 if packed else 5} ({mode}) {what}: P="
-          f"{bounds.shape[0] - 1}, instances {int(bounds[-1])}: max abs err"
-          f" {err:.3e} against the plain version, {e_ref:.3e} against the "
-          "float64 sums", flush=True)
+          f"{bounds.shape[0] - 1}, instances {int(bounds[-1])}, longest "
+          f"segment {int(lens.max())}: max abs err {err:.3e} against the "
+          f"plain version ({int(short.sum())} segments of <= 2 instances "
+          f"bit-identical), {e_ref:.3e} against the float64 sums; two "
+          "launches bit-identical", flush=True)
     return (rows, order, bounds), err
 
 
-def report_seg(inputs, err, mode, launches):
-    """K5 / K6 times at the main path's shapes, bound and JSON row."""
+def seg_times(inputs, mode):
+    """K5 / K6 on `inputs`: (kernel ms, plain ms, torch.segment_reduce ms
+    on the values gathered into segment order beforehand, ms of the
+    PyTorch calls that compute the same sums from the same inputs: the
+    row gather through `order`, K6's rounding, torch.segment_reduce,
+    bound tuple).  The bound: each instance's 36 B (f32) or 20 B (bf16
+    pairs) and its 8 B index read once, the bounds and the sums once."""
     import torch
 
     from reduced3dgs_torch.ops import tile_render as ttr
@@ -971,43 +1011,80 @@ def report_seg(inputs, err, mode, launches):
                                                     packed), 5)
     n = int(bounds[-1])
     num_p = bounds.shape[0] - 1
-    vals = rows[:, order[:n]]
-    if packed:
-        hi, lo = ttr.unpack_bf16x2(vals)
-        vals = torch.stack([hi, lo], dim=1).reshape(-1, n)
-    data = vals[:9].T.contiguous()  # (n, 9) in segment order
+    data = seg_values(rows, order, bounds, packed).T.contiguous()  # (n, 9)
     lens = (bounds[1:] - bounds[:-1]).long()
     lib_ms = time_ms(lambda: torch.segment_reduce(data, "sum",
                                                   lengths=lens), 20)
+
+    def same_inputs():
+        vals = rows.T[order[:n]]  # (n, 9), one gathered row per instance
+        if packed:
+            vals = vals.to(torch.bfloat16).to(torch.float32)
+        return torch.segment_reduce(
+            vals, "sum", lengths=(bounds[1:] - bounds[:-1]).long())
+
+    lib_same_ms = time_ms(same_inputs, 20)
     nbytes = (SEG_ROW_BYTES[mode] + 8) * n + 4 * (num_p + 1) + 36 * num_p
-    bms, by, b_ms, o_ms = bound(nbytes, 9 * n)
+    return ms, plain_ms, lib_ms, lib_same_ms, bound(nbytes, 9 * n)
+
+
+def seg_times_text(times):
+    ms, plain_ms, lib_ms, lib_same_ms, (bms, by, b_ms, o_ms) = times
+    return (f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"torch.segment_reduce on a payload gathered beforehand "
+            f"{lib_ms:.4f} ms, gather + torch.segment_reduce from the same "
+            f"inputs {lib_same_ms:.4f} ms, bound {bms:.4f} ms ({by}; bytes "
+            f"{b_ms:.4f}, operations {o_ms:.4f}), roofline share "
+            f"{bms / ms * 100:.1f} %")
+
+
+def report_seg(inputs, err, mode, launches):
+    """K5 / K6 times at the main path's shapes, bound and JSON row."""
+    packed = mode == "bf16x2"
+    bounds = inputs[2]
+    times = seg_times(inputs, mode)
+    ms, plain_ms, lib_ms, lib_same_ms, (bms, by, _, _) = times
     name = "seg_reduce_packed" if packed else "seg_reduce_f32"
-    print(f"phase 7: {name} P={num_p} instances={n}: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, torch.segment_reduce {lib_ms:.4f} ms, "
-          f"bound {bms:.4f} ms ({by}; bytes {b_ms:.4f}, operations "
-          f"{o_ms:.4f}), roofline share {bms / ms * 100:.1f} %", flush=True)
+    print(f"phase 7: {name} P={bounds.shape[0] - 1} instances="
+          f"{int(bounds[-1])}: {seg_times_text(times)}", flush=True)
     return {"name": name, "route": "cuda",
             "source": "reduced3dgs_torch/csrc/seg_reduce.cu",
             "replaces": ("reduced3dgs_tpu/ops/tile_render.py:1117" if packed
                          else "reduced3dgs_tpu/ops/tile_render.py:1083"),
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": lib_ms}
+            "library_ms": lib_ms, "library_same_inputs_ms": lib_same_ms}
+
+
+def segments_binning(dev, p, lens=None):
+    """(BinningOut, K3-style rows) of ragged_segments on `dev`."""
+    import torch
+
+    from reduced3dgs_torch.ops import binning as tbin
+    from reduced3dgs_torch.ops import tile_render as ttr
+
+    fields, cols, _ = ragged_segments(p, lens=lens)
+    b = tbin.BinningOut(**{k: torch.as_tensor(np.asarray(v), device=dev)
+                           for k, v in fields.items()})
+    return b, ttr.as_records(torch.as_tensor(cols, device=dev))
 
 
 def ragged_seg_cases(dev):
     """K5 and K6 on the ragged multi-window layouts (P = 700, 2500)."""
-    import torch
-
-    from reduced3dgs_torch.ops import binning as tbin
-
     for p in (700, 2500):
-        fields, cols, _ = ragged_segments(p)
-        b = tbin.BinningOut(**{k: torch.as_tensor(np.asarray(v), device=dev)
-                               for k, v in fields.items()})
+        b, rows = segments_binning(dev, p)
         for mode in ("f32", "bf16x2"):
-            seg_case(b, torch.as_tensor(cols, device=dev), mode,
-                     f"ragged P={p}")
+            seg_case(b, rows, mode, f"ragged P={p}")
+
+
+def skewed_seg_case(dev):
+    """K5 and K6 on the skewed layout, checked and timed on its own
+    line."""
+    b, rows = segments_binning(dev, SKEWED["p"], skewed_lens(**SKEWED))
+    for mode in ("f32", "bf16x2"):
+        inputs, _ = seg_case(b, rows, mode, "skewed")
+        print(f"phase 7: K{6 if mode == 'bf16x2' else 5} ({mode}) skewed: "
+              f"{seg_times_text(seg_times(inputs, mode))}", flush=True)
 
 
 def render_grads(dev, arrs, cp, bg, width, height, backend, grad_reduce):
@@ -1217,19 +1294,32 @@ def train_main_path(dev, seed, smi):
     # stage times by CUDA events over a few more steps
     it = steps + 1
     stage = np.zeros(len(TRAIN_STAGES))
-    for _ in range(TRAIN["timed_steps"]):
-        marks = []
-        tr.step(it, marks=marks)
-        torch.cuda.synchronize()
-        it += 1
-        check(len(marks) == len(TRAIN_STAGES) + 1, "stage marks missing")
-        stage += [marks[i].elapsed_time(marks[i + 1])
-                  for i in range(len(TRAIN_STAGES))]
+    seen = []  # the last step's (gradient rows, binning, mode)
+    reduce_by_src = ttr.segment_reduce_by_src
+
+    def spy(dfeat, binning, grad_reduce="f32"):
+        seen[:] = [(dfeat, binning, grad_reduce)]
+        return reduce_by_src(dfeat, binning, grad_reduce)
+
+    ttr.segment_reduce_by_src = spy
+    try:
+        for _ in range(TRAIN["timed_steps"]):
+            marks = []
+            tr.step(it, marks=marks)
+            torch.cuda.synchronize()
+            it += 1
+            check(len(marks) == len(TRAIN_STAGES) + 1, "stage marks missing")
+            stage += [marks[i].elapsed_time(marks[i + 1])
+                      for i in range(len(TRAIN_STAGES))]
+    finally:
+        ttr.segment_reduce_by_src = reduce_by_src
     stage /= TRAIN["timed_steps"]
     print("phase 9: stage ms per step (CUDA events, bf16x2) "
           + ", ".join(f"{n} {v:.3f}" for n, v in zip(TRAIN_STAGES, stage))
           + f"; sum {stage.sum():.3f} ms; {smi}", flush=True)
 
+    reduction_split(*seen[-1], smi)
+    del seen
     profile_step(tr, it, smi)
     it += 1
 
@@ -1248,6 +1338,32 @@ def train_main_path(dev, seed, smi):
           f"{float(np.median(f32_ms)):.3f} ms; launches {f32_launches}",
           flush=True)
     return launches, f32_launches, tr, it + TRAIN["f32_steps"]
+
+
+def reduction_split(dfeat, binning, mode, smi):
+    """The reduction stage split into the key sort, the kernel and the
+    reorder from depth rank to primitive id, each timed apart (CUDA
+    events) on the (gradient rows, binning) that one Trainer step handed
+    to segment_reduce_by_src."""
+    from reduced3dgs_torch.ops import tile_render as ttr
+
+    order = ttr.segment_order(binning)
+    bounds = binning.seg_bounds.contiguous()
+    packed = mode == "bf16x2"
+    sums = ttr.seg_reduce(dfeat, order, bounds, packed)
+    inv = binning.prim_inv
+    t_sort = time_ms(lambda: ttr.segment_order(binning), 20)
+    t_kernel = time_ms(lambda: ttr.seg_reduce(dfeat, order, bounds, packed),
+                       20)
+    t_reorder = time_ms(lambda: sums[:, inv.long()], 20)
+    t_all = time_ms(lambda: ttr.segment_reduce_by_src(dfeat, binning, mode),
+                    20)
+    print(f"phase 9: reduction stage of one {mode} step (B_pad "
+          f"{dfeat.shape[1]}, P {inv.shape[0]}, instances "
+          f"{int(bounds[-1])}), CUDA events: key sort {t_sort:.4f} ms, "
+          f"kernel {t_kernel:.4f} ms, reorder by prim_inv {t_reorder:.4f} "
+          f"ms; segment_reduce_by_src as a whole {t_all:.4f} ms; {smi}",
+          flush=True)
 
 
 def profile_step(tr, it, smi):

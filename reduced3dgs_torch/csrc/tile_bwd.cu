@@ -29,17 +29,24 @@
 // over the tile's 256 pixels are reduced in the block: __shfl_xor_sync
 // within a warp (skipped when no lane of the warp blends the instance,
 // __any_sync), then the 8 warp partials in shared memory.  Every
-// instance belongs to one tile, so each gradient is written once to
-// dfeat[:, slot] with no atomics; slots the walk never reaches (alignment
-// slack, the early-exit tail, everything past *limit) are not written and
-// keep the zeros the wrapper allocated.
+// instance belongs to one tile, so each gradient is written once with no
+// atomics.  The output is slot-major: slot b owns the record
+// dfeat[b * rec .. b * rec + rec) (rec >= 9 floats, a multiple of 4; the
+// nine gradients first, zeros after them), so that K5 / K6
+// (csrc/seg_reduce.cu) fetch one instance's gradients with 16-byte loads
+// from one or two sectors.  A batch's records are contiguous, and the
+// store walks them in address order: neighbouring threads write
+// neighbouring floats, whole sectors at a time.  Slots the walk never
+// reaches (alignment slack, the early-exit tail, everything past *limit)
+// are not written and keep the zeros the wrapper allocated.
 //
 // What bounds it on the card: f32 arithmetic against 67 TFLOP/s — the
 // per-pixel re-walk (as K2 per walked pair, plus the gradient terms per
 // blended pair) and the per-instance reduction (9 x 5 shuffle-adds per
 // warp that blends the instance); see chip_smoke.py K3_OPS_*.  Bytes (the
 // 36 B feature row read once, 36 B of gradients written once per
-// instance, 64 B of per-pixel inputs) are far below the memory rate.
+// instance inside its 4 * rec B record, 64 B of per-pixel inputs) are far
+// below the memory rate.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,9 +71,11 @@ tile_bwd_kernel(const float* __restrict__ feat, long long stride,
                 const int* __restrict__ limit, int grid_x, int width,
                 int height, const float* __restrict__ gpix,
                 const float* __restrict__ spix, float* __restrict__ dfeat,
-                long long dstride) {
+                int rec) {
   __shared__ float sm[kRows][kBatch];
-  __shared__ float part[kWarps][kRows][kBatch];
+  // warp partials, instance-major ([j][row]) so that the store below reads
+  // consecutive words for consecutive output floats (no bank conflicts)
+  __shared__ float part[kWarps][kBatch * kRows];
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -87,7 +96,7 @@ tile_bwd_kernel(const float* __restrict__ feat, long long stride,
   bool done = px >= width || py >= height;
   float T = 1.0f;
   float incl = 0.0f;
-  float* mine = &part[warp][0][0];
+  float* mine = &part[warp][0];
 
   for (int b0 = start; b0 < end; b0 += kBatch) {
     // also the barrier that keeps the previous batch (features and warp
@@ -152,20 +161,21 @@ tile_bwd_kernel(const float* __restrict__ feat, long long stride,
         }
         if (lane == 0) {
 #pragma unroll
-          for (int r = 0; r < kRows; ++r) part[warp][r][j] = v[r];
+          for (int r = 0; r < kRows; ++r) mine[j * kRows + r] = v[r];
         }
       }
     }
     __syncthreads();
-    for (int k = tid; k < kRows * kBatch; k += kPix) {
-      const int row = k / kBatch;
-      const int j = k % kBatch;
-      if (j < n) {
-        float s = 0.0f;
+    float* __restrict__ dst = dfeat + static_cast<size_t>(b0) * rec;
+    for (int k = tid; k < n * rec; k += kPix) {
+      const int j = k / rec;
+      const int row = k - j * rec;
+      float s = 0.0f;
+      if (row < kRows) {
 #pragma unroll
-        for (int w = 0; w < kWarps; ++w) s += part[w][row][j];
-        dfeat[row * dstride + b0 + j] = s;
+        for (int w = 0; w < kWarps; ++w) s += part[w][j * kRows + row];
       }
+      dst[k] = s;
     }
   }
 }
@@ -176,7 +186,7 @@ extern "C" int tile_bwd_launch(const void* feat, long long stride,
                                const void* ranges, int num_tiles,
                                const void* limit, int grid_x, int width,
                                int height, const void* gpix, const void* spix,
-                               void* dfeat, long long dstride, void* stream) {
+                               void* dfeat, int rec, void* stream) {
   if (num_tiles > 0) {
     tile_bwd_kernel<<<num_tiles, kPix, 0,
                       static_cast<cudaStream_t>(stream)>>>(
@@ -184,7 +194,7 @@ extern "C" int tile_bwd_launch(const void* feat, long long stride,
         static_cast<const int*>(ranges), num_tiles,
         static_cast<const int*>(limit), grid_x, width, height,
         static_cast<const float*>(gpix), static_cast<const float*>(spix),
-        static_cast<float*>(dfeat), dstride);
+        static_cast<float*>(dfeat), rec);
   }
   return static_cast<int>(cudaGetLastError());
 }

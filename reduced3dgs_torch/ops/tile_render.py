@@ -18,12 +18,14 @@ version; a CUDA tensor launches the kernel or raises):
 
   K2  csrc/tile_fwd.cu    forward compositing, one 16x16 tile per block
   K3  csrc/tile_bwd.cu    backward re-walk: per-instance gradients of the
-                          9 features, written once per slot
+                          9 features, written once per slot, as one
+                          slot-major record of GRAD_REC floats
   K4  csrc/tile_trans.cu  inference-only walk for SH-band culling: per
                           slot, the sum of the transmittance before each
                           blend and the count of blending pixels
   K5  csrc/seg_reduce.cu  per-primitive sums of the 9 gradient rows
-  K6  csrc/seg_reduce.cu  the same on bf16x2-packed rows
+  K6  csrc/seg_reduce.cu  the same with each value rounded to bf16 first
+                          (the sums of bf16x2-packed rows)
 
 ``_RasterizeCore`` is the autograd Function around them (the JAX
 package's custom VJP): means2d, conic, opacity and colour in, packed tile
@@ -57,6 +59,9 @@ GRAD_REDUCE = ("f32", "bf16x2")
 # u16 fixed-point scale of the fast table's opacity (tile_render.py:852)
 OP_FIX = 65535.0
 PACKED_ROWS = 5  # bf16x2 pairs of the 9 gradient rows (10th is padding)
+# floats per slot of K3's output on the card: the 9 gradients and 3 zeros,
+# 48 B, so that K5 / K6 fetch one instance with three 16-byte loads
+GRAD_REC = 12
 
 
 def _argtypes(*names):
@@ -220,7 +225,7 @@ def tile_fwd(feat, ranges, limit, grid_x: int, width: int, height: int):
 
 TILE_BWD = _cuda.Kernel("tile_bwd", "tile_bwd_launch",
                         _argtypes("p", "l", "p", "i", "p", "i", "i", "i", "p",
-                             "p", "p", "l", "p"))
+                             "p", "p", "i", "p"))
 
 
 def tile_bwd_plain(feat, ranges, limit, grid_x: int, width: int,
@@ -293,15 +298,17 @@ def _tile_bwd_cuda(feat, ranges, limit, grid_x: int, width: int,
                 or not t.is_contiguous() or t.device != feat.device:
             raise ValueError(f"tile_bwd: {name} must be contiguous "
                              f"{shape} f32 on the features' device")
-    # zeros: slots the walk never reaches must read exactly 0
-    dfeat = torch.zeros((TABLE_ROWS, feat.shape[1]), dtype=torch.float32,
-                        device=feat.device)
+    # zeros: slots the walk never reaches must read exactly 0.  One record
+    # per slot (the layout K5 / K6 read); the caller sees its (9, B_pad)
+    # transposed view, the same values as the plain version's rows.
+    records = torch.zeros((feat.shape[1], GRAD_REC), dtype=torch.float32,
+                          device=feat.device)
     with torch.cuda.device(feat.device):
         TILE_BWD(_cuda.ptr(feat), feat.stride(0), _cuda.ptr(ranges),
                  num_tiles, _cuda.ptr(limit), grid_x, width, height,
-                 _cuda.ptr(g_packed), _cuda.ptr(packed), _cuda.ptr(dfeat),
-                 dfeat.stride(0), _cuda.stream_of(feat))
-    return dfeat
+                 _cuda.ptr(g_packed), _cuda.ptr(packed), _cuda.ptr(records),
+                 GRAD_REC, _cuda.stream_of(feat))
+    return records.T[:TABLE_ROWS]
 
 
 def tile_bwd(feat, ranges, limit, grid_x: int, width: int, height: int,
@@ -429,19 +436,40 @@ def pack_bf16x2(a, b):
     return (ah << 16) | bh  # ah's sign extension is shifted out
 
 
+def through_bf16x2(vals):
+    """(9, n) f32 -> the values a bf16x2 payload carries: the rows packed
+    in pairs (the tenth value 0) and unpacked again, each rounded to bf16
+    to nearest even."""
+    n = vals.shape[1]
+    vals = torch.cat([vals[:TABLE_ROWS], torch.zeros_like(vals[:1])])
+    hi, lo = unpack_bf16x2(pack_bf16x2(vals[0::2], vals[1::2]))
+    return torch.stack([hi, lo], dim=1).reshape(2 * PACKED_ROWS,
+                                                n)[:TABLE_ROWS]
+
+
+def as_records(rows, rec: int = GRAD_REC):
+    """(>=9, B) f32 rows -> the same nine rows as the transposed view of a
+    zero-padded (B, rec) array: K3's slot-major layout on the card, the
+    only one K5 / K6 take there."""
+    records = torch.zeros((rows.shape[1], rec), dtype=torch.float32,
+                          device=rows.device)
+    records[:, :TABLE_ROWS] = rows[:TABLE_ROWS].T
+    return records.T[:TABLE_ROWS]
+
+
 def seg_reduce_plain(rows, order, bounds, packed: bool):
-    """Plain version of K5 (packed=False: rows (9, B) f32) and K6
-    (packed=True: rows (5, B) int32 bf16x2 pairs).  Segment r is
-    order[bounds[r]:bounds[r+1]]; returns the (9, P) f32 sums, P =
-    len(bounds) - 1, in segment (depth-rank) order."""
+    """Plain version of K5 (packed=False) and K6 (packed=True) on (>=9, B)
+    f32 rows of any strides.  Segment r is order[bounds[r]:bounds[r+1]];
+    returns the (9, P) f32 sums, P = len(bounds) - 1, in segment
+    (depth-rank) order.  K6 sums what the JAX package's bf16x2 sort
+    payload holds: the rows packed in pairs (pack_bf16x2, the tenth value
+    0) and unpacked again, i.e. each value rounded to bf16 to nearest
+    even (through_bf16x2)."""
     num_p = bounds.shape[0] - 1
     n = int(bounds[-1])
-    sel = order[:n]
+    vals = rows[:TABLE_ROWS, order[:n]]
     if packed:
-        hi, lo = unpack_bf16x2(rows[:, sel])
-        vals = torch.stack([hi, lo], dim=1).reshape(-1, n)[:TABLE_ROWS]
-    else:
-        vals = rows[:TABLE_ROWS, sel]
+        vals = through_bf16x2(vals)
     lens = (bounds[1:] - bounds[:-1]).long()
     seg = torch.repeat_interleave(
         torch.arange(num_p, device=rows.device), lens, output_size=n)
@@ -451,12 +479,14 @@ def seg_reduce_plain(rows, order, bounds, packed: bool):
 
 
 def _seg_reduce_cuda(rows, order, bounds, packed: bool):
-    want = (PACKED_ROWS, torch.int32) if packed else (TABLE_ROWS,
-                                                      torch.float32)
-    if rows.ndim != 2 or rows.shape[0] < want[0] or rows.dtype != want[1] \
-            or rows.stride(1) != 1:
-        raise ValueError(f"seg_reduce: rows must be (>={want[0]}, B) "
-                         f"{want[1]} with unit stride")
+    if rows.ndim != 2 or rows.shape[0] < TABLE_ROWS \
+            or rows.dtype != torch.float32 or rows.stride(0) != 1 \
+            or rows.stride(1) < 12 or rows.stride(1) % 4 \
+            or rows.data_ptr() % 16:
+        raise ValueError(
+            "seg_reduce: rows must be the (>=9, B) f32 transposed view of "
+            "16-byte-aligned slot-major records of 12, 16, ... floats "
+            "(tile_bwd's output on the card, or as_records)")
     if order.dtype != torch.int64 or order.ndim != 1 \
             or not order.is_contiguous() or order.shape[0] != rows.shape[1]:
         raise ValueError("seg_reduce: order must be a contiguous (B,) "
@@ -472,7 +502,7 @@ def _seg_reduce_cuda(rows, order, bounds, packed: bool):
                       device=rows.device)
     kernel = SEG_REDUCE_PACKED if packed else SEG_REDUCE_F32
     with torch.cuda.device(rows.device):
-        kernel(_cuda.ptr(rows), rows.stride(0), _cuda.ptr(order),
+        kernel(_cuda.ptr(rows), rows.stride(1), _cuda.ptr(order),
                _cuda.ptr(bounds), num_p, _cuda.ptr(out), out.stride(0),
                _cuda.stream_of(rows))
     return out
@@ -488,28 +518,26 @@ def seg_reduce(rows, order, bounds, packed: bool):
     raise ValueError(f"seg_reduce: unsupported device {rows.device}")
 
 
-def segment_reduce_by_src(dfeat, binning: BinningOut, grad_reduce="f32"):
-    """Per-primitive sums of the (9, B_pad) per-slot gradient rows, (9, P)
-    in original primitive order.
-
-    The slots are sorted on key = where(pad, P, depth rank) (pads, slack
-    and truncated slots sort past every real one), so depth rank r's
-    instances are order[seg_bounds[r]:seg_bounds[r+1]].  bf16x2 packs the
-    rows in pairs (the JAX package's sort payload) and K6 unpacks them in
-    registers; f32 hands K5 the rows as they are.
-    """
-    if grad_reduce not in GRAD_REDUCE:
-        raise ValueError(f"unknown grad_reduce {grad_reduce!r}")
+def segment_order(binning: BinningOut):
+    """The slots sorted on key = where(pad, P, depth rank): pads, slack
+    and truncated slots sort past every real one, so depth rank r's
+    instances are order[seg_bounds[r]:seg_bounds[r+1]]."""
     num_p = binning.seg_bounds.shape[0] - 1
     key = torch.where(binning.pad_mask, num_p, binning.gauss_aligned)
-    order = torch.sort(key, stable=True).indices
-    bounds = binning.seg_bounds.contiguous()
-    if grad_reduce == "bf16x2":
-        rows = torch.cat([dfeat[:TABLE_ROWS], torch.zeros_like(dfeat[:1])])
-        rows = pack_bf16x2(rows[0::2], rows[1::2])  # (5, B_pad)
-        sums = seg_reduce(rows, order, bounds, packed=True)
-    else:
-        sums = seg_reduce(dfeat, order, bounds, packed=False)
+    return torch.sort(key, stable=True).indices
+
+
+def segment_reduce_by_src(dfeat, binning: BinningOut, grad_reduce="f32"):
+    """Per-primitive sums of the (9, B_pad) per-slot gradient rows (K3's
+    output), (9, P) in original primitive order: the key sort, K5 (f32)
+    or K6 (bf16x2: every value rounded to bf16 before it is added, the
+    JAX package's packed sort payload), then the reorder from depth rank
+    to primitive id."""
+    if grad_reduce not in GRAD_REDUCE:
+        raise ValueError(f"unknown grad_reduce {grad_reduce!r}")
+    sums = seg_reduce(dfeat, segment_order(binning),
+                      binning.seg_bounds.contiguous(),
+                      packed=grad_reduce == "bf16x2")
     return sums[:, binning.prim_inv.long()]  # depth rank -> original id
 
 

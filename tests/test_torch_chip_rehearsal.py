@@ -46,6 +46,9 @@ def cpu_card(monkeypatch):
     monkeypatch.setattr(cs, "K2_SCENE", dict(SMALL, budget=1 << 15))
     monkeypatch.setattr(cs, "TRAIN", dict(cs.TRAIN, grad_threshold=1e-6))
     monkeypatch.setattr(cs, "BENCH_BUDGET", 1 << 16)
+    monkeypatch.setattr(cs, "SKEWED", dict(
+        p=4000, n_long=2, long_len=3000, n_mid=20, mid_len=(33, 300),
+        short_max=3))
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     monkeypatch.setattr(torch.cuda, "Event", _HostEvent)
     monkeypatch.setattr(cs, "profile_step", lambda *a: None)
@@ -79,12 +82,13 @@ def test_phase7_kernel_cases(cpu_card):
                              case["dfeat"].shape[1])
     assert 0 < int(walked.sum()) < walked.numel()
     cs.ragged_seg_cases(cpu_card)
+    cs.skewed_seg_case(cpu_card)
     for mode in ("f32", "bf16x2"):
         inputs, err = cs.seg_case(case["binning"], case["dfeat"], mode, "x")
         assert err == 0.0
         row = cs.report_seg(inputs, err, mode, 3)
         assert row["launches"] == 3 and row["bound_by"] == "bytes"
-        assert row["library_ms"] > 0
+        assert row["library_ms"] > 0 and row["library_same_inputs_ms"] > 0
     row = cs.report_k3(case, 5)
     assert row["bound_by"] == "operations" and row["plain_ms"] > 0
 

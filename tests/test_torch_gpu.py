@@ -8,8 +8,11 @@ every value and 1e-4 on >= 99.9 % of them (a sequential walk and the
 vectorised plain version may flip one blend at a threshold); the whole
 render on the card within atol 2e-5 / rtol 1e-4 of the CPU render.  K3
 holds to the same criterion relative to each gradient row's max, with
-exact zeros outside the walked ranges; K5 / K6 to the float64 segment
-sums within 2e-5 relative plus 1e-5 of the segment's sum of magnitudes;
+exact zeros outside the walked ranges, written as slot-major records;
+K5 / K6 to the float64 segment sums within 2e-5 relative plus 1e-5 of the
+segment's sum of magnitudes, bit for bit to the plain version on segments
+of at most two instances, and bit for bit between two launches, on a
+ragged and on a skewed layout;
 one train step on the card matches the same step on the CPU (loss to
 1e-5 relative, gradients at atol 2e-4 max|g| / rtol 2e-3).  K4 per slot:
 every sum within 1.01 (one flipped blend) and >= 99.99 % within atol 1e-3 /
@@ -74,6 +77,9 @@ def test_tile_bwd_kernel_matches_plain(cuda, fast):
     case = cs.k3_case(cuda, scene, 1 << 17, 0, fast)
     assert tile_render.TILE_BWD.launches == before + 1
     assert case["err"] < 1e-2
+    # one slot-major record per slot, the layout K5 / K6 read
+    assert case["dfeat"].shape[0] == 9
+    assert case["dfeat"].stride() == (1, tile_render.GRAD_REC)
 
 
 def test_tile_trans_kernel_matches_plain(cuda):
@@ -102,19 +108,48 @@ def test_transmittance_render_on_card_matches_ref(cuda):
 
 
 @pytest.mark.parametrize("mode", ["f32", "bf16x2"])
-def test_seg_reduce_kernels_match_plain(cuda, mode):
+@pytest.mark.parametrize("layout", ["ragged", "skewed"])
+def test_seg_reduce_kernels_match_plain(cuda, layout, mode):
+    """seg_case checks the kernel against the float64 sums, the plain
+    version and a second launch; the skewed layout reaches the warp and
+    the block tier (segments of 33-1,024 and of 5,000 slots)."""
     import chip_smoke as cs
-    from reduced3dgs_torch.ops import binning, tile_render
+    from reduced3dgs_torch.ops import tile_render
 
     kernel = (tile_render.SEG_REDUCE_PACKED if mode == "bf16x2"
               else tile_render.SEG_REDUCE_F32)
-    fields, cols, _ = cs.ragged_segments(2500)
-    b = binning.BinningOut(**{k: torch.as_tensor(np.asarray(v), device=cuda)
-                              for k, v in fields.items()})
+    lens = None
+    if layout == "skewed":
+        lens = cs.skewed_lens(p=20000, n_long=5, long_len=5000, n_mid=100,
+                              mid_len=(33, 1024), short_max=3)
+    b, rows = cs.segments_binning(cuda, 20000 if lens is not None else 2500,
+                                  lens)
     before = kernel.launches
-    _, err = cs.seg_case(b, torch.as_tensor(cols, device=cuda), mode, "test")
-    assert kernel.launches == before + 1
+    _, err = cs.seg_case(b, rows, mode, "test")
+    assert kernel.launches == before + 2
     assert err < 1e-3
+    # the dispatcher takes the kernel for a CUDA tensor, and only K3's
+    # record layout
+    got = tile_render.segment_reduce_by_src(rows, b, mode)
+    assert kernel.launches == before + 3 and got.is_cuda
+    with pytest.raises(ValueError, match="slot-major records"):
+        tile_render.segment_reduce_by_src(rows.contiguous(), b, mode)
+
+
+def test_seg_reduce_on_card_matches_cpu(cuda):
+    """segment_reduce_by_src on the card against the CPU's plain versions
+    on the same inputs: f32 within rtol 2e-5 / atol 2e-4 (another order of
+    summation), and bf16x2 no further off (the same rounded values)."""
+    import chip_smoke as cs
+    from reduced3dgs_torch.ops import tile_render
+
+    b_cpu, rows_cpu = cs.segments_binning(torch.device("cpu"), 2500)
+    b_gpu, rows_gpu = cs.segments_binning(cuda, 2500)
+    for mode in ("f32", "bf16x2"):
+        want = tile_render.segment_reduce_by_src(rows_cpu, b_cpu, mode)
+        got = tile_render.segment_reduce_by_src(rows_gpu, b_gpu, mode)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=2e-5, atol=2e-4)
 
 
 def test_train_step_on_card_matches_cpu(cuda):
