@@ -11,9 +11,12 @@ before the final line:
  2. K1 (csrc/expand.cu) against its plain version, bit-exact, on the
     binning-test cases plus budget truncation and no marks;
  3. K2 (csrc/tile_fwd.cu) against its plain version on the 512x512,
-    2^17-primitive scene (every pixel within 5e-3, >= 99.9 % within 1e-4),
-    and the whole render (kernels) against the masked oracle on a small
-    scene;
+    2^17-primitive scene (every pixel within 5e-3, >= 99.9 % within 1e-4;
+    two launches bit-identical), on edge cases at small size (a frame
+    whose width and height are no multiples of 16, tiles whose ranges are
+    exactly 128 and 256 instances, a limit that cuts a range mid-batch,
+    an all-empty frame), and the whole render (kernels) against the
+    masked oracle on a small scene;
  4. the main path at full size: a 1920x1080 model of 2^19 SH-degree-3
     primitives made from --seed, written as point_cloud.ply and
     point_cloud_quantised_half.ply (256-entry quantile codebooks), loaded
@@ -22,15 +25,20 @@ before the final line:
     the kernels' launch counters are zeroed just before and read just
     after, and must have risen;
  5. per-kernel times (CUDA events) at the main path's shapes beside the
-    plain versions, the bound, and a PyTorch yardstick; one JSON line;
+    plain versions, the bound, and a PyTorch yardstick; K2's line also
+    counts the (warp, instance) pairs its warps dispatch and the instances
+    its blocks stage, and gives the lane utilisation (pixel pairs over 32
+    x warp pairs) for the kernels' warp footprint and for the former one;
  6. where a frame's time goes (baseline model, the ring, the settled
     budget): stage times by CUDA events through renderer.render's marks,
     then one pass under torch.profiler whose kernel time is set against
     the CUDA-event span of that same pass (the device's idle share);
  7. the training kernels against their plain versions: K3
     (csrc/tile_bwd.cu) at 512p and at the 1080p main-path shapes with both
-    feature tables (exact zeros on every slot outside the walked ranges),
-    K5 / K6 (csrc/seg_reduce.cu) on K3's slot-major records at the
+    feature tables (exact zeros on every slot outside the walked ranges,
+    two launches bit-identical) and on phase 3's edge cases, with the
+    lane utilisation of its walk and of its blending warps; K5 / K6
+    (csrc/seg_reduce.cu) on K3's slot-major records at the
     main-path shapes, on the ragged segment layouts of
     tests/test_tile_render.py (P = 700, 2500) and on a skewed layout (64
     segments of 20,000 slots and 1,024 of 33-1,024 among 2^19 of 0-3),
@@ -101,41 +109,47 @@ RING_RADIUS = 3.6
 # the tensor cores
 MEM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# f32 operations of csrc/tile_fwd.cu's inner loop per (pixel, instance)
-# pair, counted in its SASS (cuobjdump -sass of the built library, nvcc
-# 12.8, sm_90a), an FFMA as 2 (as the peak counts it) and an FADD, FMUL,
-# FSETP or FMNMX as 1.  Every walked pair: dx, dy 2 FADD; power 5 FMUL and
-# 2 FFMA (11); the power test 1; min(power, 0) 1; expf 4 FFMA, 1 FADD and
-# 1 FMUL (10) plus one MUFU.EX2 on the special-function units, which is
-# not counted (at 16 per SM and clock it is not the tighter limit);
-# op * e 1; min(0.99, .) 1; the alpha test 1: 26.  A blended pair adds
-# 1 - alpha, T * (1 - alpha), the T test, alpha * T and three colour
-# FFMAs: 10.  The pair that stops a pixel adds the first three: 3.
-K2_OPS_WALKED = 26
+# The least f32 arithmetic the tile walks need per (pixel, instance) pair,
+# counted on the formulas (an FFMA as 2, as the peak counts it; an FADD,
+# FMUL, FSETP or FMNMX as 1; a MUFU.EX2 / MUFU.RCP on the special-function
+# units is not counted: at 16 per SM and clock it is not the tighter
+# limit).  The loops of csrc/tile_fwd.cu and csrc/tile_bwd.cu are written
+# to these formulas; csrc/tile_trans.cu still calls expf and issues more,
+# which its bound does not credit.
+# Every walked pair: dx, dy 2; the power dx (a dx + b dy) + c dy^2 with the
+# conic pre-scaled once per instance 3 FMUL and 2 FFMA (7); min(power, 0)
+# 1; op * e 1; min(0.99, .) 1; the power and alpha tests 2: 14.  A blended
+# pair adds 1 - alpha, T (1 - alpha), the T test, alpha * T and three
+# colour FFMAs: 10.  The pair that stops a pixel adds the first three: 3.
+K2_OPS_WALKED = 14
 K2_OPS_BLEND = 10
 K2_OPS_STOP = 3
 K1_OPS_PER_STEP = 4  # load, compare, select, shift per search step
-# f32 operations of csrc/tile_bwd.cu's inner loop, counted in its SASS
-# (cuobjdump -sass of the built library, nvcc 12.9, sm_90a) as for K2:
-# every walked pair repeats K2's walk exactly (26, K2_OPS_WALKED; 3 more
-# for the pair that stops a pixel).  A blended pair adds 45: T (1 - alpha)
-# and its test 3, w 1, gc 5 (1 FMUL, 2 FFMA), the prefix 2, q - incl 1,
-# the division by 1 - alpha 10 (5 FFMA; its MUFU.RCP is not counted),
-# gc T 1 and the nine per-pixel gradient terms with dpower 22 (12 FMUL,
-# 2 FADD, 4 FFMA).  The sums over a tile's pixels need at least
-# K3_OPS_REDUCE adds per blended pair; the kernel's shuffle tree spends 45
-# SHFL and 45 FADD per warp that blends an instance (K3_OPS_WARP_TREE).
-K3_OPS_BLEND = 45
+# K3 repeats K2's walk (K2_OPS_WALKED, K2_OPS_STOP).  A blended pair adds
+# 24: T (1 - alpha) and its test 3, w 1, gc = g . rgb 5, the prefix 2,
+# q - incl 1, times the reciprocal of 1 - alpha 1, dalpha 2, ge = e dalpha
+# 1 and the eight products of its terms of the nine sums (ge {dx, dy,
+# dx^2, dx dy, dy^2}, w g; the factors that belong to the instance are
+# applied once per instance, which is not counted).  The sums over a
+# tile's pixels need K3_OPS_REDUCE adds per blended pair; the kernel's
+# exchanging butterfly spends 12 SHFL and 12 FADD per warp that blends an
+# instance (K3_OPS_WARP_TREE; nine separate trees took 45).
+K3_OPS_BLEND = 24
 K3_OPS_REDUCE = 9
-K3_OPS_WARP_TREE = 45
-# f32 operations of csrc/tile_trans.cu's inner loop, counted in its SASS
-# (cuobjdump -sass of the built library, sm_90a) as for K2: every walked
-# pair repeats K2's walk exactly (26, K2_OPS_WALKED; K2_OPS_STOP for the
-# pair that stops a pixel).  A blended pair adds 1 - alpha, T (1 - alpha)
-# and its test (1 FADD, 1 FMUL, 1 FSETP: 3) and needs the two sums' adds
-# over the tile's pixels (2).  The kernel's shuffle
-# sum spends 5 SHFL and 5 FADD per warp that blends an instance
-# (K4_OPS_WARP_TREE); the count comes from one __ballot_sync + POPC.
+K3_OPS_WARP_TREE = 12
+# The bounds first counted the instructions of the first kernels' SASS:
+# expf's range reduction and an unscaled conic (26 per walked pair), an
+# exact division and per-pixel instance factors (45 per blended pair of
+# K3).  Each report prints the bound on those counts beside today's, so
+# that roofline shares stay comparable with the earlier records.
+FORMER_OPS_WALKED = 26
+FORMER_K3_OPS_BLEND = 45
+# K4 (csrc/tile_trans.cu) repeats K2's walk (K2_OPS_WALKED, K2_OPS_STOP).
+# A blended pair adds 1 - alpha, T (1 - alpha) and its test (1 FADD, 1
+# FMUL, 1 FSETP: 3) and needs the two sums' adds over the tile's pixels
+# (2).  The kernel's shuffle sum spends 5 SHFL and 5 FADD per warp that
+# blends an instance (K4_OPS_WARP_TREE); the count comes from one
+# __ballot_sync + POPC.
 K4_OPS_BLEND = 5
 K4_OPS_WARP_TREE = 5
 PROFILE_TOP = 12  # kernels listed by phases 6 and 9
@@ -347,10 +361,23 @@ def kernel_inputs(device, width, height, n, scales, budget, seed=0,
     return prep, b, (feat, b.tile_ranges.contiguous(), limit)
 
 
+def walk_ops(pairs, blend, walked=K2_OPS_WALKED):
+    """The f32 operations of a tile walk for tile_fwd_plain's pair counts,
+    at `blend` operations per blended pair."""
+    return (walked * pairs["walked"] + blend * pairs["blended"]
+            + K2_OPS_STOP * pairs["stopped"])
+
+
 def k2_ops(pairs):
     """K2's f32 operations for tile_fwd_plain's pair counts."""
-    return (K2_OPS_WALKED * pairs["walked"] + K2_OPS_BLEND * pairs["blended"]
-            + K2_OPS_STOP * pairs["stopped"])
+    return walk_ops(pairs, K2_OPS_BLEND)
+
+
+def former_text(nbytes, ops, ms):
+    """The bound on the first kernels' operation counts, as report text."""
+    former = bound(nbytes, ops)[0]
+    return (f"on the first kernels' operation counts the bound was "
+            f"{former:.4f} ms, share {former / ms * 100:.1f} %")
 
 
 def compare_k2(out, ref):
@@ -391,6 +418,147 @@ def walked_slots(ranges, limit, b_pad):
     mark.index_add_(0, s[keep], torch.ones_like(s[keep]))
     mark.index_add_(0, e[keep], -torch.ones_like(e[keep]))
     return torch.cumsum(mark, 0)[:b_pad] > 0
+
+
+def synthetic_walk_inputs(device, lens, width, height, limit=None, seed=0):
+    """K2 / K3 inputs made by hand: tile t owns `lens[t]` instances (a
+    multiple of 128, as binning aligns them) scattered over its own
+    pixels.  Returns (feat (9, B_pad) f32, ranges (2, T) int32, limit ()
+    int32); `limit` defaults to the number of slots."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    gx = -(-width // 16)
+    check(len(lens) == gx * -(-height // 16)
+          and all(n % 128 == 0 for n in lens), "synthetic walk: tile lengths")
+    ends = np.cumsum(lens)
+    starts = ends - np.asarray(lens)
+    total = max(int(ends[-1]), 128)
+    feat = np.zeros((9, total), np.float32)
+    for t, (s, e) in enumerate(zip(starts, ends)):
+        n = e - s
+        feat[0, s:e] = t % gx * 16 + rng.uniform(-2, 18, n)
+        feat[1, s:e] = t // gx * 16 + rng.uniform(-2, 18, n)
+        inv = 1.0 / rng.uniform(1.5, 6.0, n) ** 2
+        feat[2, s:e] = inv
+        feat[3, s:e] = inv * rng.uniform(-0.3, 0.3, n)
+        feat[4, s:e] = inv * rng.uniform(0.7, 1.4, n)
+        feat[5, s:e] = rng.uniform(0.02, 0.6, n)
+        feat[6:9, s:e] = rng.uniform(0, 1, (3, n))
+    ranges = np.stack([starts, ends]).astype(np.int32)
+    lim = int(ends[-1]) if limit is None else limit
+    return (torch.as_tensor(feat, device=device),
+            torch.as_tensor(ranges, device=device),
+            torch.tensor(lim, dtype=torch.int32, device=device))
+
+
+def walk_edge_cases(device, seed=0):
+    """[(name, (feat, ranges, limit), width, height)] at small size: a
+    binned scene whose width and height are no multiples of 16, tiles
+    whose ranges are exactly 128 and 256 instances (and an empty one), a
+    limit that cuts a range in the middle of a batch, an all-empty
+    frame."""
+    _, _, ragged = kernel_inputs(device, 200, 136, 20000, (0.01, 0.05),
+                                 1 << 17, seed)
+    lens = [128, 256, 0, 384, 128, 256]  # 3 x 2 tiles of a 40 x 24 frame
+    cut = sum(lens[:3]) + 128 + 77  # inside tile 3's second batch
+    return [
+        ("200x136, not multiples of 16", ragged, 200, 136),
+        ("ranges of exactly 128 and 256",
+         synthetic_walk_inputs(device, lens, 40, 24, seed=seed + 1), 40, 24),
+        (f"limit {cut} cuts a range mid-batch",
+         synthetic_walk_inputs(device, lens, 40, 24, limit=cut,
+                               seed=seed + 2), 40, 24),
+        ("all-empty frame",
+         synthetic_walk_inputs(device, [0] * 6, 40, 24, seed=seed + 3),
+         40, 24),
+    ]
+
+
+def k2_edge_cases(device, seed=0):
+    """K2 on walk_edge_cases against its plain version (compare_k2's
+    criterion), two launches bit for bit; empty tiles exactly colour 0 and
+    T 1.  Returns the largest error."""
+    import torch
+
+    from reduced3dgs_torch.ops import tile_render as ttr
+
+    worst = 0.0
+    for name, k2in, w, h in walk_edge_cases(device, seed):
+        gx = -(-w // 16)
+        got = ttr._tile_fwd_cuda(*k2in, gx, w, h)
+        again = ttr._tile_fwd_cuda(*k2in, gx, w, h)
+        want = ttr.tile_fwd_plain(*k2in, gx, w, h)
+        check(torch.equal(got, again), f"K2 {name}: two launches differ")
+        err, share = compare_k2(got, want)
+        check(err <= 5e-3 and share >= 0.999,
+              f"K2 {name}: kernel != plain ({err:.3e}, {share:.6f})")
+        ranges, limit = k2in[1], k2in[2]
+        empty = torch.minimum(ranges[1], limit) <= ranges[0]
+        check(bool((got[empty, 0:3] == 0).all())
+              and bool((got[empty, 3] == 1).all())
+              and bool((got[:, 4:] == 0).all()),
+              f"K2 {name}: empty tiles or padding rows are not exact")
+        worst = max(worst, err)
+        print(f"phase 3: K2 edge case, {name}: max abs err {err:.3e}, share "
+              f"within 1e-4 {share:.6f}, {int(empty.sum())} empty tiles "
+              "exact, two launches bit-identical", flush=True)
+    return worst
+
+
+def k3_edge_cases(device, seed=0):
+    """K3 on walk_edge_cases against its plain version (compare_k3's
+    criterion), exact zeros outside the walked ranges, two launches bit
+    for bit.  Returns the largest relative error."""
+    import torch
+
+    from reduced3dgs_torch.ops import tile_render as ttr
+
+    worst = 0.0
+    for name, (feat, ranges, limit), w, h in walk_edge_cases(device, seed):
+        gx = -(-w // 16)
+        packed = ttr._tile_fwd_cuda(feat, ranges, limit, gx, w, h)
+        k3in = (feat, ranges, limit, gx, w, h, k3_cotangent(packed, seed),
+                packed)
+        got = ttr._tile_bwd_cuda(*k3in)
+        again = ttr._tile_bwd_cuda(*k3in)
+        want = ttr.tile_bwd_plain(*k3in)
+        check(torch.equal(got, again), f"K3 {name}: two launches differ")
+        walked = walked_slots(ranges, limit, feat.shape[1])
+        check(bool((got[:, ~walked] == 0).all()),
+              f"K3 {name}: a slot outside the walked ranges is not 0")
+        if bool(walked.any()):
+            _, rel, share = compare_k3(got, want)
+        else:
+            rel, share = float(got.abs().max()), 1.0
+        check(rel <= 5e-3 and share >= 0.999,
+              f"K3 {name}: kernel != plain ({rel:.3e}, {share})")
+        worst = max(worst, rel)
+        print(f"phase 7: K3 edge case, {name}: largest error / row max "
+              f"{rel:.3e}, share within 1e-4 of the row max {share:.6f}, "
+              f"{int((~walked).sum())} unwalked slots exactly 0, two "
+              "launches bit-identical", flush=True)
+    return worst
+
+
+def layout_text(layout):
+    """tile_render.walk_layout's keywords as report text."""
+    wide, high = layout["warp_shape"]
+    return (f"{layout['pixels_per_thread']} pixel(s) per thread on blocks "
+            f"of {wide}x{high}, batches of {layout['batch']}")
+
+
+def lane_text(pairs, pixels=32):
+    """The (warp, instance) counts of tile_fwd_plain(count_pairs=True) and
+    the two lane-utilisation shares, as text; a warp walks `pixels`
+    pixels (32 per pixel of a thread)."""
+    walk = pairs["walked"] / max(pixels * pairs["warp_walked"], 1)
+    blend = pairs["blended"] / max(pixels * pairs["warp_blended"], 1)
+    return (f"warp_walked {pairs['warp_walked']}, warp_blended "
+            f"{pairs['warp_blended']}, staged {pairs['staged']}; lane "
+            f"utilisation walked / ({pixels} x warp_walked) "
+            f"{walk * 100:.2f} %, blended / ({pixels} x warp_blended) "
+            f"{blend * 100:.2f} %")
 
 
 def skewed_lens(p, n_long, long_len, n_mid, mid_len, short_max, seed=5):
@@ -618,12 +786,15 @@ def main(argv=None):
                                   s["scales"], s["budget"], args.seed)
     gx = -(-s["width"] // 16)
     got = ttr._tile_fwd_cuda(*k2in, gx, s["width"], s["height"])
+    again = ttr._tile_fwd_cuda(*k2in, gx, s["width"], s["height"])
     want = ttr.tile_fwd_plain(*k2in, gx, s["width"], s["height"])
     torch.cuda.synchronize()
     err, share = compare_k2(got, want)
     print(f"phase 3: K2 512p num_rendered={int(b512.num_rendered)}: max abs "
           f"err {err:.3e}, share within 1e-4 {share:.6f}", flush=True)
     check(err <= 5e-3 and share >= 0.999, "K2 512p: kernel != plain")
+    check(torch.equal(got, again), "K2 512p: two launches differ")
+    k2_edge_cases(dev, args.seed)
     small = _small_render_check(dev)
     print(f"phase 3: small scene, kernels vs masked oracle on the card: "
           f"max abs err {small:.3e}", flush=True)
@@ -673,6 +844,7 @@ def main(argv=None):
         k3_case(dev, K2_SCENE, K2_SCENE["budget"], args.seed, fast)
     main_k3 = {fast: k3_case(dev, MAIN, budget, args.seed, fast)
                for fast in (False, True)}
+    k3_edge_cases(dev, args.seed)
     ragged_seg_cases(dev)
     skewed_seg_case(dev)
     case = main_k3[False]
@@ -791,11 +963,16 @@ def _report_k2(k2in, w, h, launches, ttr):
 
     gx = -(-w // 16)
     got = ttr._tile_fwd_cuda(*k2in, gx, w, h)
-    want, pairs = ttr.tile_fwd_plain(*k2in, gx, w, h, count_pairs=True)
+    again = ttr._tile_fwd_cuda(*k2in, gx, w, h)
+    layout = ttr.walk_layout("tile_fwd")
+    want, pairs = ttr.tile_fwd_plain(*k2in, gx, w, h, count_pairs=True,
+                                     **layout)
+    _, rows = ttr.tile_fwd_plain(*k2in, gx, w, h, count_pairs=True)
     torch.cuda.synchronize()
     err, share = compare_k2(got, want)
     check(err <= 5e-3 and share >= 0.999,
           f"K2 main-path shapes: kernel != plain ({err:.3e}, {share:.6f})")
+    check(torch.equal(got, again), "K2 main-path shapes: two launches differ")
     ms = time_ms(lambda: ttr._tile_fwd_cuda(*k2in, gx, w, h), 20)
     plain_ms = time_ms(lambda: ttr.tile_fwd_plain(*k2in, gx, w, h), 2)
     ranges = k2in[1]
@@ -804,19 +981,26 @@ def _report_k2(k2in, w, h, launches, ttr):
     nbytes = 4 * ttr.TABLE_ROWS * inst + 8 * num_tiles \
         + 4 * ttr.PIX_ROWS * ttr.NPIX * num_tiles
     bms, by, b_ms, o_ms = bound(nbytes, k2_ops(pairs))
+    former = former_text(
+        nbytes, walk_ops(pairs, K2_OPS_BLEND, FORMER_OPS_WALKED), ms)
     print(f"phase 5: K2 tiles={num_tiles} instances={inst} pairs walked "
           f"{pairs['walked']}, blended {pairs['blended']}, stopped "
-          f"{pairs['stopped']}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{pairs['stopped']}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, bound "
           f"{bms:.4f} ms ({by}; bytes {b_ms:.4f}, operations {o_ms:.4f}), "
-          f"roofline share {bms / ms * 100:.1f} %; max abs err {err:.3e}, "
-          f"share within 1e-4 {share:.6f}", flush=True)
+          f"roofline share {bms / ms * 100:.1f} % ({former}); max abs err "
+          f"{err:.3e}, share within 1e-4 {share:.6f}; two launches "
+          "bit-identical", flush=True)
+    print(f"phase 5: K2 {layout_text(layout)}: "
+          f"{lane_text(pairs, 32 * layout['pixels_per_thread'])}; "
+          f"warps of two 16-pixel rows, batches of 128 (the former walk, "
+          f"K4's): {lane_text(rows)}", flush=True)
     return {"name": "tile_fwd", "route": "cuda",
             "source": "reduced3dgs_torch/csrc/tile_fwd.cu",
             "replaces": "reduced3dgs_tpu/ops/tile_render.py:324",
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": None}
-
 
 
 def _profile_frames(pv, views, budget, smi):
@@ -901,8 +1085,12 @@ def k3_case(dev, scene, budget, seed, fast):
     packed = ttr._tile_fwd_cuda(feat, ranges, limit, gx, w, h)
     g = k3_cotangent(packed, seed)
     got = ttr._tile_bwd_cuda(feat, ranges, limit, gx, w, h, g, packed)
+    again = ttr._tile_bwd_cuda(feat, ranges, limit, gx, w, h, g, packed)
     want = ttr.tile_bwd_plain(feat, ranges, limit, gx, w, h, g, packed)
-    torch.cuda.synchronize()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    check(torch.equal(got, again), f"K3 {w}x{h} fast={fast}: two launches "
+                                   "differ")
     walked = walked_slots(ranges, limit, feat.shape[1])
     check(bool((got[:, ~walked] == 0).all()),
           "K3: a slot outside the walked ranges is not exactly 0")
@@ -913,7 +1101,7 @@ def k3_case(dev, scene, budget, seed, fast):
           f"num_rendered {int(b.num_rendered)}: max abs err {err:.3e}, "
           f"largest error / row max {rel:.3e}, share within 1e-4 of the "
           f"row max {share:.6f}; {int((~walked).sum())} unwalked slots "
-          "exactly 0", flush=True)
+          "exactly 0; two launches bit-identical", flush=True)
     return dict(binning=b, k3in=(feat, ranges, limit, gx, w, h, g, packed),
                 dfeat=got, err=err)
 
@@ -925,17 +1113,18 @@ def report_k3(case, launches):
     feat, ranges, limit, gx, w, h, g, packed = case["k3in"]
     ms = time_ms(lambda: ttr._tile_bwd_cuda(*case["k3in"]), 20)
     plain_ms = time_ms(lambda: ttr.tile_bwd_plain(*case["k3in"]), 1)
+    layout = ttr.walk_layout("tile_bwd")
     _, pairs = ttr.tile_fwd_plain(feat, ranges, limit, gx, w, h,
-                                  count_pairs=True)
+                                  count_pairs=True, **layout)
     inst = int((ranges[1] - ranges[0]).sum())
     tiles = ranges.shape[1]
     nbytes = (4 * ttr.TABLE_ROWS * inst + 8 * tiles
               + 2 * 4 * ttr.PIX_ROWS * ttr.NPIX * tiles
               + 4 * ttr.TABLE_ROWS * feat.shape[1])
-    ops = (K2_OPS_WALKED * pairs["walked"]
-           + (K3_OPS_BLEND + K3_OPS_REDUCE) * pairs["blended"]
-           + K2_OPS_STOP * pairs["stopped"])
-    bms, by, b_ms, o_ms = bound(nbytes, ops)
+    bms, by, b_ms, o_ms = bound(
+        nbytes, walk_ops(pairs, K3_OPS_BLEND + K3_OPS_REDUCE))
+    former = former_text(nbytes, walk_ops(
+        pairs, FORMER_K3_OPS_BLEND + K3_OPS_REDUCE, FORMER_OPS_WALKED), ms)
     red_ms = K3_OPS_REDUCE * pairs["blended"] / F32_OPS_PER_S * 1e3
     tree_ms = K3_OPS_WARP_TREE * pairs["warp_blended"] / F32_OPS_PER_S * 1e3
     print(f"phase 7: K3 tiles={tiles} instances={inst} pairs walked "
@@ -944,8 +1133,11 @@ def report_k3(case, launches):
           f"{pairs['warp_blended']}: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}; bytes {b_ms:.4f}, "
           f"operations {o_ms:.4f}, of which the per-instance sums "
-          f"{red_ms:.4f}; the shuffle tree's adds would take {tree_ms:.4f}),"
-          f" roofline share {bms / ms * 100:.1f} %", flush=True)
+          f"{red_ms:.4f}; the butterfly's adds would take {tree_ms:.4f}),"
+          f" roofline share {bms / ms * 100:.1f} % ({former})", flush=True)
+    print(f"phase 7: K3 {layout_text(layout)}: "
+          f"{lane_text(pairs, 32 * layout['pixels_per_thread'])}",
+          flush=True)
     return {"name": "tile_bwd", "route": "cuda",
             "source": "reduced3dgs_torch/csrc/tile_bwd.cu",
             "replaces": "reduced3dgs_tpu/ops/tile_render.py:468",
@@ -1480,13 +1672,14 @@ def report_k4(case, launches):
     ms = time_ms(lambda: ttr._tile_trans_cuda(*case["k4in"]), 20)
     k2_ms = time_ms(lambda: ttr._tile_fwd_cuda(*case["k4in"]), 20)
     plain_ms = time_ms(lambda: ttr.tile_trans_plain(*case["k4in"]), 1)
+    # K4's walk: the keywords' defaults, two 16-pixel rows to a warp
     _, pairs = ttr.tile_fwd_plain(*case["k4in"], count_pairs=True)
     inst = int((ranges[1] - ranges[0]).sum())
     tiles = ranges.shape[1]
     nbytes = 4 * 6 * inst + 8 * tiles + 4 * 2 * feat.shape[1]
-    ops = (K2_OPS_WALKED * pairs["walked"] + K4_OPS_BLEND * pairs["blended"]
-           + K2_OPS_STOP * pairs["stopped"])
-    bms, by, b_ms, o_ms = bound(nbytes, ops)
+    bms, by, b_ms, o_ms = bound(nbytes, walk_ops(pairs, K4_OPS_BLEND))
+    former = former_text(
+        nbytes, walk_ops(pairs, K4_OPS_BLEND, FORMER_OPS_WALKED), ms)
     tree_ms = K4_OPS_WARP_TREE * pairs["warp_blended"] / F32_OPS_PER_S * 1e3
     print(f"phase 10: K4 tiles={tiles} instances={inst} pairs walked "
           f"{pairs['walked']}, blended {pairs['blended']}, stopped "
@@ -1495,7 +1688,7 @@ def report_k4(case, launches):
           f"inputs in this loop {k2_ms:.4f} ms), plain {plain_ms:.4f} ms, "
           f"bound {bms:.4f} ms ({by}; bytes {b_ms:.4f}, operations "
           f"{o_ms:.4f}; the shuffle sums' adds would take {tree_ms:.4f}), "
-          f"roofline share {bms / ms * 100:.1f} %", flush=True)
+          f"roofline share {bms / ms * 100:.1f} % ({former})", flush=True)
     return {"name": "tile_trans", "route": "cuda",
             "source": "reduced3dgs_torch/csrc/tile_trans.cu",
             "replaces": "reduced3dgs_tpu/ops/tile_render.py:674",

@@ -6,10 +6,11 @@
 // work (a quadratic-basis matmul for the exponent, a log-space triangular
 // matmul scan for T, a matmul for the colour sum).  On Hopper the plain
 // per-pixel loop is the natural form, as in the original 3DGS renderCUDA:
-// one 256-thread block per 16x16 tile, one thread per pixel, and the
-// tile's depth-sorted instance range staged through shared memory in
-// 128-instance batches (K = 128, the binning alignment, so a batch never
-// crosses tiles).  Each pixel blends its batch sequentially in f32:
+// one block per 16x16 tile, one thread per pixel, and the tile's
+// depth-sorted instance range staged through shared memory in batches
+// (the range is a multiple of 128 instances, the binning alignment, so a
+// batch never crosses tiles).  Each pixel blends its batch sequentially
+// in f32:
 //
 //   power = -0.5 (cxx dx^2 + cyy dy^2) - cxy dx dy,  d = mean - pixel
 //   skip if power > POWER_EPS (1e-3); alpha = min(0.99, op e^min(power,0))
@@ -21,93 +22,117 @@
 // and T 1; the background is added outside.  Instances at or past
 // *limit (min(total_padded, B_pad)) are never read.
 //
-// Output (num_tiles, 8, 256) f32 rows [r, g, b, T_final, 0, 0, 0, 0].
-// No fast-math: expf, so the exponent differs from the JAX kernel's by
-// rounding only.
+// Output (num_tiles, 8, 256) f32 rows [r, g, b, T_final, 0, 0, 0, 0],
+// indexed by the pixel.  Accumulation is f32 in both feature-table modes.
 //
-// What bounds it on the card: f32 arithmetic against 67 TFLOP/s, 26
-// operations per walked (pixel, instance) pair and 10 more per blended
-// one (counted in this loop's SASS, see chip_smoke.py K2_OPS_*); the
-// feature bytes (36 B per instance, read once per tile) are far below the
-// memory rate.
+// What bounds it on the card (measured on an H100, PERF.md): neither
+// bytes (36 B per instance, read once per tile) nor f32 arithmetic as
+// such, but the SM's scheduler slots.  A warp dispatches every
+// instruction of a (warp, instance) pair while any of its 32 pixels is
+// alive, so the cost is warp pairs times instructions per pair; the
+// operation bound in chip_smoke.py (K2_OPS_*: pixel pairs times the
+// arithmetic of the walk) would be reached only with every lane live and
+// nothing dispatched but arithmetic.  Lane utilisation is high already
+// (86 % of the lanes of a dispatched pair are live with two-row warps,
+// 90 % with 8x4), so what counts is the instructions: the loop below
+// compiles to 21 per walked pair and 12 more per blending one
+// (cuobjdump -sass), and runs at about three quarters of the schedulers'
+// rate.  What the design does (csrc/tile_walk.cuh has the shared parts):
+//   * a batch is staged instance-major as float4, so a walked pair costs
+//     two shared-memory loads, not six;
+//   * the conic is pre-scaled by log2(e) at staging and the exponent is
+//     one ex2.approx, not expf's range reduction; the two skip tests fold
+//     into one branch;
+//   * a warp covers a compact 8x4 pixel block, so that its lanes stop
+//     together and fewer warp pairs are dispatched;
+//   * batches of 64, so that a block stops staging sooner after its last
+//     pixel is done.
+// Tried, measured slower and taken out again (PERF.md has the times): two
+// or four pixels per thread (one load of an instance serves several
+// pixels, but the lanes idle more and each pixel's blend is its own
+// divergent branch), a second buffer filled with the next batch's loads
+// while this one is walked, a grid of resident blocks that take tiles
+// from an atomic counter, and unrolling; other blocks on the SM hide a
+// block's loads already.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tile_walk.cuh"
+
+#ifndef TILE_FWD_BATCH
+#define TILE_FWD_BATCH 64  // instances per shared-memory batch
+#endif
+#ifndef TILE_FWD_MIN_WARPS
+#define TILE_FWD_MIN_WARPS 48  // warps per SM the register budget allows
+#endif
 
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPix = kTile * kTile;  // threads per block
-constexpr int kBatch = 128;          // instances per shared-memory batch
-constexpr int kRows = 9;             // x, y, cxx, cxy, cyy, op, r, g, b
-constexpr int kOutRows = 8;
-constexpr float kAlphaClamp = 0.99f;
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kTEps = 1.0e-4f;
-constexpr float kPowerEps = 1.0e-3f;
+using namespace walk;
 
-__global__ void __launch_bounds__(kPix)
+constexpr int kThreads = kPix;  // one pixel per thread
+constexpr int kMinBlocks = TILE_FWD_MIN_WARPS * 32 / kThreads;
+constexpr int kBatch = TILE_FWD_BATCH;
+static_assert(128 % kBatch == 0, "a batch must not cross a 128-slot chunk");
+using Stager = Stage<kBatch, kThreads>;
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 tile_fwd_kernel(const float* __restrict__ feat, long long stride,
                 const int* __restrict__ ranges, int num_tiles,
                 const int* __restrict__ limit, int grid_x, int width,
                 int height, float* __restrict__ out) {
-  __shared__ float sm[kRows][kBatch];
+  __shared__ float4 sm[3][kBatch];
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
-  const int px = (t % grid_x) * kTile + (tid % kTile);
-  const int py = (t / grid_x) * kTile + (tid / kTile);
+  const int p = pixel_of(tid >> 5, tid & 31);
+  const int px = (t % grid_x) * kTile + (p % kTile);
+  const int py = (t / grid_x) * kTile + (p / kTile);
   const float fx = static_cast<float>(px);
   const float fy = static_cast<float>(py);
   const int start = ranges[t];
   const int end = min(ranges[num_tiles + t], *limit);
 
   bool done = px >= width || py >= height;
-  float T = 1.0f;
-  float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
+  float T = 1.0f, c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
+  float4 regs[Stager::kIters];
 
   for (int b0 = start; b0 < end; b0 += kBatch) {
     // also the barrier that keeps the previous batch alive until every
     // thread has finished reading it
-    if (__syncthreads_count(done) == kPix) break;
+    if (__syncthreads_count(done) == kThreads) break;
     const int n = min(kBatch, end - b0);
-    for (int k = tid; k < kRows * kBatch; k += kPix) {
-      const int row = k / kBatch;
-      const int lane = k % kBatch;
-      if (lane < n) sm[row][lane] = feat[row * stride + b0 + lane];
-    }
+    Stager::load(regs, feat, stride, b0, n, tid);
+    Stager::store(sm, regs, n, tid);
     __syncthreads();
-    if (!done) {
-      for (int j = 0; j < n; ++j) {
-        const float dx = sm[0][j] - fx;
-        const float dy = sm[1][j] - fy;
-        const float power =
-            -0.5f * (sm[2][j] * dx * dx + sm[4][j] * dy * dy) -
-            sm[3][j] * dx * dy;
-        if (power > kPowerEps) continue;
-        const float alpha =
-            fminf(kAlphaClamp, sm[5][j] * expf(fminf(power, 0.0f)));
-        if (alpha < kAlphaMin) continue;
-        const float test_t = T * (1.0f - alpha);
-        if (test_t < kTEps) {
-          done = true;
-          break;
-        }
-        const float w = alpha * T;
-        c0 += sm[6][j] * w;
-        c1 += sm[7][j] * w;
-        c2 += sm[8][j] * w;
-        T = test_t;
+    if (done) continue;
+    for (int j = 0; j < n; ++j) {
+      const float4 a = sm[0][j];
+      const float2 b = *reinterpret_cast<const float2*>(&sm[1][j]);
+      const float dx = a.x - fx;
+      const float dy = a.y - fy;
+      const float power = scaled_power(a, b.x, dx, dy);
+      const float alpha =
+          fminf(kAlphaClamp, b.y * exp_scaled(fminf(power, 0.0f)));
+      if (power > kPowerEps || alpha < kAlphaMin) continue;
+      const float test_t = T * (1.0f - alpha);
+      if (test_t < kTEps) {
+        done = true;
+        break;
       }
+      const float4 c = sm[2][j];
+      const float w = alpha * T;
+      c0 = fmaf(c.x, w, c0);
+      c1 = fmaf(c.y, w, c1);
+      c2 = fmaf(c.z, w, c2);
+      T = test_t;
     }
   }
 
-  float* o = out + static_cast<size_t>(t) * kOutRows * kPix + tid;
+  float* o = out + static_cast<size_t>(t) * kPixRows * kPix + p;
   o[0 * kPix] = c0;
   o[1 * kPix] = c1;
   o[2 * kPix] = c2;
   o[3 * kPix] = T;
 #pragma unroll
-  for (int r = 4; r < kOutRows; ++r) o[r * kPix] = 0.0f;
+  for (int r = 4; r < kPixRows; ++r) o[r * kPix] = 0.0f;
 }
 
 }  // namespace
@@ -117,7 +142,7 @@ extern "C" int tile_fwd_launch(const void* feat, long long stride,
                                const void* limit, int grid_x, int width,
                                int height, void* out, void* stream) {
   if (num_tiles > 0) {
-    tile_fwd_kernel<<<num_tiles, kPix, 0,
+    tile_fwd_kernel<<<num_tiles, kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(feat), stride,
         static_cast<const int*>(ranges), num_tiles,

@@ -1,0 +1,177 @@
+// The tile walk K2 (tile_fwd.cu) and K3 (tile_bwd.cu) share, for Hopper
+// (sm_90a): the pixel a thread owns, the staging of a batch of instances
+// into shared memory, and the exponent.
+//
+// Pixel to thread.  A block owns one 16x16 tile.  32 pixels that walk in
+// lockstep (one per lane) cover a compact kWarpW x kWarpH block of the
+// tile (8 x 4 by default) rather than two 16-pixel rows: they see nearly
+// the same splats, so they saturate at nearly the same depth, leave the
+// walk earlier and idle less on the way (the share of live lanes per
+// dispatched (warp, instance) pair is what chip_smoke.py prints as lane
+// utilisation).  A thread owns P pixels (K2 one; K3 1, 2 or 4), the same
+// lane of P neighbouring such blocks, so a warp covers 32 P pixels and a
+// tile takes 256 / P threads: one shared-memory load of an instance then
+// serves P pixels.  Outputs and per-pixel inputs are indexed by the pixel
+// (py * 16 + px), not by the thread.
+//
+// Staging.  The feature table is feature-major ((9, B_pad) rows x, y, cxx,
+// cxy, cyy, op, r, g, b); the walk wants everything one instance needs in
+// as few shared-memory loads as possible.  A batch is staged
+// instance-major as three float4 per instance,
+//
+//   sm[0][j] = (x, y, a, b)       a = -L/2 cxx, b = -L cxy
+//   sm[1][j] = (c, op, cxx, cxy)  c = -L/2 cyy
+//   sm[2][j] = (r, g, b, cyy)
+//
+// so a walked pair costs one LDS.128 and one LDS.64 (all lanes of a warp
+// read the same address: a broadcast) where six LDS.32 were dispatched before,
+// and a blended pair one more LDS.128.  Each staging thread gathers the
+// four values of one float4 with four coalesced global loads and writes
+// them with one conflict-free 16-byte store, so the transposition costs no
+// bank conflicts.  L = log2(e) (kExp2) folds the exponent's change of base
+// into the conic once per instance:
+//
+//   L power = dx (a dx + b dy) + c dy^2,   e^power = 2^(L power)
+//
+// and the exponent is one MUFU.EX2 (ex2.approx.ftz, 2 ulp) instead of
+// expf's range reduction (about ten instructions).  The skip test
+// power > POWER_EPS becomes L power > L POWER_EPS.  The raw conic rides
+// along in the spare lanes for K3's per-instance epilogue.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#ifndef WALK_WARP_W
+#define WALK_WARP_W 8  // pixels per warp row: 16 (16x2), 8 (8x4) or 4 (4x8)
+#endif
+#ifndef WALK_EXP2
+#define WALK_EXP2 1  // 1: pre-scaled conic + ex2.approx; 0: expf
+#endif
+
+namespace walk {
+
+constexpr int kTile = 16;
+constexpr int kPix = kTile * kTile;  // pixels per tile
+constexpr int kRows = 9;             // x, y, cxx, cxy, cyy, op, r, g, b
+constexpr int kPixRows = 8;          // packed per-pixel rows
+constexpr int kWarpW = WALK_WARP_W;
+constexpr int kWarpH = 32 / kWarpW;
+static_assert(kWarpW == 4 || kWarpW == 8 || kWarpW == 16,
+              "a warp covers 4x8, 8x4 or 16x2 pixels");
+constexpr bool kExp2 = WALK_EXP2 != 0;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kScale = kExp2 ? kLog2e : 1.0f;
+constexpr float kAlphaClamp = 0.99f;
+constexpr float kAlphaMin = 1.0f / 255.0f;
+constexpr float kTEps = 1.0e-4f;
+constexpr float kPowerEps = 1.0e-3f * kScale;  // on the scaled power
+constexpr unsigned kFull = 0xffffffffu;
+
+constexpr int kBlocksPerRow = kTile / kWarpW;  // pixel blocks side by side
+
+// The tile pixel (py * 16 + px) of lane `lane` of 32-pixel block `block`
+// (0 .. 7, row-major over the tile).
+__device__ __forceinline__ int pixel_of(int block, int lane) {
+  const int x = (block % kBlocksPerRow) * kWarpW + (lane % kWarpW);
+  const int y = (block / kBlocksPerRow) * kWarpH + (lane / kWarpW);
+  return y * kTile + x;
+}
+
+// A thread with P pixels owns lane `lane` of blocks warp * P + k, k < P;
+// pixel k lies (pixel_dx(k), pixel_dy(k)) from pixel 0, whatever the
+// warp: P and the blocks per row are powers of two.
+__host__ __device__ constexpr int pixel_dx(int k) {
+  return (k % kBlocksPerRow) * kWarpW;
+}
+__host__ __device__ constexpr int pixel_dy(int k) {
+  return (k / kBlocksPerRow) * kWarpH;
+}
+
+// 2^x for x <= 0 (kExp2) or e^x.
+__device__ __forceinline__ float exp_scaled(float x) {
+  if constexpr (kExp2) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+  } else {
+    return expf(x);
+  }
+}
+
+// 1 / x for a normal x (one MUFU.RCP, no range handling).
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The scaled power of one (pixel, instance) pair from sm[0][j] and c.
+__device__ __forceinline__ float scaled_power(const float4 a, float c,
+                                              float dx, float dy) {
+  return fmaf(dx, fmaf(a.z, dx, a.w * dy), (c * dy) * dy);
+}
+
+// One of the three float4 of instance `slot`, gathered from the
+// feature-major table.
+__device__ __forceinline__ float4 stage_load(const float* __restrict__ feat,
+                                             long long stride, int slot,
+                                             int which) {
+  const float* p = feat + slot;
+  float4 v;
+  if (which == 0) {
+    v.x = __ldg(p);
+    v.y = __ldg(p + stride);
+    v.z = (-0.5f * kScale) * __ldg(p + 2 * stride);
+    v.w = -kScale * __ldg(p + 3 * stride);
+  } else if (which == 1) {
+    v.x = (-0.5f * kScale) * __ldg(p + 4 * stride);
+    v.y = __ldg(p + 5 * stride);
+    v.z = __ldg(p + 2 * stride);
+    v.w = __ldg(p + 3 * stride);
+  } else {
+    v.x = __ldg(p + 6 * stride);
+    v.y = __ldg(p + 7 * stride);
+    v.z = __ldg(p + 8 * stride);
+    v.w = __ldg(p + 4 * stride);
+  }
+  return v;
+}
+
+// Staging of one batch of kBatch instances by a block of kThreads: first
+// every global load of a thread (into registers, all in flight together),
+// then its shared-memory stores.
+template <int kBatch, int kThreads>
+struct Stage {
+  static_assert(kBatch % 32 == 0, "a warp stages one kind of float4");
+  static constexpr int kItems = 3 * kBatch;
+  static constexpr int kIters = (kItems + kThreads - 1) / kThreads;
+
+  // instances [b0, b0 + n) of the table, n <= kBatch
+  static __device__ __forceinline__ void load(
+      float4 (&regs)[kIters], const float* __restrict__ feat,
+      long long stride, int b0, int n, int tid) {
+#pragma unroll
+    for (int i = 0; i < kIters; ++i) {
+      const int k = tid + i * kThreads;
+      const int which = k / kBatch;
+      const int j = k - which * kBatch;
+      if (k < kItems && j < n)
+        regs[i] = stage_load(feat, stride, b0 + j, which);
+    }
+  }
+
+  static __device__ __forceinline__ void store(
+      float4 (*sm)[kBatch], const float4 (&regs)[kIters], int n, int tid) {
+#pragma unroll
+    for (int i = 0; i < kIters; ++i) {
+      const int k = tid + i * kThreads;
+      const int which = k / kBatch;
+      const int j = k - which * kBatch;
+      if (k < kItems && j < n) sm[which][j] = regs[i];
+    }
+  }
+};
+
+}  // namespace walk

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles on first use into one shared library with
 a plain C interface under ``reduced3dgs_torch/_build/``; the file name
-carries a hash of the source and flags, so an edited source rebuilds and
-a stale library is never loaded.  Nothing here runs at import time: this
+carries a hash of the source, of every header of ``csrc/`` it includes
+and of the flags, so an edited source or header rebuilds and a stale
+library is never loaded.  Nothing here runs at import time: this
 module imports on machines without nvcc or a card (the CPU tests), and a
 kernel is only built when a wrapper is first handed a CUDA tensor.
 
@@ -18,6 +19,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -41,10 +43,38 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def source_files(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every file of ``csrc/`` it includes with
+    quotes, directly or through another such file."""
+    files, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in files:
+            continue
+        files.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            todo.append(CSRC / inc.decode())
+    return files
+
+
+def define_default(file: str, macro: str) -> int:
+    """The integer ``csrc/<file>`` gives ``macro`` when no -D overrides it
+    (``#ifndef MACRO`` / ``#define MACRO N``)."""
+    m = re.search(rb"^#ifndef %b\n#define %b (\d+)" % ((macro.encode(),) * 2),
+                  (CSRC / file).read_bytes(), re.M)
+    if m is None:
+        raise KeyError(f"{file} has no default for {macro}")
+    return int(m.group(1))
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names=SOURCES) -> None:

@@ -131,8 +131,45 @@ TILE_FWD = _cuda.Kernel("tile_fwd", "tile_fwd_launch",
                              "p"))
 
 
+def warp_pixels(warp_shape=(16, 2), pixels_per_thread: int = 1):
+    """(warps, 32 * pixels_per_thread) tile pixels (py * 16 + px) each
+    warp walks, as csrc/tile_walk.cuh:pixel_of maps them: 32 lanes cover
+    a block of warp_shape = (wide, high) pixels, and a thread owns the
+    same lane of pixels_per_thread neighbouring blocks."""
+    ww, wh = warp_shape
+    if ww * wh != 32 or TILE_X % ww or TILE_Y % wh:
+        raise ValueError(f"32 lanes cannot cover {warp_shape} pixels")
+    if pixels_per_thread not in (1, 2, 4):
+        raise ValueError(f"{pixels_per_thread} pixels per thread")
+    idx = torch.arange(NPIX)
+    lane, block = idx % 32, idx // 32
+    per_row = TILE_X // ww
+    x = block % per_row * ww + lane % ww
+    y = block // per_row * wh + lane // ww
+    return (y * TILE_X + x).reshape(NPIX // 32 // pixels_per_thread,
+                                    32 * pixels_per_thread)
+
+
+def walk_layout(source: str) -> dict:
+    """How csrc/<source>.cu ("tile_fwd" or "tile_bwd") lays a tile out, as
+    tile_fwd_plain's count_pairs keywords, read from the defaults in the
+    sources: the (wide, high) pixel block of a warp's 32 lanes
+    (csrc/tile_walk.cuh WALK_WARP_W), the pixels per thread (K2 always
+    one) and the instances staged at once.  K4 (csrc/tile_trans.cu) keeps
+    the keywords' own defaults: two 16-pixel rows, batches of 128."""
+    tag = {"tile_fwd": "TILE_FWD", "tile_bwd": "TILE_BWD"}[source]
+    wide = _cuda.define_default("tile_walk.cuh", "WALK_WARP_W")
+    return dict(
+        warp_shape=(wide, 32 // wide),
+        pixels_per_thread=(_cuda.define_default("tile_bwd.cu", "TILE_BWD_PPT")
+                           if source == "tile_bwd" else 1),
+        batch=_cuda.define_default(f"{source}.cu", f"{tag}_BATCH"))
+
+
 def tile_fwd_plain(feat, ranges, limit, grid_x: int, width: int,
-                   height: int, count_pairs: bool = False):
+                   height: int, count_pairs: bool = False,
+                   warp_shape=(16, 2), pixels_per_thread: int = 1,
+                   batch: int = K):
     """Plain version of K2.
 
     feat: (9, B_pad) f32; ranges: (2, num_tiles) int32 K-aligned
@@ -141,16 +178,25 @@ def tile_fwd_plain(feat, ranges, limit, grid_x: int, width: int,
     (pixel, instance) pairs K2's sequential walk visits: "walked" (each
     pixel up to and including its stopping instance), "blended" (those
     that add colour) and "stopped" (pixels whose T would fall below
-    T_EPS, one pair each), and "warp_blended", the (32-pixel warp,
-    instance) pairs with a blend in the warp, as Python ints.
+    T_EPS, one pair each); of the (warp, instance) pairs for warps of
+    warp_pixels(warp_shape, pixels_per_thread): "warp_walked" (a pixel of
+    the warp still walks the instance, so the warp dispatches it) and
+    "warp_blended" (a pixel of the warp blends it); and "staged", the
+    instances a block loads in batches of `batch` (a divisor of 128)
+    before its last pixel is done.  All Python ints.
     """
+    if K % batch:
+        raise ValueError(f"batch {batch} does not divide {K}")
     num_tiles = ranges.shape[1]
     dev = feat.device
     out = torch.zeros((num_tiles, PIX_ROWS, NPIX), dtype=torch.float32,
                       device=dev)
     out[:, 3, :] = 1.0
     starts, ends, busy = _busy_tiles(ranges, limit)
-    pairs = dict(walked=0, blended=0, stopped=0, warp_blended=0)
+    pairs = dict(walked=0, blended=0, stopped=0, warp_walked=0,
+                 warp_blended=0, staged=0)
+    by_warp = (warp_pixels(warp_shape, pixels_per_thread).to(dev)
+               if count_pairs else None)
     for g0 in range(0, busy.numel(), TILE_GROUP):
         tiles = busy[g0:g0 + TILE_GROUP]
         s, e = starts[tiles], ends[tiles]
@@ -168,12 +214,18 @@ def tile_fwd_plain(feat, ranges, limit, grid_x: int, width: int,
                 stop = crossed[..., -1] & ~done
                 first = crossed.to(torch.int32).argmax(dim=-1) + 1
                 n_in = st["inr"].sum(dim=-1)[:, None]
-                need = torch.where(stop, first, n_in)
-                pairs["walked"] += int(torch.where(done, 0, need).sum())
+                # instances of the chunk each pixel walks: a prefix
+                need = torch.where(done, 0, torch.where(stop, first, n_in))
+                pairs["walked"] += int(need.sum())
                 pairs["blended"] += int(st["contrib"].sum())
-                pairs["warp_blended"] += int(st["contrib"].reshape(
-                    len(tiles), NPIX // 32, 32, K).any(2).sum())
+                pairs["warp_walked"] += int(
+                    need[:, by_warp].amax(dim=2).sum())
+                pairs["warp_blended"] += int(
+                    st["contrib"][:, by_warp].any(dim=2).sum())
                 pairs["stopped"] += int(stop.sum())
+                longest = need.amax(dim=1, keepdim=True)
+                pairs["staged"] += int(torch.minimum(
+                    n_in, (longest + batch - 1) // batch * batch).sum())
             done = done | crossed[..., -1]
         out[tiles, 0:3, :] = acc.permute(0, 2, 1)
         out[tiles, 3, :] = t_cur

@@ -1,7 +1,8 @@
-"""chip_smoke.py's training and compression phases (7-12) rehearsed on
-the CPU at a tiny size.  The CUDA wrappers are replaced by their plain
-versions, which here count launches as the kernels do; CUDA events by a host clock; the
-profiled step is skipped.  What this checks is the phases' control flow,
+"""chip_smoke.py's kernel checks of phases 3 and 5 and its training and
+compression phases (7-12) rehearsed on the CPU at a tiny size.  The CUDA
+wrappers are replaced by their plain versions, which here count launches
+as the kernels do; CUDA events by a host clock; the profiled step is
+skipped.  What this checks is the phases' control flow,
 shapes and checks, not the kernels (tests/test_torch_gpu.py does that on
 a card)."""
 
@@ -75,7 +76,34 @@ def cpu_card(monkeypatch):
     return torch.device("cpu")
 
 
-def test_phase7_kernel_cases(cpu_card):
+def test_phase3_and_5_walk_checks(cpu_card, capsys):
+    """The edge cases of phases 3 and 7 and K2's report with its lane
+    utilisation lines."""
+    assert cs.k2_edge_cases(cpu_card) == 0.0
+    assert cs.k3_edge_cases(cpu_card) == 0.0
+    names = [c[0] for c in cs.walk_edge_cases(cpu_card)]
+    assert len(names) == 4 and "all-empty frame" in names
+    feat, ranges, limit = cs.walk_edge_cases(cpu_card)[2][1]
+    assert int(limit) % 64 and ranges[0, 3] < int(limit) < ranges[1, 3]
+    assert (ranges[1] - ranges[0]).tolist() == [128, 256, 0, 384, 128, 256]
+    _, _, k2in = cs.kernel_inputs(cpu_card, SMALL["width"], SMALL["height"],
+                                  SMALL["n"], SMALL["scales"], 1 << 15)
+    row = cs._report_k2(k2in, SMALL["width"], SMALL["height"], 7, ttr)
+    assert row["launches"] == 7 and row["bound_by"] == "operations"
+    assert row["max_abs_err"] == 0.0 and row["library_ms"] is None
+    out = capsys.readouterr().out
+    assert out.count("lane utilisation walked / (") == 2
+    assert "two launches bit-identical" in out
+
+
+def test_lane_text():
+    text = cs.lane_text(dict(walked=640, blended=96, warp_walked=40,
+                             warp_blended=12, staged=8))
+    assert "warp_walked 40, warp_blended 12, staged 8" in text
+    assert "50.00 %" in text and "25.00 %" in text
+
+
+def test_phase7_kernel_cases(cpu_card, capsys):
     case = cs.k3_case(cpu_card, cs.MAIN, 1 << 15, 0, fast=True)
     assert case["dfeat"].shape[0] == 9 and case["err"] == 0.0
     walked = cs.walked_slots(case["k3in"][1], case["k3in"][2],
@@ -90,7 +118,11 @@ def test_phase7_kernel_cases(cpu_card):
         assert row["launches"] == 3 and row["bound_by"] == "bytes"
         assert row["library_ms"] > 0 and row["library_same_inputs_ms"] > 0
     row = cs.report_k3(case, 5)
-    assert row["bound_by"] == "operations" and row["plain_ms"] > 0
+    # at this budget most tiles are empty: their pixel rows outweigh the
+    # walk's arithmetic
+    assert row["bound_by"] == "bytes" and row["plain_ms"] > 0
+    assert row["bound_ms"] > 0
+    assert "on the first kernels' operation counts" in capsys.readouterr().out
 
 
 def test_phase8_and_9_rehearsal(cpu_card):

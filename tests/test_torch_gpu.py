@@ -5,7 +5,10 @@ whether a card is present and skips with a reason where there is none.
 Run them on a machine with a card with `python -m pytest
 tests/test_torch_gpu.py -n 0`.  K1 must be bit-exact; K2 within 5e-3 on
 every value and 1e-4 on >= 99.9 % of them (a sequential walk and the
-vectorised plain version may flip one blend at a threshold); the whole
+vectorised plain version may flip one blend at a threshold), also on the
+edge cases (frames that are no multiples of 16, ranges of exactly 128 and
+256, a limit inside a batch, an empty frame), and bit for bit between two
+launches, as K3; the whole
 render on the card within atol 2e-5 / rtol 1e-4 of the CPU render.  K3
 holds to the same criterion relative to each gradient row's max, with
 exact zeros outside the walked ranges, written as slot-major records;
@@ -75,11 +78,54 @@ def test_tile_bwd_kernel_matches_plain(cuda, fast):
     scene = dict(width=200, height=136, n=20000, scales=(0.01, 0.05))
     before = tile_render.TILE_BWD.launches
     case = cs.k3_case(cuda, scene, 1 << 17, 0, fast)
-    assert tile_render.TILE_BWD.launches == before + 1
+    # k3_case launches twice: the second must give the same bits
+    assert tile_render.TILE_BWD.launches == before + 2
     assert case["err"] < 1e-2
     # one slot-major record per slot, the layout K5 / K6 read
     assert case["dfeat"].shape[0] == 9
     assert case["dfeat"].stride() == (1, tile_render.GRAD_REC)
+
+
+def test_tile_fwd_edge_cases_and_repeatable(cuda):
+    """K2 on frames that are no multiples of 16, ranges of exactly 128 and
+    256, a limit that cuts a range mid-batch and an all-empty frame; two
+    launches bit for bit (chip_smoke.k2_edge_cases checks all of it)."""
+    import chip_smoke as cs
+    from reduced3dgs_torch.ops import tile_render
+
+    before = tile_render.TILE_FWD.launches
+    assert cs.k2_edge_cases(cuda) <= 5e-3
+    # per case: the ragged scene's own K2 is not run; two launches each
+    assert tile_render.TILE_FWD.launches == before + 2 * 4
+
+
+def test_tile_bwd_edge_cases_and_repeatable(cuda):
+    import chip_smoke as cs
+    from reduced3dgs_torch.ops import tile_render
+
+    before = tile_render.TILE_BWD.launches
+    assert cs.k3_edge_cases(cuda) <= 5e-3
+    assert tile_render.TILE_BWD.launches == before + 2 * 4
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_tile_walk_two_launches_bit_identical(cuda, fast):
+    """K2 and K3 on both feature tables: a second launch on the same
+    inputs gives the same bits (no float atomics; the butterfly's adds
+    are ordered by lane number)."""
+    import chip_smoke as cs
+    from reduced3dgs_torch.ops import tile_render
+
+    _, _, (feat, ranges, limit) = cs.kernel_inputs(
+        cuda, 200, 136, 20000, (0.01, 0.05), 1 << 17, fast=fast)
+    a = tile_render.tile_fwd(feat, ranges, limit, 13, 200, 136)
+    b = tile_render.tile_fwd(feat, ranges, limit, 13, 200, 136)
+    assert torch.equal(a, b)
+    g = cs.k3_cotangent(a, 0)
+    da = tile_render.tile_bwd(feat, ranges, limit, 13, 200, 136, g, a)
+    db = tile_render.tile_bwd(feat, ranges, limit, 13, 200, 136, g, a)
+    torch.cuda.synchronize()
+    assert torch.equal(da, db) and float(da.abs().max()) > 0
 
 
 def test_tile_trans_kernel_matches_plain(cuda):

@@ -163,3 +163,66 @@ def test_colmap_text_roundtrip(tmp_path):
         assert (back.width, back.height) == (160, 90)
         np.testing.assert_allclose(back.full_proj_transform,
                                    cam.full_proj_transform, atol=1e-5)
+
+
+def test_library_path_follows_included_headers(tmp_path, monkeypatch):
+    """A built library's name hashes its source and every csrc header it
+    includes, so an edited header is never served by a stale library."""
+    from reduced3dgs_torch.ops import _cuda
+
+    names = {p.name for p in _cuda.source_files("tile_bwd")}
+    assert names == {"tile_bwd.cu", "tile_walk.cuh"}
+    assert {p.name for p in _cuda.source_files("tile_fwd")} == {
+        "tile_fwd.cu", "tile_walk.cuh"}
+    assert [p.name for p in _cuda.source_files("tile_trans")] == [
+        "tile_trans.cu"]
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_cuda.CSRC, csrc)
+    monkeypatch.setattr(_cuda, "CSRC", csrc)
+    before = {n: _cuda.library_path(n) for n in _cuda.SOURCES}
+    assert before == {n: _cuda.library_path(n) for n in _cuda.SOURCES}
+    with open(csrc / "tile_walk.cuh", "ab") as f:
+        f.write(b"\n// edited\n")
+    after = {n: _cuda.library_path(n) for n in _cuda.SOURCES}
+    for n in ("tile_fwd", "tile_bwd"):
+        assert after[n] != before[n]
+    for n in ("expand", "tile_trans", "seg_reduce"):
+        assert after[n] == before[n]
+    with open(csrc / "tile_fwd.cu", "ab") as f:
+        f.write(b"\n// edited\n")
+    assert _cuda.library_path("tile_fwd") != after["tile_fwd"]
+    assert _cuda.library_path("tile_bwd") == after["tile_bwd"]
+
+
+def test_walk_constants_mirror_the_kernel_sources(tmp_path, monkeypatch):
+    """tile_render.walk_layout (read by the lane utilisation and staging
+    counts) gives the tile-walk defaults that stand in csrc/, and follows
+    an edit of them."""
+    from reduced3dgs_torch.ops import _cuda
+    from reduced3dgs_torch.ops import tile_render as ttr
+
+    for source, ppts in (("tile_fwd", (1,)), ("tile_bwd", (1, 2, 4))):
+        lay = ttr.walk_layout(source)
+        assert lay["warp_shape"][0] * lay["warp_shape"][1] == 32
+        assert lay["pixels_per_thread"] in ppts
+        assert ttr.K % lay["batch"] == 0
+        ttr.warp_pixels(lay["warp_shape"], lay["pixels_per_thread"])
+    with pytest.raises(KeyError):
+        _cuda.define_default("tile_fwd.cu", "TILE_FWD_NO_SUCH")
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_cuda.CSRC, csrc)
+    monkeypatch.setattr(_cuda, "CSRC", csrc)
+    before = ttr.walk_layout("tile_bwd")
+    text = (csrc / "tile_bwd.cu").read_text()
+    old = f"#define TILE_BWD_PPT {before['pixels_per_thread']} "
+    assert old in text
+    (csrc / "tile_bwd.cu").write_text(
+        text.replace(old, "#define TILE_BWD_PPT 4 "))
+    head = (csrc / "tile_walk.cuh").read_text()
+    old = f"#define WALK_WARP_W {before['warp_shape'][0]} "
+    assert old in head
+    (csrc / "tile_walk.cuh").write_text(
+        head.replace(old, "#define WALK_WARP_W 16 "))
+    assert ttr.walk_layout("tile_bwd") == dict(
+        before, pixels_per_thread=4, warp_shape=(16, 2))
+    assert ttr.walk_layout("tile_fwd")["warp_shape"] == (16, 2)

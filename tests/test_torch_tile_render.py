@@ -126,6 +126,113 @@ def test_plain_forward_counts_walked_pairs(jax_prep, monkeypatch):
         assert abs(pairs[k] - v) <= 0.01 * v, (k, pairs[k], v)
 
 
+def _hand_case():
+    """One 16x16 tile, eight staged instances.  Instance 0 is a small
+    splat at pixel (1, 1): alpha 0.5 there, 0.5 e^-4 on its four
+    neighbours, below 1/255 elsewhere.  Instances 1..7 are flat layers of
+    alpha 0.95 over the whole tile: T runs 0.05, 0.0025, 1.25e-4 and would
+    fall to 6.25e-6, so a pixel stops at the fourth layer (index 4), and
+    pixel (1, 1), whose T starts at 0.5, at the third (index 3)."""
+    feat = torch.zeros((9, 128))
+    feat[:, 0] = torch.tensor([1.0, 1.0, 8.0, 0.0, 8.0, 0.5, 1.0, 0.5, 0.2])
+    feat[5, 1:8] = 0.95
+    feat[6:9, 1:8] = 0.3
+    ranges = torch.tensor([[0], [128]], dtype=torch.int32)
+    return feat, ranges, torch.tensor(8, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("warp_shape,inst0_warps", [((8, 4), 1),
+                                                    ((16, 2), 2),
+                                                    ((4, 8), 1)])
+def test_warp_counts_hand_checked(warp_shape, inst0_warps):
+    """The (warp, instance) counts on a case counted by hand: the five
+    pixels that blend instance 0 lie in rows 0..2, columns 0..2, one warp
+    of 8x4 or 4x8 pixels and two warps of two 16-pixel rows."""
+    feat, ranges, limit = _hand_case()
+    _, pairs = ttr.tile_fwd_plain(feat, ranges, limit, 1, 16, 16,
+                                  count_pairs=True, warp_shape=warp_shape)
+    assert pairs["walked"] == 4 + 255 * 5
+    assert pairs["blended"] == 3 + 4 * 4 + 251 * 3
+    assert pairs["stopped"] == 256
+    assert pairs["warp_walked"] == 8 * 5  # every warp walks to index 4
+    assert pairs["warp_blended"] == inst0_warps + 3 * 8
+    assert pairs["staged"] == 8  # one batch of 128, cut by the limit
+    for batch, staged in ((2, 6), (4, 8), (64, 8)):
+        _, p = ttr.tile_fwd_plain(feat, ranges, limit, 1, 16, 16,
+                                  count_pairs=True, warp_shape=warp_shape,
+                                  batch=batch)
+        assert p["staged"] == staged and p["walked"] == pairs["walked"]
+    with pytest.raises(ValueError, match="divide"):
+        ttr.tile_fwd_plain(feat, ranges, limit, 1, 16, 16, batch=48)
+
+
+@pytest.mark.parametrize("ppt,shape,inst0_warps", [
+    (2, (8, 4), 1),   # 16x4 strips: rows 0..2 lie in the first
+    (2, (16, 2), 1),  # four rows a warp
+    (4, (16, 2), 1),  # eight rows a warp
+    (4, (8, 4), 1),   # 16x8 halves
+    (2, (4, 8), 1),   # 8x8 quarters
+])
+def test_warp_counts_with_several_pixels_per_thread(ppt, shape, inst0_warps):
+    """A thread that owns ppt pixels makes warps of 32 ppt pixels: 8 / ppt
+    warps walk the hand-counted case, the pixel counts stay."""
+    feat, ranges, limit = _hand_case()
+    _, pairs = ttr.tile_fwd_plain(feat, ranges, limit, 1, 16, 16,
+                                  count_pairs=True, warp_shape=shape,
+                                  pixels_per_thread=ppt)
+    warps = 8 // ppt
+    assert pairs["walked"] == 4 + 255 * 5 and pairs["stopped"] == 256
+    assert pairs["warp_walked"] == warps * 5
+    assert pairs["warp_blended"] == inst0_warps + 3 * warps
+    assert pairs["walked"] <= 32 * ppt * pairs["warp_walked"]
+
+
+@pytest.mark.parametrize("warp_shape", [(8, 4), (16, 2), (4, 8)])
+def test_warp_count_invariants(jax_prep, warp_shape):
+    tp = tprep.PreprocessOut(*(torch.as_tensor(a) for a in jax_prep))
+    tb = tbin.bin_gaussians(tp, W, H, BUDGET)
+    feat, b_pad = ttr._pack_features(tb)
+    limit = torch.clamp(tb.total_padded, max=b_pad)
+    _, p = ttr.tile_fwd_plain(feat, tb.tile_ranges, limit, 4, W, H,
+                              count_pairs=True, warp_shape=warp_shape)
+    assert 0 < p["walked"] <= 32 * p["warp_walked"]
+    assert 0 < p["blended"] <= 32 * p["warp_blended"]
+    assert p["warp_blended"] <= p["warp_walked"]
+    inst = int((tb.tile_ranges[1] - tb.tile_ranges[0]).sum())
+    _, p32 = ttr.tile_fwd_plain(feat, tb.tile_ranges, limit, 4, W, H,
+                                count_pairs=True, warp_shape=warp_shape,
+                                batch=32)
+    # a warp walks no further than its block stages, a smaller batch
+    # stages no more, and nothing past the ranges
+    assert p["warp_walked"] <= 8 * p32["staged"] <= 8 * p["staged"]
+    assert p["staged"] <= inst
+
+
+def test_warp_pixels_cover_the_tile():
+    for shape in ((8, 4), (16, 2), (4, 8)):
+        wp = ttr.warp_pixels(shape)
+        assert wp.shape == (8, 32)
+        assert sorted(wp.flatten().tolist()) == list(range(256))
+        xs, ys = wp[3] % 16, wp[3] // 16
+        assert int(xs.max() - xs.min()) == shape[0] - 1
+        assert int(ys.max() - ys.min()) == shape[1] - 1
+    # two 16-pixel rows: the thread index is the pixel
+    assert ttr.warp_pixels((16, 2)).flatten().tolist() == list(range(256))
+    with pytest.raises(ValueError):
+        ttr.warp_pixels((32, 1))
+    # two pixels per thread on 8x4 blocks: a warp is a 16x4 strip, and a
+    # thread's second pixel lies 8 to the right of its first
+    wp = ttr.warp_pixels((8, 4), 2)
+    assert wp.shape == (4, 64)
+    assert sorted(wp[1].tolist()) == list(range(64, 128))
+    assert (wp[:, 32:] - wp[:, :32] == 8).all()
+    # four per thread: 16x8 halves, pixels 2 and 3 four rows below
+    wp = ttr.warp_pixels((8, 4), 4)
+    assert wp.shape == (2, 128) and (wp[:, 64:] - wp[:, :64] == 64).all()
+    with pytest.raises(ValueError):
+        ttr.warp_pixels((8, 4), 3)
+
+
 def _jax_pool(seed=0):
     xyz, feats, scales, rots, opac, deg = (np.asarray(a)
                                            for a in make_scene(seed))
