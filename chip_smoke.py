@@ -7,9 +7,12 @@ Phases, each printing its own line; any failure raises and exits non-zero
 before the final line:
 
  1. card name / power limit (nvidia-smi) and the nvcc build of every
-    kernel source of the render path, all built in parallel;
- 2. K1 (csrc/expand.cu) against its plain version, bit-exact, on the
-    binning-test cases plus budget truncation and no marks;
+    kernel source, and of K2 and K4 a second time with -DWALK_EXP2=0
+    (expf in place of ex2.approx), all built in parallel;
+ 2. K1 (csrc/expand.cu, binning's slot keys) against its plain version,
+    bit-exact, and two launches bit for bit, on the binning-test cases,
+    budget truncation, no instances, a budget inside a primitive, P = 0
+    and 1, and padding needs past the pad slots;
  3. K2 (csrc/tile_fwd.cu) against its plain version on the 512x512,
     2^17-primitive scene (every pixel within 5e-3, >= 99.9 % within 1e-4;
     two launches bit-identical), on edge cases at small size (a frame
@@ -23,16 +26,20 @@ before the final line:
     through the port's Scene / ply_io, and rendered over a ring of 8 views
     through reduced3dgs_torch.render (budget ladder, FPS by CUDA events);
     the kernels' launch counters are zeroed just before and read just
-    after, and must have risen;
+    after, and must have risen; the ring once more through K2 as built
+    and through its expf build on the same inputs (PSNR between the two,
+    pixels more than 2e-5 from the plain version);
  5. per-kernel times (CUDA events) at the main path's shapes beside the
-    plain versions, the bound, and a PyTorch yardstick; K2's line also
+    plain versions, the bound, and a PyTorch yardstick (K1's keys and the
+    whole BinningOut bit for bit against the plain version's); K2's line also
     counts the (warp, instance) pairs its warps dispatch and the instances
     its blocks stage, and gives the lane utilisation (pixel pairs over 32
     x warp pairs) for the kernels' warp footprint and for the former one;
  6. where a frame's time goes (baseline model, the ring, the settled
     budget): stage times by CUDA events through renderer.render's marks,
     then one pass under torch.profiler whose kernel time is set against
-    the CUDA-event span of that same pass (the device's idle share);
+    the CUDA-event span of that same pass (the device's idle share; no
+    cummax kernel may run);
  7. the training kernels against their plain versions: K3
     (csrc/tile_bwd.cu) at 512p and at the 1080p main-path shapes with both
     feature tables (exact zeros on every slot outside the walked ranges,
@@ -63,8 +70,10 @@ before the final line:
     share of one profiled step;
 10. K4 (csrc/tile_trans.cu) against its plain version at the 512p and the
     1080p kernel inputs, per slot and per primitive, with exact zeros on
-    every slot outside the walked ranges; its time beside K2's, the plain
-    version's and its bound;
+    every slot outside the walked ranges and two launches bit for bit,
+    also on phase 3's edge cases; its time beside K2's, the plain version's and its bound, its lane
+    utilisation; K4's expf build against it per primitive, and with phase
+    4's frames the WALK_EXP2 rule's verdict;
 11. a small scene on the card: render(want_transmittance=True) through
     the tile backend (K1 + K2 + K4) against the "ref" oracle;
 12. the compression main path at full width, on the trainer of phase 9:
@@ -84,6 +93,7 @@ without the rest of the repository beside it, it exits non-zero first.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -113,9 +123,8 @@ F32_OPS_PER_S = 67e12
 # counted on the formulas (an FFMA as 2, as the peak counts it; an FADD,
 # FMUL, FSETP or FMNMX as 1; a MUFU.EX2 / MUFU.RCP on the special-function
 # units is not counted: at 16 per SM and clock it is not the tighter
-# limit).  The loops of csrc/tile_fwd.cu and csrc/tile_bwd.cu are written
-# to these formulas; csrc/tile_trans.cu still calls expf and issues more,
-# which its bound does not credit.
+# limit).  The loops of csrc/tile_fwd.cu, csrc/tile_bwd.cu and
+# csrc/tile_trans.cu are written to these formulas (csrc/tile_walk.cuh).
 # Every walked pair: dx, dy 2; the power dx (a dx + b dy) + c dy^2 with the
 # conic pre-scaled once per instance 3 FMUL and 2 FFMA (7); min(power, 0)
 # 1; op * e 1; min(0.99, .) 1; the power and alpha tests 2: 14.  A blended
@@ -124,7 +133,7 @@ F32_OPS_PER_S = 67e12
 K2_OPS_WALKED = 14
 K2_OPS_BLEND = 10
 K2_OPS_STOP = 3
-K1_OPS_PER_STEP = 4  # load, compare, select, shift per search step
+K1_OPS_PER_STEP = 4  # load, compare, select, add per search step
 # K3 repeats K2's walk (K2_OPS_WALKED, K2_OPS_STOP).  A blended pair adds
 # 24: T (1 - alpha) and its test 3, w 1, gc = g . rgb 5, the prefix 2,
 # q - incl 1, times the reciprocal of 1 - alpha 1, dalpha 2, ge = e dalpha
@@ -144,14 +153,12 @@ K3_OPS_WARP_TREE = 12
 # that roofline shares stay comparable with the earlier records.
 FORMER_OPS_WALKED = 26
 FORMER_K3_OPS_BLEND = 45
-# K4 (csrc/tile_trans.cu) repeats K2's walk (K2_OPS_WALKED, K2_OPS_STOP).
-# A blended pair adds 1 - alpha, T (1 - alpha) and its test (1 FADD, 1
-# FMUL, 1 FSETP: 3) and needs the two sums' adds over the tile's pixels
-# (2).  The kernel's shuffle sum spends 5 SHFL and 5 FADD per warp that
-# blends an instance (K4_OPS_WARP_TREE); the count comes from one
-# __ballot_sync + POPC.
+# K4 (csrc/tile_trans.cu) repeats K2's walk and blend decision
+# (K2_OPS_WALKED, K2_OPS_STOP).  A blended pair adds 1 - alpha, T (1 -
+# alpha) and its test (1 FADD, 1 FMUL, 1 FSETP: 3) and needs the two sums'
+# adds over the tile's pixels (2); the kernel takes a warp's sums as one
+# integer REDUX of fixed-point T and one __ballot_sync + POPC.
 K4_OPS_BLEND = 5
-K4_OPS_WARP_TREE = 5
 PROFILE_TOP = 12  # kernels listed by phases 6 and 9
 SEG_ROW_BYTES = {"f32": 36, "bf16x2": 20}  # gradient payload per instance
 # phase 7's skewed segment layout: a few primitives that cover far more
@@ -307,26 +314,78 @@ def write_model(root, arrs, cams, iteration=1):
 # ---------------------------------------------------------------------------
 
 def expand_cases():
-    """(mark_pos, rank1, rectpack, budget) cases for K1."""
+    """[(name, bin_keys keyword arguments)] for K1, as numpy int32 arrays
+    and ints: the binning-test marks with room to spare, a budget that
+    truncates them and no instances at all; a budget that ends inside one
+    primitive's instances; P = 0 and P = 1; padding needs past the pad
+    slots, so that binning's markers are clamped."""
     cases = []
-    for p, budget, kind in [(700, 8192 + 1024, "plain"),
-                            (2200, 32 * 1024, "plain"),
-                            (2200, 16 * 1024, "truncate"),
-                            (300, 2048, "empty")]:
-        rng = np.random.default_rng(11)
-        counts = rng.poisson(11, p).astype(np.int64)
-        counts[:80] = 0
-        counts[rng.integers(0, p, 60)] = 0
-        if kind == "empty":
-            counts[:] = 0
+    for name, p, budget, grid in [
+            ("plain", 700, 8192 + 1024, (20, 12)),
+            ("plain", 2200, 32 * 1024, (40, 23)),
+            ("truncate", 2200, 16 * 1024, (40, 23)),
+            ("empty", 300, 2048, (8, 6)),
+            ("budget splits a primitive", 300, 4096, (16, 9)),
+            ("P=0", 0, 1024, (4, 3)),
+            ("P=1", 1, 1024, (4, 3)),
+            ("padding past the pad slots", 700, 8192, (20, 12))]:
+        if name == "budget splits a primitive":
+            rng = np.random.default_rng(13)
+            counts = rng.poisson(40, p).astype(np.int64)
+        elif p < 80:
+            rng = np.random.default_rng(17)
+            counts = np.full(p, 37, np.int64)
+        else:  # tests/test_binning.py's expand cases
+            rng = np.random.default_rng(11)
+            counts = rng.poisson(11, p).astype(np.int64)
+            counts[:80] = 0
+            counts[rng.integers(0, p, 60)] = 0
+            if name == "empty":
+                counts[:] = 0
         offsets = np.cumsum(counts)
-        starts = (offsets - counts).astype(np.int32)
-        mark_pos = np.where(counts > 0, starts, budget).astype(np.int32)
-        check((offsets[-1] > budget) == (kind == "truncate"),
-              f"expand case {kind} is not what it claims")
-        cases.append((kind, mark_pos, np.arange(1, p + 1, dtype=np.int32),
-                      rng.integers(0, 1 << 30, p).astype(np.int32), budget))
+        total = int(offsets[-1]) if p else 0
+        num_tiles = grid[0] * grid[1]
+        need = rng.integers(0, 128, num_tiles)
+        need[rng.integers(0, num_tiles, num_tiles // 4)] = 0
+        pad_start = np.concatenate([[0], np.cumsum(need)])
+        # pad slots past the padding need, or half of it
+        n_extra = (pad_start[-1] // 256 * 128 if name.startswith("padding")
+                   else -(-(pad_start[-1] + 300) // 128) * 128)
+        i = int(np.searchsorted(offsets, budget, side="right"))
+        check((total > budget) == (name in ("truncate",
+                                            "budget splits a primitive"))
+              and (name != "empty" or total == 0)
+              and (name != "budget splits a primitive"
+                   or offsets[i] - counts[i] < budget < offsets[i])
+              and (pad_start[-1] > n_extra) == name.startswith("padding"),
+              f"expand case {name} is not what it claims")
+        cases.append((name, dict(
+            offsets=offsets.astype(np.int32), counts=counts.astype(np.int32),
+            rectpack=rng.integers(0, 1 << 30, p).astype(np.int32),
+            pad_start=pad_start.astype(np.int32),
+            nv=np.array([min(total, budget)], np.int32), grid_x=grid[0],
+            budget=budget, b_pad=int(budget + n_extra))))
     return cases
+
+
+def k1_edge_cases(device):
+    """K1 on expand_cases against its plain version, bit for bit, and
+    two launches bit for bit."""
+    import torch
+
+    from reduced3dgs_torch.ops import binning as tbin
+
+    for name, case in expand_cases():
+        kw = {k: torch.as_tensor(v, device=device)
+              if isinstance(v, np.ndarray) else v for k, v in case.items()}
+        got = tbin._bin_keys_cuda(**kw)
+        again = tbin._bin_keys_cuda(**kw)
+        want = tbin.bin_keys_plain(**kw)
+        check(torch.equal(got, want), f"K1 {name}: kernel != plain")
+        check(torch.equal(got, again), f"K1 {name}: two launches differ")
+        print(f"phase 2: K1 {name}, P={case['counts'].size} budget="
+              f"{case['budget']} B_pad={case['b_pad']}: bit-exact, two "
+              "launches bit-identical", flush=True)
 
 
 def bench_scene(n, scales, seed):
@@ -541,6 +600,36 @@ def k3_edge_cases(device, seed=0):
     return worst
 
 
+def k4_edge_cases(device, seed=0):
+    """K4 on walk_edge_cases against its plain version (k4_case's per-slot
+    criteria), exact zeros outside the walked ranges, two launches bit for
+    bit.  Returns the largest error of a sum."""
+    import torch
+
+    from reduced3dgs_torch.ops import tile_render as ttr
+
+    worst = 0.0
+    for name, k4in, w, h in walk_edge_cases(device, seed):
+        gx = -(-w // 16)
+        got = ttr._tile_trans_cuda(*k4in, gx, w, h)
+        again = ttr._tile_trans_cuda(*k4in, gx, w, h)
+        want = ttr.tile_trans_plain(*k4in, gx, w, h)
+        check(torch.equal(got, again), f"K4 {name}: two launches differ")
+        walked = walked_slots(k4in[1], k4in[2], k4in[0].shape[1])
+        check(bool((got[:, ~walked] == 0).all()),
+              f"K4 {name}: a slot outside the walked ranges is not 0")
+        c = compare_k4(got, want)
+        check(c["err"] <= 1.01 and c["share"] >= 0.9999
+              and c["flips"] <= max(1e-4 * got.shape[1], 1)
+              and c["max_flip"] <= 2, f"K4 {name}: kernel != plain ({c})")
+        worst = max(worst, c["err"])
+        print(f"phase 10: K4 edge case, {name}: max abs err of the sums "
+              f"{c['err']:.3e}, counts differ on {c['flips']} slots; "
+              f"{int((~walked).sum())} unwalked slots exactly 0, two "
+              "launches bit-identical", flush=True)
+    return worst
+
+
 def layout_text(layout):
     """tile_render.walk_layout's keywords as report text."""
     wide, high = layout["warp_shape"]
@@ -707,6 +796,119 @@ def psnr(a, b):
 
 
 # ---------------------------------------------------------------------------
+# the walks' exponent: ex2.approx on the pre-scaled conic against expf
+# ---------------------------------------------------------------------------
+
+EXPF = ("-DWALK_EXP2=0",)  # csrc/tile_walk.cuh's exponent as expf
+# the rule that keeps WALK_EXP2 1: the two builds' frames agree to this
+# PSNR, and K4's statistics differ on at most this share of primitives
+EXP2_MIN_PSNR = 60.0
+EXP2_MAX_SHARE = 1e-4
+
+
+def expf_kernels():
+    """K2 and K4 built with EXPF, as kernels beside tile_render's."""
+    from reduced3dgs_torch.ops import _cuda
+    from reduced3dgs_torch.ops import tile_render as ttr
+
+    return {name: _cuda.Kernel(name, k.symbol, k.argtypes, EXPF)
+            for name, k in (("tile_fwd", ttr.TILE_FWD),
+                            ("tile_trans", ttr.TILE_TRANS))}
+
+
+@contextlib.contextmanager
+def swapped(module, name, value):
+    """module.name = value inside the block."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def exp2_frames(pv, views, budget, k2_expf):
+    """The views rendered through renderer.render once, with K2 as built
+    and, on each frame's own K2 inputs, K2 built with EXPF and K2's plain
+    version.  Returns (PSNR of the colours of the two builds, {build:
+    pixels whose colour or T is more than 2e-5 from the plain version's},
+    {build: largest such difference}, pixels)."""
+    import torch
+
+    from reduced3dgs_torch.ops import tile_render as ttr
+    from reduced3dgs_torch.render import render_once
+
+    sq = 0.0
+    over = {"ex2": 0, "expf": 0}
+    err = {"ex2": 0.0, "expf": 0.0}
+    pixels = 0
+    tile_fwd = ttr.tile_fwd
+
+    def spy(feat, ranges, limit, gx, w, h):
+        nonlocal sq, pixels
+        out = tile_fwd(feat, ranges, limit, gx, w, h)
+        with swapped(ttr, "TILE_FWD", k2_expf):
+            alt = ttr._tile_fwd_cuda(feat, ranges, limit, gx, w, h)
+        ref = ttr.tile_fwd_plain(feat, ranges, limit, gx, w, h)
+        gy = ranges.shape[1] // gx
+        img = {}
+        for name, packed in (("ex2", out), ("expf", alt), ("plain", ref)):
+            c, t = ttr._packed_to_images(packed, gx, gy, w, h)
+            img[name] = torch.cat([c, t[..., None]], dim=-1)
+        sq += float(((img["ex2"][..., :3].clamp(0, 1)
+                      - img["expf"][..., :3].clamp(0, 1)) ** 2).sum())
+        for name in over:
+            d = (img[name] - img["plain"]).abs().amax(dim=-1)
+            over[name] += int((d > 2e-5).sum())
+            err[name] = max(err[name], float(d.max()))
+        pixels += w * h
+        return out
+
+    bg = torch.zeros(3, device=pv.device)
+    with swapped(ttr, "tile_fwd", spy):
+        for cam in views:
+            render_once(pv, cam.params(pv.device), bg, budget)
+    mse = sq / max(3 * pixels, 1)
+    return 10 * math.log10(1.0 / max(mse, 1e-12)), over, err, pixels
+
+
+def exp2_trans(case, k4_expf):
+    """K4 as built and K4 built with EXPF on one k4_case's inputs, summed
+    per primitive as transmittance_by_primitive does.  Returns (P,
+    primitives whose touched differs, whose trans_sum is off by more than
+    atol 1e-3 / rtol 1e-3, whose trans_sum bits differ)."""
+    from reduced3dgs_torch.ops import tile_render as ttr
+
+    with swapped(ttr, "TILE_TRANS", k4_expf):
+        alt = ttr._tile_trans_cuda(*case["k4in"])
+    a = per_primitive(case["binning"], case["out"])
+    e = per_primitive(case["binning"], alt)
+    num_p = a.shape[0]
+    off = (a[:, 0] - e[:, 0]).abs() > 1e-3 + 1e-3 * e[:, 0].abs()
+    return (num_p, int((a[:, 1] != e[:, 1]).sum()), int(off.sum()),
+            int((a[:, 0] != e[:, 0]).sum()))
+
+
+def exp2_verdict(frames, trans, smi):
+    """Prints both builds' numbers and what the rule decides."""
+    db, over, err, pixels = frames
+    num_p, touched, off, bits = trans
+    share = max(touched, off) / max(num_p, 1)
+    keep = db >= EXP2_MIN_PSNR and share <= EXP2_MAX_SHARE
+    print(f"phase 10: WALK_EXP2 1 (ex2.approx) against 0 (expf): ring frames "
+          f"PSNR between the builds {db:.3f} dB; pixels more than 2e-5 from "
+          f"K2's plain version, of {pixels}: ex2 {over['ex2']} (largest "
+          f"{err['ex2']:.3e}), expf {over['expf']} (largest "
+          f"{err['expf']:.3e}); K4 at 1080p, of {num_p} primitives: touched "
+          f"differs on {touched}, trans_sum off by more than 1e-3 on {off} "
+          f"(bits differ on {bits}), share {share * 100:.5f} %; rule (>= "
+          f"{EXP2_MIN_PSNR:g} dB and <= {EXP2_MAX_SHARE * 100:g} %): "
+          f"{'keep WALK_EXP2 1' if keep else 'set WALK_EXP2 0'}; {smi}",
+          flush=True)
+    return keep
+
+
+# ---------------------------------------------------------------------------
 # card-only parts
 # ---------------------------------------------------------------------------
 
@@ -764,21 +966,15 @@ def main(argv=None):
     print(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda} "
           f"on {kind}", flush=True)
     t0 = time.perf_counter()
-    _cuda.build(_cuda.SOURCES)
+    expf = expf_kernels()
+    _cuda.build(_cuda.SOURCES, [(n, EXPF) for n in expf])
     print(f"phase 1: built {', '.join(_cuda.SOURCES)} with nvcc "
-          f"{' '.join(_cuda.NVCC_FLAGS)} in {time.perf_counter() - t0:.3f} s",
+          f"{' '.join(_cuda.NVCC_FLAGS)}, and {', '.join(expf)} with "
+          f"{' '.join(EXPF)} too, in {time.perf_counter() - t0:.3f} s",
           flush=True)
 
     # --- phase 2: K1 bit-exact ----------------------------------------
-    for name, mark_pos, rank1, rect, budget in expand_cases():
-        c = tbin.compact_marks(*(torch.as_tensor(a, device=dev)
-                                 for a in (mark_pos, rank1, rect)), budget)
-        got = tbin._expand_marks_cuda(*c, budget)
-        want = tbin.expand_marks_plain(*c, budget)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"K1 {name}: kernel != plain")
-        print(f"phase 2: K1 {name} P={mark_pos.size} budget={budget}: "
-              "bit-exact", flush=True)
+    k1_edge_cases(dev)
 
     # --- phase 3: K2 on the 512p scene; whole render vs the oracle ------
     s = K2_SCENE
@@ -822,6 +1018,11 @@ def main(argv=None):
     print(f"phase 4: model write {res['write_s']:.3f} s; quantised_half vs "
           f"baseline PSNR {q_psnr:.3f} dB; launches {launches}", flush=True)
     check(q_psnr > 15.0, "quantised_half render diverges from baseline")
+    frames = exp2_frames(res["baseline"]["pool"], res["views"],
+                         res["baseline"]["fps_budget"], expf["tile_fwd"])
+    print(f"phase 4: the ring through K2 built with WALK_EXP2 1 and 0: PSNR "
+          f"between the builds {frames[0]:.3f} dB, pixels more than 2e-5 "
+          f"from the plain version {frames[1]} of {frames[3]}", flush=True)
 
     # --- phase 5: kernel times at the main path's shapes ----------------
     budget = res["baseline"]["fps_budget"]
@@ -873,6 +1074,8 @@ def main(argv=None):
     # --- phase 10: K4 against its plain version ---------------------------
     k4_case(dev, K2_SCENE, K2_SCENE["budget"], args.seed)
     k4_main = k4_case(dev, MAIN, budget, args.seed)
+    k4_edge_cases(dev, args.seed)
+    exp2_verdict(frames, exp2_trans(k4_main, expf["tile_trans"]), smi)
 
     # --- phase 11: transmittance render, tile vs ref, on the card ---------
     e_sum, d_touch = small_trans_check(dev)
@@ -914,41 +1117,74 @@ def _small_render_check(dev):
     return err
 
 
-def _report_k1(prep, width, height, budget, launches, tbin):
-    """K1 at the main path's shapes: its inputs are captured from one
-    bin_gaussians call of the main-path view (not counted)."""
-    import torch
-
+def k1_inputs(prep, width, height, budget, tbin):
+    """K1's arguments in one bin_gaussians call (captured, not counted)
+    and that call's BinningOut."""
     captured = {}
-    orig = tbin.expand_marks
+    orig = tbin.bin_keys
 
     def spy(*a):
         captured["args"] = a
         return orig(*a)
 
-    tbin.expand_marks = spy
+    tbin.bin_keys = spy
     try:
-        tbin.bin_gaussians(prep, width, height, budget)
+        out = tbin.bin_gaussians(prep, width, height, budget)
     finally:
-        tbin.expand_marks = orig
-    pos, rank1, rectw, bud = captured["args"]
-    got = tbin._expand_marks_cuda(pos, rank1, rectw, bud)
-    want = tbin.expand_marks_plain(pos, rank1, rectw, bud)
+        tbin.bin_keys = orig
+    return captured["args"], out
+
+
+def k1_bound(args):
+    """K1's bound on these inputs: (bound ms, by, bytes ms, ops ms).  Each
+    input read once (offsets, counts, rect words, pad_start) and each key
+    written once; a search step per level of the binary search, over P
+    ranks for each slot below nv and over T + 1 prefix sums for each pad
+    slot."""
+    offsets, _, _, pad_start, nv, _, budget, b_pad = args
+    p = offsets.shape[0]
+    n_pad = pad_start.shape[0]
+    nbytes = 3 * 4 * p + 4 * n_pad + 8 * b_pad
+    ops = (int(nv) * math.ceil(math.log2(p + 1))
+           + (b_pad - budget) * math.ceil(math.log2(n_pad + 1)))
+    return bound(nbytes, ops * K1_OPS_PER_STEP)
+
+
+def _report_k1(prep, width, height, budget, launches, tbin):
+    """K1 at the main path's shapes: its inputs are captured from one
+    bin_gaussians call of the main-path view; the keys and the whole
+    BinningOut must equal the plain version's bit for bit."""
+    import torch
+
+    args, got_b = k1_inputs(prep, width, height, budget, tbin)
+    got = tbin._bin_keys_cuda(*args)
+    want = tbin.bin_keys_plain(*args)
+    orig = tbin.bin_keys
+    tbin.bin_keys = tbin.bin_keys_plain
+    try:
+        want_b = tbin.bin_gaussians(prep, width, height, budget)
+    finally:
+        tbin.bin_keys = orig
     torch.cuda.synchronize()
     check(torch.equal(got, want), "K1 main-path shapes: kernel != plain")
-    slots = torch.arange(bud, dtype=torch.int32, device=pos.device)
-    ms = time_ms(lambda: tbin._expand_marks_cuda(pos, rank1, rectw, bud), 50)
-    plain_ms = time_ms(lambda: tbin.expand_marks_plain(pos, rank1, rectw,
-                                                       bud), 5)
-    lib_ms = time_ms(lambda: torch.searchsorted(pos, slots, right=True), 20)
-    n = pos.numel()
-    steps = math.ceil(math.log2(n + 1))
-    bms, by, b_ms, o_ms = bound(3 * 4 * n + 3 * 4 * bud,
-                                bud * steps * K1_OPS_PER_STEP)
-    print(f"phase 5: K1 P={n} budget={bud}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, torch.searchsorted {lib_ms:.4f} ms, bound "
-          f"{bms:.4f} ms ({by}; bytes {b_ms:.4f}, operations {o_ms:.4f}), "
-          f"roofline share {bms / ms * 100:.1f} %", flush=True)
+    for field in got_b._fields:
+        a, b = getattr(got_b, field), getattr(want_b, field)
+        check(torch.equal(a, b), f"K1 main-path shapes: BinningOut.{field} "
+                                 "differs from the plain version's")
+    offsets, nv, b_pad = args[0], args[4], args[7]
+    slots = torch.arange(int(nv), dtype=torch.int32, device=offsets.device)
+    ms = time_ms(lambda: tbin._bin_keys_cuda(*args), 50)
+    plain_ms = time_ms(lambda: tbin.bin_keys_plain(*args), 5)
+    lib_ms = time_ms(lambda: torch.searchsorted(offsets, slots, right=True),
+                     20)
+    bms, by, b_ms, o_ms = k1_bound(args)
+    print(f"phase 5: K1 P={offsets.numel()} budget={args[6]} B_pad={b_pad} "
+          f"nv={int(nv)} tiles={args[3].numel() - 1}: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, torch.searchsorted (the owner index of "
+          f"the slots below nv only) {lib_ms:.4f} ms, bound {bms:.4f} ms "
+          f"({by}; bytes {b_ms:.4f}, operations {o_ms:.4f}), roofline share "
+          f"{bms / ms * 100:.1f} %; keys and BinningOut bit-identical to the "
+          "plain version's", flush=True)
     return {"name": "expand", "route": "cuda",
             "source": "reduced3dgs_torch/csrc/expand.cu",
             "replaces": "reduced3dgs_tpu/ops/binning.py:164",
@@ -1055,13 +1291,17 @@ def _profile_frames(pv, views, budget, smi):
             rows.append((dev_us, e.count, e.key))
     rows.sort(reverse=True)
     check(rows, "profiler saw no kernel on the card")
+    # K1 writes binning's keys: no running max of the former key pass
+    check(not any("cummax" in r[2] for r in rows),
+          "a cummax kernel runs in the frame")
     busy = sum(r[0] for r in rows) / 1e3 / nv
     launches = sum(r[1] for r in rows) / nv
     print(f"phase 6: profiled pass: {launches:.1f} kernel launches and "
           f"{busy:.3f} ms of kernel time per frame over a CUDA-event span "
           f"of {span:.3f} ms per frame (same pass, profiler on, CUDA "
           f"activity only): device "
-          f"idle {(1 - busy / span) * 100:.1f} %; {smi}", flush=True)
+          f"idle {(1 - busy / span) * 100:.1f} %; no cummax kernel; {smi}",
+          flush=True)
     for dev_us, count, key in rows[:PROFILE_TOP]:
         print(f"phase 6: {dev_us / nv / 1e3:9.4f} ms/frame x{count / nv:<6.1f}"
               f" {key[:100]}", flush=True)
@@ -1612,9 +1852,23 @@ def compare_k4(got, want):
                 flips=int((dc != 0).sum()), max_flip=float(dc.max()))
 
 
+def per_primitive(b, rows):
+    """K4's (2, B_pad) rows summed per depth-rank primitive, (P, 2), as
+    tile_render.transmittance_by_primitive sums them."""
+    import torch
+
+    num_p = b.prim_inv.shape[0]
+    slot = torch.arange(rows.shape[1], device=rows.device)
+    seg = torch.where(b.pad_mask | (slot >= b.total_padded), num_p,
+                      b.gauss_aligned).long()
+    return torch.zeros((num_p + 1, 2), dtype=torch.float32,
+                       device=rows.device).index_add_(0, seg, rows.T)[:num_p]
+
+
 def k4_case(dev, scene, budget, seed):
     """K4 against its plain version at one scene's kernel inputs; exact
-    zeros on every slot outside the walked ranges.  Slots: every sum
+    zeros on every slot outside the walked ranges, two launches bit for
+    bit.  Slots: every sum
     within 1.01 (one flipped pixel) and >= 99.99 % within atol 1e-3 / rtol
     1e-3; counts differ on <= 0.01 % of the slots, by at most 2.  Per
     primitive (the sums the culling reads): trans_sum within atol 1e-3 /
@@ -1628,9 +1882,11 @@ def k4_case(dev, scene, budget, seed):
         dev, w, h, scene["n"], scene["scales"], budget, seed)
     gx = -(-w // 16)
     got = ttr._tile_trans_cuda(feat, ranges, limit, gx, w, h)
+    again = ttr._tile_trans_cuda(feat, ranges, limit, gx, w, h)
     want = ttr.tile_trans_plain(feat, ranges, limit, gx, w, h)
     if dev.type == "cuda":
         torch.cuda.synchronize()
+    check(torch.equal(got, again), f"K4 {w}x{h}: two launches differ")
     walked = walked_slots(ranges, limit, feat.shape[1])
     check(got.shape == (2, feat.shape[1]) and got.dtype == torch.float32,
           "K4: output shape")
@@ -1642,14 +1898,7 @@ def k4_case(dev, scene, budget, seed):
           f"{what}: sums off the plain version ({c})")
     check(c["flips"] <= 1e-4 * got.shape[1] and c["max_flip"] <= 2,
           f"{what}: counts off the plain version ({c})")
-    # per primitive, as tile_render.transmittance_by_primitive sums them
-    num_p = b.prim_inv.shape[0]
-    slot = torch.arange(feat.shape[1], device=dev)
-    seg = torch.where(b.pad_mask | (slot >= b.total_padded), num_p,
-                      b.gauss_aligned).long()
-    zero = torch.zeros((num_p + 1, 2), dtype=torch.float32, device=dev)
-    pg = zero.clone().index_add_(0, seg, got.T)[:num_p]
-    pw = zero.index_add_(0, seg, want.T)[:num_p]
+    pg, pw = per_primitive(b, got), per_primitive(b, want)
     p_ok = (pg[:, 0] - pw[:, 0]).abs() <= 1e-3 + 1e-3 * pw[:, 0].abs()
     p_touch = float((pg[:, 1] - pw[:, 1]).abs().max())
     p_share = float(p_ok.double().mean())
@@ -1660,8 +1909,10 @@ def k4_case(dev, scene, budget, seed):
           f"{c['share']:.6f}, counts differ on {c['flips']} slots (by at "
           f"most {c['max_flip']:.0f}); per primitive share within 1e-3 "
           f"{p_share:.6f}, touched differs by at most {p_touch:.0f}; "
-          f"{int((~walked).sum())} unwalked slots exactly 0", flush=True)
-    return dict(k4in=(feat, ranges, limit, gx, w, h), err=c["err"])
+          f"{int((~walked).sum())} unwalked slots exactly 0; two launches "
+          "bit-identical", flush=True)
+    return dict(k4in=(feat, ranges, limit, gx, w, h), err=c["err"],
+                binning=b, out=got)
 
 
 def report_k4(case, launches):
@@ -1672,23 +1923,26 @@ def report_k4(case, launches):
     ms = time_ms(lambda: ttr._tile_trans_cuda(*case["k4in"]), 20)
     k2_ms = time_ms(lambda: ttr._tile_fwd_cuda(*case["k4in"]), 20)
     plain_ms = time_ms(lambda: ttr.tile_trans_plain(*case["k4in"]), 1)
-    # K4's walk: the keywords' defaults, two 16-pixel rows to a warp
-    _, pairs = ttr.tile_fwd_plain(*case["k4in"], count_pairs=True)
+    layout = ttr.walk_layout("tile_trans")
+    _, pairs = ttr.tile_fwd_plain(*case["k4in"], count_pairs=True, **layout)
+    _, rows = ttr.tile_fwd_plain(*case["k4in"], count_pairs=True)
     inst = int((ranges[1] - ranges[0]).sum())
     tiles = ranges.shape[1]
     nbytes = 4 * 6 * inst + 8 * tiles + 4 * 2 * feat.shape[1]
     bms, by, b_ms, o_ms = bound(nbytes, walk_ops(pairs, K4_OPS_BLEND))
     former = former_text(
         nbytes, walk_ops(pairs, K4_OPS_BLEND, FORMER_OPS_WALKED), ms)
-    tree_ms = K4_OPS_WARP_TREE * pairs["warp_blended"] / F32_OPS_PER_S * 1e3
     print(f"phase 10: K4 tiles={tiles} instances={inst} pairs walked "
           f"{pairs['walked']}, blended {pairs['blended']}, stopped "
           f"{pairs['stopped']}; warps blending an instance "
           f"{pairs['warp_blended']}: kernel {ms:.4f} ms (K2 on the same "
           f"inputs in this loop {k2_ms:.4f} ms), plain {plain_ms:.4f} ms, "
           f"bound {bms:.4f} ms ({by}; bytes {b_ms:.4f}, operations "
-          f"{o_ms:.4f}; the shuffle sums' adds would take {tree_ms:.4f}), "
-          f"roofline share {bms / ms * 100:.1f} % ({former})", flush=True)
+          f"{o_ms:.4f}), roofline share {bms / ms * 100:.1f} % ({former})",
+          flush=True)
+    print(f"phase 10: K4 {layout_text(layout)}: {lane_text(pairs)}; warps "
+          f"of two 16-pixel rows, batches of 128 (K4's former walk): "
+          f"{lane_text(rows)}", flush=True)
     return {"name": "tile_trans", "route": "cuda",
             "source": "reduced3dgs_torch/csrc/tile_trans.cu",
             "replaces": "reduced3dgs_tpu/ops/tile_render.py:674",

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Design variants of the tile-walk kernels K2 (reduced3dgs_torch/csrc/
-tile_fwd.cu) and K3 (csrc/tile_bwd.cu), timed on one card.
+tile_fwd.cu), K3 (csrc/tile_bwd.cu) and K4 (csrc/tile_trans.cu), timed on
+one card.
 
     python3 experiments/torch_tile_walk_variants.py [--quick]
         [--match TEXT] [--parent DIR] [--turns N]
@@ -18,20 +19,23 @@ memory and spills are printed:
   TILE_BWD_PPT        K3's pixels per thread: 1, 2, 4
   TILE_BWD_BATCH      K3's batch (its warp partials are 36 B an instance
                       and warp)
+  TILE_TRANS_BATCH    K4's batch (TILE_TRANS_MIN_WARPS: its register cap)
+  TILE_TRANS_UNROLL   K4's instances walked between two all-done votes
 
 Earlier revisions of the sources also had several pixels per thread, a
-second staging buffer, a persistent grid and an unrolled loop in K2, and
-nine separate shuffle trees and an unrolled loop in K3; they were timed
-with this script, were slower, and are gone from the sources (PERF.md
-keeps their times).
+second staging buffer, a persistent grid and an unrolled loop in K2,
+nine separate shuffle trees and an unrolled loop in K3, and an f32
+shuffle butterfly for K4's warp sums; they were timed with this script,
+were slower, and are gone from the sources (PERF.md keeps their times).
 
 Every variant is checked against the plain version (chip_smoke's
-criteria), for exact zeros on unwalked slots (K3) and for identical bits
-from two launches, and timed (CUDA events, chip_smoke.time_ms) at the
+criteria), for exact zeros on unwalked slots (K3, K4) and for identical
+bits from two launches, and timed (CUDA events, chip_smoke.time_ms) at the
 1080p main-path inputs and at the 512p scene, in turns: the whole list is
 walked --turns times.  --parent DIR also builds DIR/reduced3dgs_torch/
-csrc/{tile_fwd,tile_bwd}.cu (an unpacked earlier commit) and times them in
-the same turns.  The lane utilisation of each warp footprint and the
+csrc/{tile_fwd,tile_bwd,tile_trans}.cu (an unpacked earlier commit), times
+them in the same turns and says whether each default gives the parent's
+bits.  The lane utilisation of each warp footprint and the
 instances staged per batch size are printed first.  Every line carries the
 card's name and power limit.  --quick: the defaults and the parent only;
 --match TEXT: the defaults and the variants whose -D list contains TEXT.
@@ -58,6 +62,14 @@ K2_VARIANTS = [
     # the former footprint, exponent and batch: what the float4 staging
     # and the merged skip test give alone
     dict(WALK_WARP_W=16, WALK_EXP2=0, TILE_FWD_BATCH=128),
+]
+K4_VARIANTS = [
+    {},
+    dict(TILE_TRANS_UNROLL=1), dict(TILE_TRANS_UNROLL=2),
+    dict(TILE_TRANS_BATCH=32), dict(TILE_TRANS_BATCH=64),
+    dict(WALK_WARP_W=16), dict(WALK_WARP_W=4),
+    dict(WALK_EXP2=0),
+    dict(TILE_TRANS_MIN_WARPS=32), dict(TILE_TRANS_MIN_WARPS=64),
 ]
 K3_VARIANTS = [
     {},
@@ -133,17 +145,21 @@ def main(argv=None):
         return [v for v in variants
                 if not v or args.match is None or args.match in tag(v)]
 
-    k2_variants, k3_variants = chosen(K2_VARIANTS), chosen(K3_VARIANTS)
-    fwd = build(_cuda.CSRC / "tile_fwd.cu", k2_variants, _cuda, "tile_fwd")
-    bwd = build(_cuda.CSRC / "tile_bwd.cu", k3_variants, _cuda, "tile_bwd")
+    fwd = build(_cuda.CSRC / "tile_fwd.cu", chosen(K2_VARIANTS), _cuda,
+                "tile_fwd")
+    bwd = build(_cuda.CSRC / "tile_bwd.cu", chosen(K3_VARIANTS), _cuda,
+                "tile_bwd")
+    trans = build(_cuda.CSRC / "tile_trans.cu", chosen(K4_VARIANTS), _cuda,
+                  "tile_trans")
     if args.parent:
         csrc = Path(args.parent) / "reduced3dgs_torch" / "csrc"
-        fwd.update(build(csrc / "tile_fwd.cu", [dict(PARENT=1)], _cuda,
-                         "parent_fwd"))
-        bwd.update(build(csrc / "tile_bwd.cu", [dict(PARENT=1)], _cuda,
-                         "parent_bwd"))
+        for libs, src in ((fwd, "tile_fwd"), (bwd, "tile_bwd"),
+                          (trans, "tile_trans")):
+            libs.update(build(csrc / f"{src}.cu", [dict(PARENT=1)], _cuda,
+                              f"parent_{src}"))
     for libs, sym, kern in ((fwd, "tile_fwd_launch", ttr.TILE_FWD),
-                            (bwd, "tile_bwd_launch", ttr.TILE_BWD)):
+                            (bwd, "tile_bwd_launch", ttr.TILE_BWD),
+                            (trans, "tile_trans_launch", ttr.TILE_TRANS)):
         for lib in libs.values():
             fn = getattr(lib, sym)
             fn.restype = ctypes.c_int
@@ -172,6 +188,17 @@ def main(argv=None):
         assert err == 0, err
         return rec.T[:ttr.TABLE_ROWS]
 
+    def run_trans(lib, k2in, gx, w, h):
+        feat, ranges, limit = k2in
+        out = torch.zeros((2, feat.shape[1]), dtype=torch.float32,
+                          device=dev)
+        err = lib.tile_trans_launch(
+            _cuda.ptr(feat), feat.stride(0), _cuda.ptr(ranges),
+            ranges.shape[1], _cuda.ptr(limit), gx, w, h, _cuda.ptr(out),
+            out.stride(0), _cuda.stream_of(feat))
+        assert err == 0, err
+        return out
+
     scenes = {}
     for name, sc, budget in (("1080p", cs.MAIN, cs.BENCH_BUDGET),
                              ("512p", cs.K2_SCENE, cs.K2_SCENE["budget"])):
@@ -184,7 +211,8 @@ def main(argv=None):
         dwant = ttr.tile_bwd_plain(*k2in, gx, w, h, g, want)
         walked = cs.walked_slots(k2in[1], k2in[2], k2in[0].shape[1])
         scenes[name] = dict(k2in=k2in, gx=gx, w=w, h=h, want=want, g=g,
-                            dwant=dwant, unwalked=~walked)
+                            dwant=dwant, unwalked=~walked,
+                            twant=ttr.tile_trans_plain(*k2in, gx, w, h))
         inst = int((k2in[1][1] - k2in[1][0]).sum())
         for shape in ((16, 2), (8, 4), (4, 8)):
             for ppt in (1, 2, 4):
@@ -201,7 +229,9 @@ def main(argv=None):
                   for b in (32, 64, 128)}
         print(f"{name}: instances staged per batch size {staged}", flush=True)
 
-    # correctness of every variant at both scenes
+    # correctness of every variant at both scenes; the defaults' bits
+    # against the parent's
+    parent_bits = {}
     for t, lib in fwd.items():
         for name, sc in scenes.items():
             a = (sc["k2in"], sc["gx"], sc["w"], sc["h"])
@@ -210,8 +240,27 @@ def main(argv=None):
             assert torch.equal(got, again), (t, name, "K2 launches differ")
             err, share = cs.compare_k2(got, sc["want"])
             assert err <= 5e-3 and share >= 0.999, (t, name, err, share)
+            parent_bits.setdefault(name, {})[t] = got
             print(f"K2 [{t}] {name}: max abs err {err:.3e}, share within "
                   f"1e-4 {share:.6f}, two launches bit-identical", flush=True)
+    for name, outs in parent_bits.items():
+        if "PARENT=1" in outs:
+            same = torch.equal(outs["default"], outs["PARENT=1"])
+            print(f"K2 {name}: the default gives the parent's bits: {same}",
+                  flush=True)
+    for t, lib in trans.items():
+        for name, sc in scenes.items():
+            a = (sc["k2in"], sc["gx"], sc["w"], sc["h"])
+            got, again = run_trans(lib, *a), run_trans(lib, *a)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), (t, name, "K4 launches differ")
+            assert bool((got[:, sc["unwalked"]] == 0).all()), (t, name)
+            c = cs.compare_k4(got, sc["twant"])
+            assert c["err"] <= 1.01 and c["share"] >= 0.9999, (t, name, c)
+            print(f"K4 [{t}] {name}: max abs err of the sums {c['err']:.3e}, "
+                  f"share within 1e-3 {c['share']:.6f}, counts differ on "
+                  f"{c['flips']} slots, two launches bit-identical",
+                  flush=True)
     for t, lib in bwd.items():
         for name, sc in scenes.items():
             a = (sc["k2in"], sc["gx"], sc["w"], sc["h"], sc["g"], sc["want"])
@@ -227,7 +276,8 @@ def main(argv=None):
 
     # times, in turns
     for turn in range(args.turns):
-        for kname, libs, run in (("K2", fwd, run_fwd), ("K3", bwd, run_bwd)):
+        for kname, libs, run in (("K2", fwd, run_fwd), ("K3", bwd, run_bwd),
+                                 ("K4", trans, run_trans)):
             for t, lib in libs.items():
                 line = [f"{kname} [{t}] turn {turn}:"]
                 for name, sc in scenes.items():

@@ -106,12 +106,8 @@ tile_fwd_kernel(const float* __restrict__ feat, long long stride,
     for (int j = 0; j < n; ++j) {
       const float4 a = sm[0][j];
       const float2 b = *reinterpret_cast<const float2*>(&sm[1][j]);
-      const float dx = a.x - fx;
-      const float dy = a.y - fy;
-      const float power = scaled_power(a, b.x, dx, dy);
-      const float alpha =
-          fminf(kAlphaClamp, b.y * exp_scaled(fminf(power, 0.0f)));
-      if (power > kPowerEps || alpha < kAlphaMin) continue;
+      float alpha;
+      if (!pair_alpha(a, b, fx, fy, alpha)) continue;
       const float test_t = T * (1.0f - alpha);
       if (test_t < kTEps) {
         done = true;

@@ -1,6 +1,7 @@
-// The tile walk K2 (tile_fwd.cu) and K3 (tile_bwd.cu) share, for Hopper
-// (sm_90a): the pixel a thread owns, the staging of a batch of instances
-// into shared memory, and the exponent.
+// The tile walk K2 (tile_fwd.cu), K3 (tile_bwd.cu) and K4 (tile_trans.cu)
+// share, for Hopper (sm_90a): the pixel a thread owns, the staging of a
+// batch of instances into shared memory, the exponent and the blend
+// decision.
 //
 // Pixel to thread.  A block owns one 16x16 tile.  32 pixels that walk in
 // lockstep (one per lane) cover a compact kWarpW x kWarpH block of the
@@ -8,16 +9,16 @@
 // the same splats, so they saturate at nearly the same depth, leave the
 // walk earlier and idle less on the way (the share of live lanes per
 // dispatched (warp, instance) pair is what chip_smoke.py prints as lane
-// utilisation).  A thread owns P pixels (K2 one; K3 1, 2 or 4), the same
-// lane of P neighbouring such blocks, so a warp covers 32 P pixels and a
-// tile takes 256 / P threads: one shared-memory load of an instance then
-// serves P pixels.  Outputs and per-pixel inputs are indexed by the pixel
-// (py * 16 + px), not by the thread.
+// utilisation).  A thread owns P pixels (K2 and K4 one; K3 1, 2 or 4), the
+// same lane of P neighbouring such blocks, so a warp covers 32 P pixels
+// and a tile takes 256 / P threads: one shared-memory load of an instance
+// then serves P pixels.  Outputs and per-pixel inputs are indexed by the
+// pixel (py * 16 + px), not by the thread.
 //
 // Staging.  The feature table is feature-major ((9, B_pad) rows x, y, cxx,
 // cxy, cyy, op, r, g, b); the walk wants everything one instance needs in
 // as few shared-memory loads as possible.  A batch is staged
-// instance-major as three float4 per instance,
+// instance-major as up to three float4 per instance,
 //
 //   sm[0][j] = (x, y, a, b)       a = -L/2 cxx, b = -L cxy
 //   sm[1][j] = (c, op, cxx, cxy)  c = -L/2 cyy
@@ -25,7 +26,8 @@
 //
 // so a walked pair costs one LDS.128 and one LDS.64 (all lanes of a warp
 // read the same address: a broadcast) where six LDS.32 were dispatched before,
-// and a blended pair one more LDS.128.  Each staging thread gathers the
+// and a blended pair of K2 / K3 one more LDS.128 (K4, which needs no
+// colour, stages only the first two).  Each staging thread gathers the
 // four values of one float4 with four coalesced global loads and writes
 // them with one conflict-free 16-byte store, so the transposition costs no
 // bank conflicts.  L = log2(e) (kExp2) folds the exponent's change of base
@@ -113,6 +115,20 @@ __device__ __forceinline__ float scaled_power(const float4 a, float c,
   return fmaf(dx, fmaf(a.z, dx, a.w * dy), (c * dy) * dy);
 }
 
+// The blend decision of one (pixel, instance) pair, K2's and K4's: from
+// sm[0][j] = a and the first half of sm[1][j] = b, the pair's alpha, and
+// false where the pair is skipped (the power above POWER_EPS or alpha
+// below 1/255).  Both walks take it, so K4 counts the blends K2 composites.
+__device__ __forceinline__ bool pair_alpha(const float4 a, const float2 b,
+                                           float fx, float fy,
+                                           float& alpha) {
+  const float dx = a.x - fx;
+  const float dy = a.y - fy;
+  const float power = scaled_power(a, b.x, dx, dy);
+  alpha = fminf(kAlphaClamp, b.y * exp_scaled(fminf(power, 0.0f)));
+  return !(power > kPowerEps || alpha < kAlphaMin);
+}
+
 // One of the three float4 of instance `slot`, gathered from the
 // feature-major table.
 __device__ __forceinline__ float4 stage_load(const float* __restrict__ feat,
@@ -139,13 +155,14 @@ __device__ __forceinline__ float4 stage_load(const float* __restrict__ feat,
   return v;
 }
 
-// Staging of one batch of kBatch instances by a block of kThreads: first
-// every global load of a thread (into registers, all in flight together),
-// then its shared-memory stores.
-template <int kBatch, int kThreads>
+// Staging of the first kVecs float4 of each of a batch of kBatch instances
+// by a block of kThreads: first every global load of a thread (into
+// registers, all in flight together), then its shared-memory stores.
+template <int kBatch, int kThreads, int kVecs = 3>
 struct Stage {
   static_assert(kBatch % 32 == 0, "a warp stages one kind of float4");
-  static constexpr int kItems = 3 * kBatch;
+  static_assert(kVecs >= 1 && kVecs <= 3, "one to three float4");
+  static constexpr int kItems = kVecs * kBatch;
   static constexpr int kIters = (kItems + kThreads - 1) / kThreads;
 
   // instances [b0, b0 + n) of the table, n <= kBatch

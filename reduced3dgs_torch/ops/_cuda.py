@@ -70,26 +70,32 @@ def define_default(file: str, macro: str) -> int:
     return int(m.group(1))
 
 
-def library_path(name: str) -> Path:
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+def library_path(name: str, defines: tuple = ()) -> Path:
+    """The library of ``csrc/<name>.cu`` built with the -D flags
+    `defines` (e.g. ``("-DWALK_EXP2=0",)``; none for the sources'
+    defaults)."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS + tuple(defines)).encode())
     for path in source_files(name):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def build(names=SOURCES) -> None:
-    """Compile the named sources that are not built yet, one nvcc process
-    per source, all started together."""
-    todo = [n for n in names if not library_path(n).exists()]
+def build(names=SOURCES, variants=()) -> None:
+    """Compile the named sources and the (name, defines) `variants` that
+    are not built yet, one nvcc process per library, all started
+    together."""
+    jobs = [(n, ()) for n in names] + [(n, tuple(d)) for n, d in variants]
+    todo = [j for j in jobs if not library_path(*j).exists()]
     if not todo:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = []
-    for name in todo:
-        out = library_path(name)
+    for name, defines in todo:
+        out = library_path(name, defines)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *defines, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -106,9 +112,9 @@ def build(names=SOURCES) -> None:
 
 
 @functools.cache
-def _library(name: str) -> ctypes.CDLL:
-    build((name,))
-    lib = ctypes.CDLL(str(library_path(name)))
+def _library(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    build((), [(name, defines)])
+    lib = ctypes.CDLL(str(library_path(name, defines)))
     lib.r3dgs_error_string.restype = ctypes.c_char_p
     lib.r3dgs_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -119,24 +125,27 @@ class Kernel:
 
     ``launches`` counts successful launches only; callers that want to
     show a run went through the kernel reset it to 0 before the run.
+    ``defines``: -D flags of a build other than the sources' defaults.
     """
 
-    def __init__(self, source: str, symbol: str, argtypes):
+    def __init__(self, source: str, symbol: str, argtypes, defines=()):
         self.source = source
         self.symbol = symbol
         self.argtypes = list(argtypes)
+        self.defines = tuple(defines)
         self.launches = 0
         self._bound = None
 
     def __call__(self, *args) -> None:
         if self._bound is None:  # build + bind on the first launch
-            fn = getattr(_library(self.source), self.symbol)
+            fn = getattr(_library(self.source, self.defines), self.symbol)
             fn.restype = ctypes.c_int
             fn.argtypes = self.argtypes
             self._bound = fn
         err = self._bound(*args)
         if err != 0:
-            msg = _library(self.source).r3dgs_error_string(err).decode()
+            msg = _library(self.source, self.defines).r3dgs_error_string(
+                err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
         self.launches += 1
 

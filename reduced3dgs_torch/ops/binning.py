@@ -10,12 +10,15 @@ instance budget B:
   * per-tile instance counts come from a 2-D difference array over the
     tile grid (integer-exact), plus the row-major partial rect of the one
     primitive the budget splits,
-  * instance slot -> owning primitive ("expand") is kernel K1
-    (csrc/expand.cu; plain version ``expand_marks_plain``),
   * the K-aligned relocation (every tile's range starts at a multiple of
     ALIGN) rides the ONE B-sized sort, on an int64 key tile*(P+1)+rank:
     synthetic padding instances carry (tile, P) keys and sort into each
-    tile's alignment slack.
+    tile's alignment slack,
+  * kernel K1 (csrc/expand.cu) writes every slot's key in one launch:
+    instance slot -> owning primitive ("expand") and pad slot -> tile, by
+    binary search; its plain version ``bin_keys_plain`` computes the same
+    keys the JAX package's way (``expand_stream``, a marker scatter and a
+    running max).
 """
 
 from __future__ import annotations
@@ -74,17 +77,11 @@ def depth_key(depths):
 
 
 # ---------------------------------------------------------------------------
-# K1: expand — instance slot -> (rank, rect word, segment start)
+# _expand_stream's counterpart (the JAX package's K1; the reference only)
 # ---------------------------------------------------------------------------
 
-EXPAND = _cuda.Kernel("expand", "expand_launch", [
-    _cuda.ctypes.c_void_p, _cuda.ctypes.c_void_p, _cuda.ctypes.c_void_p,
-    _cuda.ctypes.c_int, _cuda.ctypes.c_int, _cuda.ctypes.c_void_p,
-    _cuda.ctypes.c_void_p])
-
-
 def expand_marks_plain(pos, rank1, rect, budget: int):
-    """Plain version of K1: mark scatter + running max.
+    """Mark scatter + running max, the JAX ``_expand_kernel``'s function.
 
     pos: (n,) int32 nondecreasing mark positions (entries >= budget are
     not marks); rank1/rect: (n,) int32 values per mark.  Returns (3,
@@ -111,29 +108,6 @@ def expand_marks_plain(pos, rank1, rect, budget: int):
     return out
 
 
-def _expand_marks_cuda(pos, rank1, rect, budget: int):
-    for t in (pos, rank1, rect):
-        if t.dtype != torch.int32 or not t.is_contiguous() or t.ndim != 1:
-            raise ValueError("expand: inputs must be contiguous 1-D int32")
-        if t.device != pos.device or t.shape != pos.shape:
-            raise ValueError("expand: inputs must share device and shape")
-    out = torch.empty((3, budget), dtype=torch.int32, device=pos.device)
-    with torch.cuda.device(pos.device):
-        EXPAND(_cuda.ptr(pos), _cuda.ptr(rank1), _cuda.ptr(rect),
-               pos.shape[0], budget, _cuda.ptr(out), _cuda.stream_of(pos))
-    return out
-
-
-def expand_marks(pos, rank1, rect, budget: int):
-    """K1 dispatch: the CUDA kernel on a CUDA tensor, the plain version on
-    a CPU tensor (no fallback between them)."""
-    if pos.device.type == "cuda":
-        return _expand_marks_cuda(pos, rank1, rect, budget)
-    if pos.device.type == "cpu":
-        return expand_marks_plain(pos, rank1, rect, budget)
-    raise ValueError(f"expand: unsupported device {pos.device}")
-
-
 def compact_marks(mark_pos, rank1, rectpack, budget: int):
     """Marked rows (mark_pos < budget) to the front in rank order; the
     rest get position INT32_MAX so a search never lands on them.  The
@@ -152,9 +126,111 @@ def expand_stream(mark_pos, rank1, rectpack, budget: int):
     """Counterpart of the JAX _expand_stream: (gauss_c, rect_c, start_c)
     over `budget` slots — the (rank1 - 1, rectpack, mark position) of the
     last marked row at or before each slot, (-1, 0, 0) before any."""
-    out = expand_marks(*compact_marks(mark_pos, rank1, rectpack, budget),
-                       budget)
+    out = expand_marks_plain(*compact_marks(mark_pos, rank1, rectpack,
+                                            budget), budget)
     return out[0], out[1], out[2]
+
+
+# ---------------------------------------------------------------------------
+# K1: the slot keys of the one B_pad-sized sort
+# ---------------------------------------------------------------------------
+
+EXPAND = _cuda.Kernel("expand", "bin_keys_launch", [
+    _cuda.ctypes.c_void_p, _cuda.ctypes.c_void_p, _cuda.ctypes.c_void_p,
+    _cuda.ctypes.c_int, _cuda.ctypes.c_void_p, _cuda.ctypes.c_int,
+    _cuda.ctypes.c_void_p, _cuda.ctypes.c_int, _cuda.ctypes.c_int,
+    _cuda.ctypes.c_int, _cuda.ctypes.c_void_p, _cuda.ctypes.c_void_p])
+
+
+def bin_keys_plain(offsets, counts, rectpack, pad_start, nv, grid_x: int,
+                   budget: int, b_pad: int):
+    """Plain version of K1: the (B_pad,) int64 sort key of every slot,
+    tile * (P+1) + rank.  The first `budget` slots hold the instances in
+    rank order (slots at or past nv: tile num_tiles, rank P); pad slot k
+    belongs to the tile whose cumulative padding need covers k (rank P).
+
+    offsets/counts/rectpack: (P,) int32 in depth-rank order (inclusive
+    prefix sums of the counts, the counts, the rect words); pad_start:
+    (T+1,) int32 exclusive prefix sums of each tile's padding need; nv:
+    () int32 instances that fit.  Computed as the JAX package does: the
+    instance -> primitive expand of _expand_stream, then a marker scatter
+    and running max for the padding (the sentinel num_tiles marks the end
+    of all real padding).
+    """
+    p = offsets.shape[0]
+    num_tiles = pad_start.shape[0] - 1
+    n_extra = b_pad - budget
+    dev = offsets.device
+    i32 = torch.int32
+
+    slot = torch.arange(budget, dtype=i32, device=dev)
+    starts_all = offsets - counts
+    mark_pos = torch.where(counts > 0, starts_all, budget).to(i32)
+    gauss_c, rect_c, start_c = expand_stream(
+        mark_pos, torch.arange(1, p + 1, dtype=i32, device=dev), rectpack,
+        budget)
+
+    # rank within the primitive's rect -> tile, row-major over the rect
+    rank = slot - start_c
+    rw = (rect_c & 1023) + 1
+    ty = ((rect_c >> 10) & 1023) + torch.div(rank, rw, rounding_mode="floor")
+    tx = (rect_c >> 20) + torch.remainder(rank, rw)
+    tile = ty * grid_x + tx
+    in_range = slot < nv
+    tile = torch.where(in_range, tile, num_tiles).to(i32)
+
+    pad_counts = pad_start[1:] - pad_start[:-1]
+    pmark = torch.cat([pad_counts > 0,
+                       torch.ones(1, dtype=torch.bool, device=dev)])
+    # markers at or past n_extra are dropped: they land in one extra slot
+    # that is cut off (a clamp, not a mask, so the host never syncs)
+    pmark_pos = torch.clamp(torch.where(pmark, pad_start, n_extra),
+                            max=n_extra)
+    pmarkers = torch.zeros(n_extra + 1, dtype=torch.int64, device=dev)
+    pmarkers.scatter_reduce_(
+        0, pmark_pos.long(),
+        torch.arange(num_tiles + 1, dtype=torch.int64, device=dev), "amax")
+    pad_tile = torch.cummax(pmarkers[:n_extra], dim=0).values
+
+    pp1 = p + 1
+    key = (tile.long() * pp1
+           + torch.where(in_range, gauss_c, p).long())
+    key_pad = pad_tile * pp1 + p
+    return torch.cat([key, key_pad])
+
+
+def _bin_keys_cuda(offsets, counts, rectpack, pad_start, nv, grid_x: int,
+                   budget: int, b_pad: int):
+    for t in (offsets, counts, rectpack, pad_start, nv):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError("bin_keys: inputs must be contiguous int32")
+        if t.device != offsets.device:
+            raise ValueError("bin_keys: inputs must share one device")
+    p = offsets.shape[0]
+    if counts.shape != (p,) or rectpack.shape != (p,) or nv.numel() != 1 \
+            or pad_start.ndim != 1 or pad_start.shape[0] < 1 \
+            or not 0 <= budget <= b_pad:
+        raise ValueError("bin_keys: (P,) offsets / counts / rectpack, "
+                         "(T+1,) pad_start, one nv, budget <= b_pad")
+    keys = torch.empty(b_pad, dtype=torch.int64, device=offsets.device)
+    with torch.cuda.device(offsets.device):
+        EXPAND(_cuda.ptr(offsets), _cuda.ptr(counts), _cuda.ptr(rectpack), p,
+               _cuda.ptr(pad_start), pad_start.shape[0] - 1, _cuda.ptr(nv),
+               grid_x, budget, b_pad, _cuda.ptr(keys),
+               _cuda.stream_of(offsets))
+    return keys
+
+
+def bin_keys(offsets, counts, rectpack, pad_start, nv, grid_x: int,
+             budget: int, b_pad: int):
+    """K1 dispatch: the CUDA kernel on a CUDA tensor, the plain version on
+    a CPU tensor (no fallback between them)."""
+    args = (offsets, counts, rectpack, pad_start, nv, grid_x, budget, b_pad)
+    if offsets.device.type == "cuda":
+        return _bin_keys_cuda(*args)
+    if offsets.device.type == "cpu":
+        return bin_keys_plain(*args)
+    raise ValueError(f"bin_keys: unsupported device {offsets.device}")
 
 
 # ---------------------------------------------------------------------------
@@ -251,23 +327,6 @@ def bin_gaussians(prep: PreprocessOut, width: int, height: int,
         count2d = count2d + has_partial.long() * corr
     tcounts = count2d.reshape(num_tiles).to(i32)
 
-    # --- expand: instance slot -> owning primitive (K1) ---------------
-    slot = torch.arange(budget, dtype=i32, device=dev)
-    starts_all = offsets - counts
-    mark_pos = torch.where(counts > 0, starts_all, budget).to(i32)
-    gauss_c, rect_c, start_c = expand_stream(
-        mark_pos, torch.arange(1, p + 1, dtype=i32, device=dev), rectpack,
-        budget)
-
-    # rank within the primitive's rect -> tile, row-major over the rect
-    rank = slot - start_c
-    rw = (rect_c & 1023) + 1
-    ty = ((rect_c >> 10) & 1023) + torch.div(rank, rw, rounding_mode="floor")
-    tx = (rect_c >> 20) + torch.remainder(rank, rw)
-    tile = ty * grid_x + tx
-    in_range = slot < nv
-    tile = torch.where(in_range, tile, num_tiles).to(i32)
-
     # --- K-aligned relocation rides the one sort ----------------------
     padded = ((tcounts + ALIGN - 1) // ALIGN) * ALIGN
     csum_padded = torch.cumsum(padded, dim=0, dtype=i32)
@@ -275,34 +334,17 @@ def bin_gaussians(prep: PreprocessOut, width: int, height: int,
                            csum_padded[:-1]])
     total_padded = csum_padded[-1] if num_tiles > 0 else i32t(0)
     b_pad = padded_size(budget, width, height)
-    n_extra = b_pad - budget
-
-    # synthetic padding instances: pad slot k belongs to the tile whose
-    # cumulative padding need covers k (marker scatter + running max; the
-    # sentinel num_tiles marks the end of all real padding)
-    pad_counts = padded - tcounts
+    # synthetic padding instances: each tile's padding need, as prefix sums
     pad_start = torch.cat([torch.zeros(1, dtype=i32, device=dev),
-                           torch.cumsum(pad_counts, dim=0, dtype=i32)])
-    pmark = torch.cat([pad_counts > 0,
-                       torch.ones(1, dtype=torch.bool, device=dev)])
-    # markers at or past n_extra are dropped: they land in one extra slot
-    # that is cut off (a clamp, not a mask, so the host never syncs)
-    pmark_pos = torch.clamp(torch.where(pmark, pad_start, n_extra),
-                            max=n_extra)
-    pmarkers = torch.zeros(n_extra + 1, dtype=torch.int64, device=dev)
-    pmarkers.scatter_reduce_(
-        0, pmark_pos.long(),
-        torch.arange(num_tiles + 1, dtype=torch.int64, device=dev), "amax")
-    pad_tile = torch.cummax(pmarkers[:n_extra], dim=0).values
+                           torch.cumsum(padded - tcounts, dim=0, dtype=i32)])
 
-    # ONE sort over B_pad on the int64 key tile*(P+1) + rank; pads and
-    # truncated slots carry rank P and sort past every real instance of
-    # their tile.  No ties among real instances.
+    # ONE sort over B_pad on the int64 key tile*(P+1) + rank (K1 writes
+    # the keys); pads and truncated slots carry rank P and sort past every
+    # real instance of their tile.  No ties among real instances.
     pp1 = p + 1
-    key = (tile.long() * pp1
-           + torch.where(in_range, gauss_c, p).long())
-    key_pad = pad_tile * pp1 + p
-    key_a = torch.sort(torch.cat([key, key_pad])).values
+    key_a = torch.sort(bin_keys(
+        offsets, counts.contiguous(), rectpack.contiguous(), pad_start,
+        nv.reshape(1).contiguous(), grid_x, budget, b_pad)).values
     tile_a = torch.div(key_a, pp1, rounding_mode="floor")
     gauss_u = key_a - tile_a * pp1
     gauss_a = torch.where(gauss_u == p, _MAXI, gauss_u).to(i32)

@@ -151,13 +151,13 @@ def warp_pixels(warp_shape=(16, 2), pixels_per_thread: int = 1):
 
 
 def walk_layout(source: str) -> dict:
-    """How csrc/<source>.cu ("tile_fwd" or "tile_bwd") lays a tile out, as
-    tile_fwd_plain's count_pairs keywords, read from the defaults in the
-    sources: the (wide, high) pixel block of a warp's 32 lanes
-    (csrc/tile_walk.cuh WALK_WARP_W), the pixels per thread (K2 always
-    one) and the instances staged at once.  K4 (csrc/tile_trans.cu) keeps
-    the keywords' own defaults: two 16-pixel rows, batches of 128."""
-    tag = {"tile_fwd": "TILE_FWD", "tile_bwd": "TILE_BWD"}[source]
+    """How csrc/<source>.cu ("tile_fwd", "tile_bwd" or "tile_trans") lays
+    a tile out, as tile_fwd_plain's count_pairs keywords, read from the
+    defaults in the sources: the (wide, high) pixel block of a warp's 32
+    lanes (csrc/tile_walk.cuh WALK_WARP_W), the pixels per thread (K2 and
+    K4 always one) and the instances staged at once."""
+    tag = {"tile_fwd": "TILE_FWD", "tile_bwd": "TILE_BWD",
+           "tile_trans": "TILE_TRANS"}[source]
     wide = _cuda.define_default("tile_walk.cuh", "WALK_WARP_W")
     return dict(
         warp_shape=(wide, 32 // wide),

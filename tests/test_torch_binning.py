@@ -1,11 +1,16 @@
 """Port parity: ops/binning.py, torch vs JAX — bit-identical.
 
-K1's plain version (``expand_marks_plain`` behind ``expand_stream``) is
-held against the JAX ``_expand_stream`` (its Pallas kernel in interpret
+``expand_stream`` (the mark scatter + running max of ``expand_marks_plain``)
+is held against the JAX ``_expand_stream`` (its Pallas kernel in interpret
 mode) on every budget slot; ``bin_gaussians`` is fed JAX's own
 PreprocessOut (as numpy, so no float rounding upstream can move a rect)
 and every BinningOut field must be identical, including budget truncation
 and alignment-slack overflow.
+
+K1 (csrc/expand.cu) computes binning's slot keys by binary search, not the
+JAX package's way; its algorithm, written here with ``torch.searchsorted``
+(``keys_by_search``), must give ``bin_keys_plain``'s keys bit for bit on
+chip_smoke's K1 cases and on the keys of every bit-identity scene.
 """
 
 import jax.numpy as jnp
@@ -15,6 +20,7 @@ import torch
 from test_binning import make_prep
 from test_tile_render import H, W, make_scene
 
+import chip_smoke as cs
 from reduced3dgs_torch.ops import binning as tbin
 from reduced3dgs_torch.ops import preprocess as tprep
 from reduced3dgs_tpu.cameras import Camera as JCamera
@@ -131,3 +137,64 @@ def test_zero_primitives():
     assert int(b.num_rendered) == 0 and bool(b.pad_mask.all())
     assert torch.equal(b.tile_ranges[0], b.tile_ranges[1])
     assert b.seg_bounds.tolist() == [0]
+
+
+def keys_by_search(offsets, counts, rectpack, pad_start, nv, grid_x, budget,
+                   b_pad):
+    """csrc/expand.cu's algorithm in torch: a real slot below nv is owned
+    by the first rank whose inclusive offset exceeds it, a pad slot by the
+    last tile whose padding prefix sum is at or below it."""
+    p = offsets.shape[0]
+    num_tiles = pad_start.shape[0] - 1
+    pp1 = p + 1
+    s = torch.arange(budget, dtype=torch.int32)
+    key = torch.full((budget,), num_tiles * pp1 + p, dtype=torch.int64)
+    if p > 0:
+        i = torch.searchsorted(offsets, s, right=True).clamp(max=p - 1)
+        r = s - (offsets[i] - counts[i])
+        rect = rectpack[i]
+        w = (rect & 1023) + 1
+        ty = ((rect >> 10) & 1023) + torch.div(r, w, rounding_mode="trunc")
+        tx = (rect >> 20) + torch.fmod(r, w)
+        real = (ty * grid_x + tx).long() * pp1 + i
+        key = torch.where(s < nv, real, key)
+    k = torch.arange(b_pad - budget, dtype=torch.int32)
+    t = torch.searchsorted(pad_start, k, right=True) - 1
+    return torch.cat([key, t.long() * pp1 + p])
+
+
+EXPAND_CASES = cs.expand_cases()
+
+
+@pytest.mark.parametrize("idx", range(len(EXPAND_CASES)),
+                         ids=[f"{i}-{c[0]}" for i, c in
+                              enumerate(EXPAND_CASES)])
+def test_bin_keys_search_matches_plain(idx):
+    name, case = EXPAND_CASES[idx]
+    kw = {k: torch.as_tensor(v) if isinstance(v, np.ndarray) else v
+          for k, v in case.items()}
+    want = tbin.bin_keys_plain(**kw)
+    assert want.dtype == torch.int64 and want.shape == (case["b_pad"],)
+    assert torch.equal(keys_by_search(**kw), want), name
+    # the CPU dispatch is the plain version
+    assert torch.equal(tbin.bin_keys(**kw), want)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_bin_keys_search_on_binning_scenes(name, monkeypatch):
+    """The keys of each bit-identity scene, as bin_gaussians asks for
+    them."""
+    build, width, height, budget = CASES[name]
+    prep = tprep.PreprocessOut(*(torch.as_tensor(np.array(a))
+                                 for a in build()))
+    seen = []
+    plain = tbin.bin_keys
+
+    def spy(*a):
+        seen.append(a)
+        return plain(*a)
+
+    monkeypatch.setattr(tbin, "bin_keys", spy)
+    tbin.bin_gaussians(prep, width, height, budget)
+    (args,) = seen
+    assert torch.equal(keys_by_search(*args), tbin.bin_keys_plain(*args))

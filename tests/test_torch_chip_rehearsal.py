@@ -1,5 +1,6 @@
-"""chip_smoke.py's kernel checks of phases 3 and 5 and its training and
-compression phases (7-12) rehearsed on the CPU at a tiny size.  The CUDA
+"""chip_smoke.py's kernel checks of phases 2, 3 and 5, the WALK_EXP2
+comparison of phases 4 and 10, and its training and compression phases
+(7-12) rehearsed on the CPU at a tiny size.  The CUDA
 wrappers are replaced by their plain versions, which here count launches
 as the kernels do; CUDA events by a host clock; the profiled step is
 skipped.  What this checks is the phases' control flow,
@@ -57,10 +58,11 @@ def cpu_card(monkeypatch):
     monkeypatch.setattr(ttr, "_tile_bwd_cuda", ttr.tile_bwd_plain)
     monkeypatch.setattr(ttr, "_seg_reduce_cuda", ttr.seg_reduce_plain)
     monkeypatch.setattr(ttr, "_tile_trans_cuda", ttr.tile_trans_plain)
+    monkeypatch.setattr(tbin, "_bin_keys_cuda", tbin.bin_keys_plain)
     monkeypatch.setattr(ttr, "tile_trans_plain", _counting(
         ttr.tile_trans_plain, ttr.TILE_TRANS))
-    monkeypatch.setattr(tbin, "expand_marks_plain", _counting(
-        tbin.expand_marks_plain, tbin.EXPAND))
+    monkeypatch.setattr(tbin, "bin_keys_plain", _counting(
+        tbin.bin_keys_plain, tbin.EXPAND))
     monkeypatch.setattr(ttr, "tile_fwd_plain", _counting(
         ttr.tile_fwd_plain, ttr.TILE_FWD))
     monkeypatch.setattr(ttr, "tile_bwd_plain", _counting(
@@ -81,6 +83,7 @@ def test_phase3_and_5_walk_checks(cpu_card, capsys):
     utilisation lines."""
     assert cs.k2_edge_cases(cpu_card) == 0.0
     assert cs.k3_edge_cases(cpu_card) == 0.0
+    assert cs.k4_edge_cases(cpu_card) == 0.0
     names = [c[0] for c in cs.walk_edge_cases(cpu_card)]
     assert len(names) == 4 and "all-empty frame" in names
     feat, ranges, limit = cs.walk_edge_cases(cpu_card)[2][1]
@@ -94,6 +97,51 @@ def test_phase3_and_5_walk_checks(cpu_card, capsys):
     out = capsys.readouterr().out
     assert out.count("lane utilisation walked / (") == 2
     assert "two launches bit-identical" in out
+
+
+def test_phase2_and_5_k1_checks(cpu_card, capsys):
+    """K1 on its edge cases, then at a binned scene's inputs: keys and the
+    whole BinningOut against the plain version's, times and the bound."""
+    cs.k1_edge_cases(cpu_card)
+    prep, _, _ = cs.kernel_inputs(cpu_card, SMALL["width"], SMALL["height"],
+                                  SMALL["n"], SMALL["scales"], 1 << 15)
+    before = tbin.EXPAND.launches
+    row = cs._report_k1(prep, SMALL["width"], SMALL["height"], 1 << 15, 9,
+                        tbin)
+    # the binning call whose inputs are captured, and the one that runs
+    # the plain version for the BinningOut comparison
+    assert tbin.EXPAND.launches > before
+    assert row["launches"] == 9 and row["max_abs_err"] == 0.0
+    assert row["bound_by"] == "bytes" and row["library_ms"] > 0
+    assert row["bound_ms"] > 0 and row["plain_ms"] > 0
+    out = capsys.readouterr().out
+    assert out.count("phase 2: K1 ") == len(cs.expand_cases())
+    assert "BinningOut bit-identical" in out
+
+
+def test_phase4_and_10_exp2_comparison(cpu_card, capsys):
+    """The ring through K2 and its expf build (the same plain version
+    here), K4's builds per primitive, and the verdict line."""
+    from reduced3dgs_torch.models.gaussians import (
+        padded_leaves, pool_from_numpy,
+    )
+    from reduced3dgs_torch.render import PoolView
+
+    arrs = cs.make_arrays(SMALL["n"], SMALL["scales"], 0)
+    pv = PoolView(pool_from_numpy(
+        padded_leaves(arrs, capacity=SMALL["n"]), cpu_card))
+    views = cs.ring_cameras(SMALL["width"], SMALL["height"], n_views=2)
+    expf = cs.expf_kernels()
+    assert all(k.defines == cs.EXPF for k in expf.values())
+    frames = cs.exp2_frames(pv, views, 1 << 15, expf["tile_fwd"])
+    assert frames[0] >= 100.0 and frames[1] == {"ex2": 0, "expf": 0}
+    assert frames[3] == 2 * SMALL["width"] * SMALL["height"]
+    case = cs.k4_case(cpu_card, cs.MAIN, 1 << 15, 0)
+    num_p, touched, off, bits = cs.exp2_trans(case, expf["tile_trans"])
+    assert num_p == SMALL["n"] and touched == off == bits == 0
+    assert cs.exp2_verdict(frames, (num_p, touched, off, bits), "cpu")
+    assert "rule (>= 60 dB" in capsys.readouterr().out
+    assert ttr.TILE_FWD.defines == ttr.TILE_TRANS.defines == ()
 
 
 def test_lane_text():
@@ -156,15 +204,19 @@ def test_phase9_and_12_rehearsal(cpu_card, tmp_path):
     assert not (tmp_path / "run").exists()  # the phase removes its files
 
 
-def test_phase10_and_11_rehearsal(cpu_card):
+def test_phase10_and_11_rehearsal(cpu_card, capsys):
     case = cs.k4_case(cpu_card, cs.MAIN, 1 << 15, 0)
     assert case["err"] == 0.0 and case["k4in"][0].shape[0] == 9
+    assert torch.equal(case["out"], ttr.tile_trans_plain(*case["k4in"]))
     row = cs.report_k4(case, 16)
     assert row["name"] == "tile_trans" and row["launches"] == 16
     assert row["bound_by"] == "operations" and row["library_ms"] is None
     assert row["plain_ms"] > 0 and row["bound_ms"] > 0
     err, d_touch = cs.small_trans_check(cpu_card)
     assert err <= 1e-3 and d_touch <= 2
+    out = capsys.readouterr().out
+    assert "two launches bit-identical" in out
+    assert out.count("lane utilisation walked / (") == 2
 
 
 def test_student_is_a_perturbed_copy():

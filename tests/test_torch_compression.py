@@ -120,6 +120,31 @@ def test_kmeans_full_fit():
     np.testing.assert_allclose(centers.numpy(), np.asarray(jc), rtol=1e-4)
 
 
+def test_kmeans_stops_at_the_jax_step():
+    """The port's fit stops at the Lloyd step where the JAX while_loop
+    stops, on rows whose last step still moves the centres (by less than
+    the tolerance): the JAX fit capped at the port's step count k gives
+    the unlimited fit's centres, capped at k - 1 it does not."""
+    rng = np.random.default_rng(3)
+    vals = rng.laplace(size=8000).astype(np.float32)
+    w = (rng.uniform(size=vals.size) < 0.9).astype(np.float32)
+    tv, tw = torch.as_tensor(vals), torch.as_tensor(w)
+    init = tkm._quantile_init(tv, tw, 64)
+    kw = dict(num_clusters=64, weights=tw, return_iterations=True)
+    _, c, k = tkm.kmeans_1d(tv, init, 1e-3, **kw)
+    _, c_before, _ = tkm.kmeans_1d(tv, init, 1e-3, max_iterations=k - 1,
+                                   **kw)
+    assert 1 < k < 100
+    assert 0.0 < float((c - c_before).abs().sum()) < 1e-3
+    fits = {m: np.asarray(jkm.kmeans_1d(
+        jnp.asarray(vals), jnp.asarray(init.numpy()), 1e-3, num_clusters=64,
+        max_iterations=m, weights=jnp.asarray(w))[1])
+        for m in (tkm.MAX_ITERATIONS, k, k - 1)}
+    np.testing.assert_array_equal(fits[k], fits[tkm.MAX_ITERATIONS])
+    assert not np.array_equal(fits[k - 1], fits[tkm.MAX_ITERATIONS])
+    np.testing.assert_allclose(c.numpy(), fits[k], rtol=1e-5, atol=1e-7)
+
+
 @pytest.fixture(scope="module")
 def pools():
     jpool = make_pool()

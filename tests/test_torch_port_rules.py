@@ -69,15 +69,18 @@ def test_kernel_wrappers_never_fall_back():
     from reduced3dgs_torch.ops import binning, tile_render
 
     kernels = (binning.EXPAND, tile_render.TILE_FWD, tile_render.TILE_BWD,
-               tile_render.SEG_REDUCE_F32, tile_render.SEG_REDUCE_PACKED)
+               tile_render.TILE_TRANS, tile_render.SEG_REDUCE_F32,
+               tile_render.SEG_REDUCE_PACKED)
     before = [k.launches for k in kernels]
     meta = torch.empty(8, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        binning.expand_marks(meta, meta, meta, 16)
+        binning.bin_keys(meta, meta, meta, meta[:5], meta[:1], 2, 16, 32)
     feat = torch.empty((9, 128), device="meta")
     ranges = torch.empty((2, 1), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tile_render.tile_fwd(feat, ranges, meta[:1], 1, 16, 16)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tile_render.tile_trans(feat, ranges, meta[:1], 1, 16, 16)
     pix = torch.empty((1, 8, 256), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tile_render.tile_bwd(feat, ranges, meta[:1], 1, 16, 16, pix, pix)
@@ -114,13 +117,22 @@ def test_chip_smoke_kernel_inputs_and_cases():
     import chip_smoke as cs
     from reduced3dgs_torch.ops import binning, tile_render
 
-    for name, mark_pos, rank1, rect, budget in cs.expand_cases():
-        out = binning.expand_marks_plain(*binning.compact_marks(
-            *(torch.as_tensor(a) for a in (mark_pos, rank1, rect)), budget),
-            budget)
-        assert out.shape == (3, budget)
+    names = []
+    for name, case in cs.expand_cases():
+        names.append(name)
+        kw = {k: torch.as_tensor(v) if isinstance(v, np.ndarray) else v
+              for k, v in case.items()}
+        out = binning.bin_keys_plain(**kw)
+        assert out.shape == (case["b_pad"],) and out.dtype == torch.int64
+        p, budget = case["counts"].size, case["budget"]
+        tiles = case["pad_start"].size - 1
+        # slots past nv: tile num_tiles, rank P; pads: rank P of a tile
+        past = out[int(case["nv"][0]):budget]
+        assert bool((past == tiles * (p + 1) + p).all())
+        assert bool((out[budget:] % (p + 1) == p).all())
         if name == "empty":
-            assert bool((out[0] == -1).all())
+            assert past.numel() == budget
+    assert {"truncate", "empty", "P=0", "P=1"} <= set(names)
     _, b, k2in = cs.kernel_inputs("cpu", 64, 48, 2000, (0.02, 0.08), 8192)
     out, pairs = tile_render.tile_fwd_plain(*k2in, 4, 64, 48,
                                             count_pairs=True)
@@ -170,12 +182,10 @@ def test_library_path_follows_included_headers(tmp_path, monkeypatch):
     includes, so an edited header is never served by a stale library."""
     from reduced3dgs_torch.ops import _cuda
 
-    names = {p.name for p in _cuda.source_files("tile_bwd")}
-    assert names == {"tile_bwd.cu", "tile_walk.cuh"}
-    assert {p.name for p in _cuda.source_files("tile_fwd")} == {
-        "tile_fwd.cu", "tile_walk.cuh"}
-    assert [p.name for p in _cuda.source_files("tile_trans")] == [
-        "tile_trans.cu"]
+    for n in ("tile_bwd", "tile_fwd", "tile_trans"):
+        assert {p.name for p in _cuda.source_files(n)} == {
+            f"{n}.cu", "tile_walk.cuh"}
+    assert [p.name for p in _cuda.source_files("expand")] == ["expand.cu"]
     csrc = tmp_path / "csrc"
     shutil.copytree(_cuda.CSRC, csrc)
     monkeypatch.setattr(_cuda, "CSRC", csrc)
@@ -184,9 +194,9 @@ def test_library_path_follows_included_headers(tmp_path, monkeypatch):
     with open(csrc / "tile_walk.cuh", "ab") as f:
         f.write(b"\n// edited\n")
     after = {n: _cuda.library_path(n) for n in _cuda.SOURCES}
-    for n in ("tile_fwd", "tile_bwd"):
+    for n in ("tile_fwd", "tile_bwd", "tile_trans"):
         assert after[n] != before[n]
-    for n in ("expand", "tile_trans", "seg_reduce"):
+    for n in ("expand", "seg_reduce"):
         assert after[n] == before[n]
     with open(csrc / "tile_fwd.cu", "ab") as f:
         f.write(b"\n// edited\n")
@@ -201,7 +211,8 @@ def test_walk_constants_mirror_the_kernel_sources(tmp_path, monkeypatch):
     from reduced3dgs_torch.ops import _cuda
     from reduced3dgs_torch.ops import tile_render as ttr
 
-    for source, ppts in (("tile_fwd", (1,)), ("tile_bwd", (1, 2, 4))):
+    for source, ppts in (("tile_fwd", (1,)), ("tile_bwd", (1, 2, 4)),
+                         ("tile_trans", (1,))):
         lay = ttr.walk_layout(source)
         assert lay["warp_shape"][0] * lay["warp_shape"][1] == 32
         assert lay["pixels_per_thread"] in ppts
@@ -226,3 +237,57 @@ def test_walk_constants_mirror_the_kernel_sources(tmp_path, monkeypatch):
     assert ttr.walk_layout("tile_bwd") == dict(
         before, pixels_per_thread=4, warp_shape=(16, 2))
     assert ttr.walk_layout("tile_fwd")["warp_shape"] == (16, 2)
+
+
+def test_variant_builds_get_their_own_library():
+    """A build with -D flags (chip_smoke's expf builds of K2 and K4) is a
+    library of its own; the default build's name does not change."""
+    from reduced3dgs_torch.ops import _cuda
+
+    expf = ("-DWALK_EXP2=0",)
+    for n in ("tile_fwd", "tile_trans"):
+        assert _cuda.library_path(n, expf) != _cuda.library_path(n)
+        assert _cuda.library_path(n, ()) == _cuda.library_path(n)
+    k = _cuda.Kernel("tile_trans", "tile_trans_launch", [], expf)
+    assert k.defines == expf and k.launches == 0
+
+
+def _code(path):
+    """A CUDA source without its // comments."""
+    with open(path) as f:
+        return "\n".join(ln.split("//")[0] for ln in f)
+
+
+def test_tile_trans_runs_on_the_shared_walk():
+    """K4 walks as K2 does: the shared header, its blend decision and its
+    exponent (no expf of its own), and no atomics."""
+    csrc = os.path.join(REPO, "reduced3dgs_torch", "csrc")
+    k4 = _code(os.path.join(csrc, "tile_trans.cu"))
+    k2 = _code(os.path.join(csrc, "tile_fwd.cu"))
+    assert '#include "tile_walk.cuh"' in k4
+    assert "expf" not in k4 and "atomic" not in k4
+    assert "pair_alpha(" in k4 and "pair_alpha(" in k2
+    assert "Stage<kBatch, kThreads, 2>" in k4
+
+
+def test_walk_layout_tile_trans_mirrors_the_sources(tmp_path, monkeypatch):
+    """walk_layout("tile_trans") is K4's footprint as csrc/ defines it,
+    read independently here, and follows an edit of its batch."""
+    import re
+
+    from reduced3dgs_torch.ops import _cuda
+    from reduced3dgs_torch.ops import tile_render as ttr
+
+    csrc = os.path.join(REPO, "reduced3dgs_torch", "csrc")
+    head = open(os.path.join(csrc, "tile_walk.cuh")).read()
+    k4 = open(os.path.join(csrc, "tile_trans.cu")).read()
+    wide = int(re.search(r"#define WALK_WARP_W (\d+)", head).group(1))
+    batch = int(re.search(r"#define TILE_TRANS_BATCH (\d+)", k4).group(1))
+    assert ttr.walk_layout("tile_trans") == dict(
+        warp_shape=(wide, 32 // wide), pixels_per_thread=1, batch=batch)
+    copy = tmp_path / "csrc"
+    shutil.copytree(_cuda.CSRC, copy)
+    monkeypatch.setattr(_cuda, "CSRC", copy)
+    (copy / "tile_trans.cu").write_text(k4.replace(
+        f"#define TILE_TRANS_BATCH {batch} ", "#define TILE_TRANS_BATCH 32 "))
+    assert ttr.walk_layout("tile_trans")["batch"] == 32
