@@ -78,13 +78,35 @@ before the final line:
     the tile backend (K1 + K2 + K4) against the "ref" oracle;
 12. the compression main path at full width, on the trainer of phase 9:
     Trainer.step runs one mercy pass (redundancy metric over 2^19+
-    primitives and the 8 ring views) and one SH-band cull at the paper's
+    primitives and the 8 ring views; no longer run a second time to time
+    it and its kNN apart) and one SH-band cull at the paper's
     thresholds (and, if that demotes under 5 % or over 95 % of this
     synthetic scene's degree-3 primitives, a second cull at thresholds
     taken from the scene's own statistics), then the training CLI's final
     compression writes the four PLYs, point_cloud_quantised_half.ply is
     loaded back and the ring is rendered with and without the variable-SH
-    path.
+    path;
+13. fused steps on the trainer of phase 12 (its schedule made free of
+    surgery): from one saved state the same 16 iterations run as eager
+    Trainer.steps (twice, to show what two eager runs differ by) and as
+    Trainer.step_group in groups of 8 (a captured CUDA graph of the train
+    step, replayed); loss per step within rtol 1e-5, parameters within
+    rtol 5e-4 / atol 1e-3, num_rendered within 2, budgets equal
+    (tests/test_fused_steps.py); then both again from a budget small
+    enough to overflow (the group regrows and redoes); K1, K2, K3 and K6
+    once per replayed step by torch.profiler's kernel names over one
+    group, equal to the captured launches times the replays; ms per step
+    graphed and eager in turns, the device idle share of each, the host's
+    launches per step and the capture time;
+14. checkpoints, offline compression and metrics at full width: the
+    trainer of phase 13 saved (train/checkpoint.py), loaded into a fresh
+    Trainer (every leaf equal) and one step taken by both; python -m
+    reduced3dgs_torch.compress on phase 12's model (--pack_xyz
+    --prune_frac 0.17 --finetune_iters 32, the ring's images written as
+    PNGs beside its COLMAP text); its quantised_half and the baseline
+    rendered at the ring views into train/<variant>/ours_N/{renders,gt}
+    and scored by python -m reduced3dgs_torch.metrics with random LPIPS
+    weights from --seed.
 
 The last line is {"ok": true, "device": {...}}.  Without a card, or
 without the rest of the repository beside it, it exits non-zero first.
@@ -173,6 +195,18 @@ TRAIN = dict(steps=24, timed_steps=4, f32_steps=4, densify_from=15,
              densify_interval=24, percent_dense=0.003, grad_threshold=1e-4,
              dc_noise=0.3, opacity_noise=0.5, initial_budget=1 << 17)
 BENCH_BUDGET = 1 << 22  # bench.py's 1080p instance budget
+# phase 13: 16 fusible iterations, eager and in groups of 8; the overflow
+# run starts every camera at a budget far under a 1080p view's need; the
+# timing alternates eager and graphed groups
+FUSED = dict(steps=16, group=8, overflow_budget=1 << 17, rounds=3)
+# phase 14: the offline compression's options
+COMPRESS = ("--pack_xyz", "--prune_frac", "0.17", "--finetune_iters", "32")
+# profiler kernel names of the train step's kernels (K5 and K6 are the
+# two instances of one template)
+STEP_KERNELS = {"expand": "bin_keys_kernel", "tile_fwd": "tile_fwd_kernel",
+                "tile_bwd": "tile_bwd_kernel",
+                "seg_reduce_packed": "seg_reduce_kernel<true>",
+                "seg_reduce_f32": "seg_reduce_kernel<false>"}
 
 
 def check(cond, msg):
@@ -1084,8 +1118,22 @@ def main(argv=None):
           f"by at most {d_touch}", flush=True)
 
     # --- phase 12: the compression main path at full width -----------------
-    comp_l = compression_main_path(dev, trainer, next_it, root, smi)
+    comp_l, next_it = compression_main_path(dev, trainer, next_it, root,
+                                            smi, keep=True)
     kernels.insert(3, report_k4(k4_main, comp_l["tile_trans"]))
+    del k4_main
+
+    # --- phase 13: fused steps, a CUDA graph of the train step ------------
+    t0 = time.perf_counter()
+    next_it = fused_main_path(trainer, next_it, smi)
+    print(f"phase 13: {time.perf_counter() - t0:.3f} s", flush=True)
+
+    # --- phase 14: checkpoints, offline compression, metrics ---------------
+    t0 = time.perf_counter()
+    checkpoint_check(trainer, next_it, root, smi)
+    compress_and_metrics(trainer, root, args.seed, smi)
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 14: {time.perf_counter() - t0:.3f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2021,12 +2069,14 @@ def ring_images(pv, views, bg, budget):
     return torch.stack(imgs), budget
 
 
-def compression_main_path(dev, tr, it, root, smi):
+def compression_main_path(dev, tr, it, root, smi, keep=False):
     """Phase 12 on the trainer of phase 9 (its pool has been densified
     past 2^19 primitives): Trainer.step with mercy_points and
     cull_sh_iterations set inside the schedule, the CLI's final
     compression, and both render paths on the loaded quantised_half
-    model.  Returns the kernels' launch counts over the whole path."""
+    model.  Returns the kernels' launch counts over the whole path and
+    the next iteration; keep: leave the model directory (root/model, its
+    COLMAP text in root/source) for phase 14."""
     import dataclasses
 
     import torch
@@ -2093,24 +2143,15 @@ def compression_main_path(dev, tr, it, root, smi):
         if i == mercy_it:
             st = tr.stats
             check("n_points_mercied" in st, "the mercy pass did not run")
-            # the redundancy metric once more, its kNN timed apart
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            scene.pool = tr.state.pool
-            red, _ = scene.calculate_redundancy_metric(
-                pixel_scale=tr.opt_cfg.box_size)
-            torch.cuda.synchronize()
-            t_metric = time.perf_counter() - t0
-            t_knn = timed_knn(tr.state.pool)
             print(f"phase 12: mercy at iteration {i}: {alive_before} alive, "
                   f"{st['n_points_mercied']} mercied (redundancy threshold "
                   f"{st['redundancy_threshold']:.4f}, opacity threshold "
                   f"{st['opacity_threshold']:.4f}; lambda_mercy "
                   f"{tr.opt_cfg.lambda_mercy}, mercy_minimum "
-                  f"{tr.opt_cfg.mercy_minimum}); step {dt:.3f} s; the "
-                  f"redundancy metric alone {t_metric:.3f} s of which the "
-                  f"exact 30-NN search {t_knn:.3f} s; redundancy max "
-                  f"{int(red.max())}; {smi}", flush=True)
+                  f"{tr.opt_cfg.mercy_minimum}); step {dt:.3f} s (cut to keep "
+                  f"the run's time: the redundancy metric and its 30-NN "
+                  f"search are no longer run again to be timed apart); "
+                  f"{smi}", flush=True)
         if i == cull_it:
             check_cull(d, "cull")
             after = degree_histogram(tr.state.pool)
@@ -2201,22 +2242,369 @@ def compression_main_path(dev, tr, it, root, smi):
           f"variable-SH over {nv} views (budget {fps_d['budget']}); SH "
           f"floats held {sh_dense} dense, {sh_ragged} ragged; launches of "
           f"the path {launches}; {smi}", flush=True)
-    shutil.rmtree(root, ignore_errors=True)
-    return launches
+    if not keep:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches, i + 1
 
 
-def timed_knn(pool, k=30):
-    """Seconds of the exact k-NN search over the pool's alive points."""
+# ---------------------------------------------------------------------------
+# phases 13-14: fused steps, checkpoints, offline compression, metrics
+# ---------------------------------------------------------------------------
+
+def trainer_snapshot(tr):
+    """What a Trainer's next steps depend on: its state (steps never write
+    a state's tensors in place) and the host's camera order, random
+    stream and budgets."""
+    import copy
+
+    return (tr.state, copy.deepcopy(tr.rng.bit_generator.state),
+            list(tr._stack), dict(tr.budgets))
+
+
+def trainer_restore(tr, snap):
+    tr.state, rng, stack, budgets = snap
+    tr.rng.bit_generator.state = rng
+    tr._stack, tr.budgets = list(stack), dict(budgets)
+
+
+def run_steps_eager(tr, first, count):
+    return [tr.step(i) for i in range(first, first + count)]
+
+
+def run_steps_grouped(tr, first, count, size):
+    ms, it = [], first
+    while it < first + count:
+        got = tr.step_group(range(it, min(it + size, first + count)))
+        ms += got
+        it += len(got)
+    return ms
+
+
+def compare_runs(ma, pa, mb, pb):
+    """Two runs of the same steps: (largest relative loss difference,
+    largest |num_rendered| difference, largest parameter difference, the
+    parameters' match at rtol 5e-4 / atol 1e-3)."""
     import torch
 
-    from reduced3dgs_torch.ops.knn import knn_exact
+    loss = max(abs(float(a["loss"]) - float(b["loss"]))
+               / max(abs(float(a["loss"])), 1e-30) for a, b in zip(ma, mb))
+    nr = max(abs(int(a["num_rendered"]) - int(b["num_rendered"]))
+             for a, b in zip(ma, mb))
+    diff = max(float((a - b).abs().max()) for a, b in zip(pa, pb))
+    close = all(bool(torch.allclose(b, a, rtol=5e-4, atol=1e-3))
+                for a, b in zip(pa, pb))
+    return loss, nr, diff, close
 
-    pts = pool.params.xyz[pool.alive]
-    torch.cuda.synchronize()
+
+def profiled(fn):
+    """fn() under torch.profiler (CUDA activity and the host's runtime
+    calls) between two CUDA events.  Returns (launches of the step's
+    kernels by STEP_KERNELS name, kernel ms, the CUDA-event span in ms,
+    all kernel launches, the host's launch calls: cudaLaunchKernel,
+    cudaGraphLaunch, cudaMemcpyAsync and their variants)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+    counts = {n: 0 for n in STEP_KERNELS}
+    busy, launches, host = 0.0, 0, 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dev_us = getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+            if dev_us > 0:
+                busy += dev_us / 1e3
+                launches += e.count
+            for n, sym in STEP_KERNELS.items():
+                if sym in e.key:
+                    counts[n] += e.count
+        elif e.key.startswith(("cudaLaunchKernel", "cudaGraphLaunch",
+                               "cudaMemcpyAsync", "cuLaunchKernel")):
+            host += e.count
+    return counts, busy, start.elapsed_time(end), launches, host
+
+
+def fused_main_path(tr, it, smi):
+    """Phase 13 on the trainer of phase 12.  Returns the next iteration."""
+    import dataclasses
+
+    import torch
+
+    from reduced3dgs_torch.train.trainer import carried
+
+    sync = torch.cuda.synchronize
+    n, size = FUSED["steps"], FUSED["group"]
+    # no host boundary in the next iterations: no densification, mercy,
+    # dead-point pruning or cull
+    tr.opt_cfg = dataclasses.replace(
+        tr.opt_cfg, densify_until_iter=0, mercy_points=False,
+        prune_dead_points=False)
+    tr.cull_sh_iterations = ()
+    last = it + max(n, 3 * size + 2 * FUSED["rounds"] * size)
+    check(all(tr.fusible(i) for i in range(it, last)),
+          "phase 13: the schedule has a host boundary")
+    tr.grad_reduce = "bf16x2"
+    snap = trainer_snapshot(tr)
+
+    def run(fn, budgets=None):
+        trainer_restore(tr, snap)
+        if budgets is not None:
+            tr.budgets = dict(budgets)
+        sync()
+        t0 = time.perf_counter()
+        ms = fn()
+        sync()
+        dt = time.perf_counter() - t0
+        return ms, carried(tr.state), dict(tr.budgets), dt
+
+    eager = run(lambda: run_steps_eager(tr, it, n))
+    eager2 = run(lambda: run_steps_eager(tr, it, n))
+    captures = tr.graph_captures
+    grouped = run(lambda: run_steps_grouped(tr, it, n, size))
+    noise = compare_runs(eager[0], eager[1], eager2[0], eager2[1])
+    got = compare_runs(eager[0], eager[1], grouped[0], grouped[1])
+    pool = tr.state.pool
+    print(f"phase 13: {n} iterations from one state ({int(pool.num_alive)} "
+          f"alive of {pool.capacity}, bf16x2), eager twice and in groups of "
+          f"{size}: two eager runs differ by loss {noise[0]:.3e} (relative),"
+          f" num_rendered {noise[1]}, parameters {noise[2]:.3e}; grouped "
+          f"against eager: loss {got[0]:.3e}, num_rendered {got[1]}, "
+          f"parameters {got[2]:.3e}; budgets "
+          f"{sorted(set(grouped[2].values()))} (eager "
+          f"{sorted(set(eager[2].values()))}); wall {eager[3]:.3f} s eager, "
+          f"{grouped[3]:.3f} s grouped with "
+          f"{tr.graph_captures - captures} captures; {smi}", flush=True)
+    check(got[0] <= 1e-5 and got[1] <= 2 and got[3]
+          and grouped[2] == eager[2],
+          "phase 13: grouped steps differ from eager steps")
+
+    # overflow: every camera's budget far under its need
+    small = {c.uid: FUSED["overflow_budget"] for c in tr.cameras}
+    captures = tr.graph_captures
+    e_over = run(lambda: run_steps_eager(tr, it, n), small)
+    g_over = run(lambda: run_steps_grouped(tr, it, n, size), small)
+    got = compare_runs(e_over[0], e_over[1], g_over[0], g_over[1])
+    print(f"phase 13: from budgets of {FUSED['overflow_budget']}: grouped "
+          f"against eager: loss {got[0]:.3e}, num_rendered {got[1]}, "
+          f"parameters {got[2]:.3e}; budgets grouped "
+          f"{sorted(g_over[2].items())}, eager {sorted(e_over[2].items())};"
+          f" {tr.graph_captures - captures} captures", flush=True)
+    check(got[0] <= 1e-5 and got[1] <= 2 and got[3]
+          and max(g_over[2].values()) > FUSED["overflow_budget"],
+          "phase 13: the overflow group differs from the eager steps")
+
+    # launches: one of K1, K2, K3, K6 per replayed step
+    trainer_restore(tr, snap)
+    run_steps_grouped(tr, it, size, size)  # the graph of this key exists
+    before = dict(tr.graph_launches)
+    counts, busy, span, kernels, host = profiled(
+        lambda: tr.step_group(range(it + size, it + 2 * size)))
+    replayed = {k: tr.graph_launches[k] - before[k] for k in before}
+    print(f"phase 13: profiled group of {size}: kernels by name {counts}; "
+          f"captured launches x replays {replayed}; {kernels} kernels, "
+          f"{busy:.3f} ms of kernel time over a CUDA-event span of "
+          f"{span:.3f} ms: {busy / size:.3f} ms kernel time per step, device "
+          f"idle {(1 - busy / span) * 100:.1f} %; host launch calls "
+          f"{host / size:.1f} per step; {smi}", flush=True)
+    want = {"expand": size, "tile_fwd": size, "tile_bwd": size,
+            "seg_reduce_packed": size, "seg_reduce_f32": 0}
+    check(counts == want and (replayed == want or tr.device.type != "cuda"),
+          f"phase 13: not one K1, K2, K3 and K6 per replayed step: "
+          f"{counts}, {replayed}")  # (no graph, so no replays, on a CPU)
+    _, e_busy, e_span, e_kernels, e_host = profiled(
+        lambda: run_steps_eager(tr, it + 2 * size, size))
+    print(f"phase 13: profiled {size} eager steps: {e_kernels / size:.1f} "
+          f"kernels and {e_host / size:.1f} host launch calls per step, "
+          f"{e_busy / size:.3f} ms kernel time per step, device idle "
+          f"{(1 - e_busy / e_span) * 100:.1f} %; {smi}", flush=True)
+
+    # ms per step, graphed and eager in turns
+    first = it + 3 * size
+    times = {"eager": [], "graphed": []}
+    for r in range(FUSED["rounds"]):
+        order = ("eager", "graphed") if r % 2 == 0 else ("graphed", "eager")
+        for who in order:
+            sync()
+            t0 = time.perf_counter()
+            if who == "eager":
+                run_steps_eager(tr, first, size)
+            else:
+                tr.step_group(range(first, first + size))
+            sync()
+            times[who].append((time.perf_counter() - t0) * 1e3 / size)
+            first += size
+    print("phase 13: ms per step (host wall, synchronized, groups of "
+          f"{size}, in turns): "
+          + "; ".join(f"{w} {', '.join(f'{v:.3f}' for v in t)} (median "
+                      f"{float(np.median(t)):.3f})" for w, t in times.items())
+          + f"; captures {tr.graph_captures}, capture and warm-up "
+          f"{tr.capture_s / max(tr.graph_captures, 1):.3f} s each; {smi}",
+          flush=True)
+    return first
+
+
+def checkpoint_check(tr, it, root, smi):
+    """Phase 14's checkpoint: save the trainer, load into a fresh Trainer,
+    every leaf equal; one step of each after that."""
+    import torch
+
+    from reduced3dgs_torch.train.checkpoint import (
+        load_checkpoint, save_checkpoint, state_leaves,
+    )
+    from reduced3dgs_torch.train.trainer import Trainer, carried
+
+    path = os.path.join(root, f"chkpnt{it}.npz")
     t0 = time.perf_counter()
-    knn_exact(pts, k)
+    save_checkpoint(path, tr.state, it, tr.spatial_lr_scale)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state, got_it, slr = load_checkpoint(path, tr.device)
     torch.cuda.synchronize()
-    return time.perf_counter() - t0
+    t_load = time.perf_counter() - t0
+    fresh = Trainer(state.pool, tr.opt_cfg, tr.cameras, spatial_lr_scale=slr,
+                    background=tr.background, backend=tr.backend,
+                    initial_budget=tr.initial_budget,
+                    grad_reduce=tr.grad_reduce)
+    fresh.state, fresh.extent = state, tr.extent
+    same = all(np.array_equal(a, b) for a, b in
+               zip(state_leaves(state), state_leaves(tr.state)))
+    check(same and got_it == it and slr == tr.spatial_lr_scale,
+          "phase 14: the loaded checkpoint differs")
+    trainer_restore(fresh, trainer_snapshot(tr))
+    fresh.state = state
+    ma, mb = tr.step(it), fresh.step(it)
+    loss = abs(float(ma["loss"]) - float(mb["loss"]))
+    diff = max(float((a - b).abs().max())
+               for a, b in zip(carried(tr.state), carried(fresh.state)))
+    print(f"phase 14: checkpoint of {int(tr.state.pool.num_alive)} alive / "
+          f"{tr.state.pool.capacity} slots, {os.path.getsize(path)} bytes: "
+          f"save {t_save:.3f} s, load {t_load:.3f} s, all 31 leaves equal; "
+          f"one step after the load against one without: loss differs by "
+          f"{loss:.3e}, state by {diff:.3e}; {smi}", flush=True)
+    check(loss <= 1e-6 * abs(float(ma["loss"])) and diff <= 1e-5,
+          "phase 14: the step after the load differs")
+    os.remove(path)
+    return it + 1
+
+
+def lpips_random_weights(path, seed):
+    """VGG16 + LPIPS heads of the right shapes from `seed` (the layout of
+    reduced3dgs_torch/ops/lpips.py; tests/test_lpips.py's scales)."""
+    from reduced3dgs_torch.ops.lpips import TAPS, VGG_CFG
+
+    rng = np.random.default_rng(seed)
+    arrays, cin, ci, heads = {}, 3, 0, []
+    for spec in VGG_CFG:
+        if spec == "M":
+            continue
+        arrays[f"conv{ci}_weight"] = rng.normal(
+            0, 0.05, (spec, cin, 3, 3)).astype(np.float32)
+        arrays[f"conv{ci}_bias"] = rng.normal(0, 0.01, spec).astype(
+            np.float32)
+        if ci in TAPS:
+            heads.append(spec)
+        cin, ci = spec, ci + 1
+    for k, c in enumerate(heads):
+        arrays[f"lin{k}_weight"] = rng.uniform(0, 0.1, (1, c, 1, 1)).astype(
+            np.float32)
+    np.savez(path, **arrays)
+    return path
+
+
+def _run_module(args, timeout):
+    """python -m <args> from the repository; returns its stdout."""
+    r = subprocess.run([sys.executable, "-m", *args], cwd=REPO,
+                       capture_output=True, text=True, timeout=timeout)
+    check(r.returncode == 0, f"{args[0]} failed:\n{r.stdout[-2000:]}\n"
+                             f"{r.stderr[-3000:]}")
+    return r.stdout
+
+
+def compress_and_metrics(tr, root, seed, smi, timeout=900):
+    """Phase 14's offline compression and metrics on phase 12's model."""
+    from argparse import Namespace
+
+    import torch
+
+    from reduced3dgs_torch.config import ModelParams
+    from reduced3dgs_torch.data.png import write_png
+    from reduced3dgs_torch.render import PoolView, render_set
+    from reduced3dgs_torch.scene import Scene, search_max_iteration
+
+    src, model = os.path.join(root, "source"), os.path.join(root, "model")
+    images = os.path.join(src, "images")
+    os.makedirs(images, exist_ok=True)
+    t0 = time.perf_counter()
+    for cam in tr.cameras:
+        write_png(os.path.join(images, f"{cam.image_name}.png"),
+                  (np.clip(cam.image, 0, 1) * 255).astype(np.uint8))
+    with open(os.path.join(model, "cfg_args"), "w") as f:
+        f.write(str(Namespace(
+            sh_degree=3, source_path=src, model_path=model, images="images",
+            resolution=1, white_background=False, data_device="cuda",
+            eval=False)))
+    t_png = time.perf_counter() - t0
+    tr._graphs.clear()  # the parent's graphs and caches give the card back
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    on = ["--device", tr.device.type]
+    out = _run_module(["reduced3dgs_torch.compress", "-m", model,
+                       *COMPRESS, *on], timeout)
+    t_comp = time.perf_counter() - t0
+    lines = [ln.strip() for ln in out.splitlines()
+             if ln.startswith(("Pruned", "Fine-tuned", "Codebooks", "  "))]
+    print(f"phase 14: {len(tr.cameras)} ground-truth PNGs written in "
+          f"{t_png:.3f} s; python -m reduced3dgs_torch.compress "
+          f"{' '.join(COMPRESS)} in {t_comp:.3f} s: " + "; ".join(lines)
+          + f"; {smi}", flush=True)
+    check(any(ln.startswith(f"Fine-tuned {COMPRESS[-1]} ") for ln in lines)
+          and sum(ln.startswith("point_cloud") for ln in lines) == 4,
+          "phase 14: compress printed no fine-tune or not four files")
+
+    it = search_max_iteration(os.path.join(model, "point_cloud"))
+    scene = Scene(ModelParams(source_path=src, model_path=model,
+                              resolution=1),
+                  load_iteration=it, shuffle=False, lazy_images=True)
+    bg = torch.zeros(3, device=tr.device)
+    t0 = time.perf_counter()
+    for variant, kw in (("baseline", {}),
+                        ("quantised_half", dict(quantised=True,
+                                                half_float=True))):
+        pool = scene.load_model(device=tr.device, **kw)
+        render_set(PoolView(pool), tr.cameras, bg,
+                   os.path.join(model, "train", variant, f"ours_{it}"))
+    t_render = time.perf_counter() - t0
+    weights = lpips_random_weights(os.path.join(root, "lpips_rand.npz"),
+                                   seed)
+    t0 = time.perf_counter()
+    _run_module(["reduced3dgs_torch.metrics", "-m", model,
+                 "--lpips_weights", weights, *on], timeout)
+    t_metrics = time.perf_counter() - t0
+    with open(os.path.join(model, "results.json")) as f:
+        results = json.load(f)
+    with open(os.path.join(model, "per_view.json")) as f:
+        per_view = json.load(f)
+    keys = {f"train_{v}/ours_{it}" for v in ("baseline", "quantised_half")}
+    check(set(results) == keys and set(per_view) == keys
+          and all(set(results[k]) == {"SSIM", "PSNR", "LPIPS"}
+                  and all(math.isfinite(x) for x in results[k].values())
+                  and len(per_view[k]["PSNR"]) == len(tr.cameras)
+                  for k in keys), f"phase 14: results.json {results}")
+    print(f"phase 14: {len(tr.cameras)} ring views of baseline and "
+          f"quantised_half rendered into train/*/ours_{it} in "
+          f"{t_render:.3f} s; python -m reduced3dgs_torch.metrics (random "
+          f"LPIPS weights from --seed) in {t_metrics:.3f} s: "
+          + "; ".join(f"{k}: PSNR {v['PSNR']:.4f} SSIM {v['SSIM']:.6f} "
+                      f"LPIPS {v['LPIPS']:.6f}"
+                      for k, v in sorted(results.items()))
+          + f"; {smi}", flush=True)
 
 
 if __name__ == "__main__":

@@ -58,8 +58,9 @@ class ModelParams:
 class PipelineParams:
     """convert_SHs_python / compute_cov3D_python / debug are accepted for
     CLI parity; ``backend`` picks the compositor: "tile" (kernels) or
-    "ref" (the masked oracle).  ``fused_steps`` > 1 (several steps per
-    launch) is not ported yet.  ``grad_reduce`` is the per-primitive
+    "ref" (the masked oracle).  ``fused_steps`` > 1 groups up to that many
+    fusible iterations into one Trainer.step_group (a replayed CUDA graph
+    of the train step on the card).  ``grad_reduce`` is the per-primitive
     gradient reduction: "bf16x2" (the training default, packed payload and
     the fast feature table) or "f32" (full precision, the parity mode)."""
 

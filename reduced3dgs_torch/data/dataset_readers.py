@@ -22,6 +22,7 @@ from reduced3dgs_torch.data.colmap import (
     read_images_text, read_points3d_binary, read_points3d_text,
 )
 from reduced3dgs_torch.data.ply import read_ply, write_ply
+from reduced3dgs_torch.data.png import read_png
 from reduced3dgs_torch.ops.transforms import focal2fov, fov2focal
 
 
@@ -203,13 +204,21 @@ def fetch_point_cloud_ply(path):
 
 
 def load_image(info: CameraInfo, resolution):
-    """PIL load + resize + alpha handling; (H,W,3) float32 in [0,1]."""
-    from PIL import Image
-
-    with Image.open(info.image_path) as img:
-        if resolution != (img.width, img.height):
-            img = img.resize(resolution)
-        arr = np.asarray(img).astype(np.float32) / 255.0
+    """PIL load + resize + alpha handling; (H,W,3) float32 in [0,1].
+    Without Pillow, PNG files at their own resolution load through
+    data/png.py (the same pixels)."""
+    try:
+        from PIL import Image
+    except ImportError:
+        arr = read_png(info.image_path)
+        if resolution != (arr.shape[1], arr.shape[0]):
+            raise RuntimeError(f"{info.image_path}: resizing needs Pillow")
+        arr = arr.astype(np.float32) / 255.0
+    else:
+        with Image.open(info.image_path) as img:
+            if resolution != (img.width, img.height):
+                img = img.resize(resolution)
+            arr = np.asarray(img).astype(np.float32) / 255.0
     if arr.ndim == 2:
         arr = np.repeat(arr[:, :, None], 3, axis=2)
     if arr.shape[2] == 4:

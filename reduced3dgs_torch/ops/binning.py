@@ -309,11 +309,13 @@ def bin_gaussians(prep: PreprocessOut, width: int, height: int,
     # instances (row-major over its rect) are included
     if p > 0:
         p_star = full.sum()
-        ps = torch.clamp(p_star, max=p - 1)
-        xs0, xs1, ys0 = x0[ps], x1[ps], y0[ps]
-        start_ps = offsets[ps] - counts[ps]
-        q = nv - start_ps
-        has_partial = (p_star < p) & (q > 0) & (counts[ps] > 0)
+        # gathered by index_select: indexing with a 0-dim tensor would
+        # read it on the host (a sync, and no CUDA graph capture)
+        ps = torch.clamp(p_star, max=p - 1).reshape(1)
+        xs0, xs1, ys0, off_ps, cnt_ps = torch.stack(
+            [x0, x1, y0, offsets, counts]).index_select(1, ps)[:, 0]
+        q = nv - (off_ps - cnt_ps)
+        has_partial = (p_star < p) & (q > 0) & (cnt_ps > 0)
         w = torch.clamp(xs1 - xs0, min=1)
         fr = torch.div(q, w, rounding_mode="floor")
         rem = q - fr * w

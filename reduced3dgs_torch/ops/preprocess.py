@@ -127,8 +127,9 @@ def preprocess(
     live = in_front if alive_mask is None else (in_front & alive_mask)
 
     # culled lanes get a harmless substitute point (no 0/0, 1/tz NaNs)
-    safe_pt = torch.zeros(3, dtype=p_view.dtype, device=p_view.device)
-    safe_pt[2] = 1.0
+    # (0, 0, 1) made on the device: no host copy, so a CUDA graph can
+    # capture it
+    safe_pt = (torch.arange(3, device=p_view.device) == 2).to(p_view.dtype)
     t_safe = torch.where(live[:, None], p_view, safe_pt)
 
     # project to NDC then pixels

@@ -614,7 +614,8 @@ def _pack_features(binning: BinningOut, fast: bool = False):
     b_pad = gid.shape[0]
     if not fast:
         return per[gid].T.contiguous(), b_pad
-    f32cols = per[:, (0, 1, 2, 3, 4, 6, 7)].contiguous().view(torch.int32)
+    # columns 0-4, 6, 7 (slices: an index list would be a host copy)
+    f32cols = torch.cat([per[:, 0:5], per[:, 6:8]], dim=1).view(torch.int32)
     opq = torch.clamp(torch.round(per[:, 5] * OP_FIX), 0.0, OP_FIX)
     bbits = per[:, 8].to(torch.bfloat16).view(torch.int16).to(torch.int32)
     col7 = (opq.to(torch.int32) << 16) | (bbits & 0xFFFF)

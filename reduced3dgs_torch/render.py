@@ -108,8 +108,9 @@ def render_view(pv: PoolView, cam, background, budget: int = VIEW_START_BUDGET,
 
 def render_set(pv: PoolView, cams, background, out_dir: str,
                backend: str = "tile"):
-    """Write renders/NNNNN.png (and gt/ where the camera has an image)."""
-    from PIL import Image
+    """Write renders/NNNNN.png (and gt/ where the camera has an image),
+    through data/png.py (no Pillow needed)."""
+    from reduced3dgs_torch.data.png import write_png
 
     os.makedirs(os.path.join(out_dir, "renders"), exist_ok=True)
     os.makedirs(os.path.join(out_dir, "gt"), exist_ok=True)
@@ -117,12 +118,11 @@ def render_set(pv: PoolView, cams, background, out_dir: str,
     for idx, cam in enumerate(cams):
         out, budget = render_view(pv, cam, background, budget, backend)
         img = np.clip(out.color.cpu().numpy(), 0, 1)
-        Image.fromarray((img * 255).astype(np.uint8)).save(
-            os.path.join(out_dir, "renders", f"{idx:05d}.png"))
+        write_png(os.path.join(out_dir, "renders", f"{idx:05d}.png"),
+                  (img * 255).astype(np.uint8))
         if cam.image is not None:
-            Image.fromarray(
-                (np.clip(cam.image, 0, 1) * 255).astype(np.uint8)
-            ).save(os.path.join(out_dir, "gt", f"{idx:05d}.png"))
+            write_png(os.path.join(out_dir, "gt", f"{idx:05d}.png"),
+                      (np.clip(cam.image, 0, 1) * 255).astype(np.uint8))
 
 
 def measure_fps(pv: PoolView, cams, background, backend: str = "tile",

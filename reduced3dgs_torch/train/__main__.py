@@ -1,7 +1,9 @@
 """Training CLI of the port — counterpart of the root train.py.
 
     python -m reduced3dgs_torch.train -s <scene> [-m <model_dir>] \\
-        [--iterations N] [--grad_reduce bf16x2|f32] [--device cpu]
+        [--iterations N] [--grad_reduce bf16x2|f32] [--fused_steps K] \\
+        [--checkpoint_iterations N ...] [--start_checkpoint chkpntN.npz] \\
+        [--device cpu]
 
 Same flags, loop and saves as train.py (point_cloud/iteration_N/
 point_cloud.ply at every --save_iterations entry), on the card unless
@@ -9,10 +11,15 @@ point_cloud.ply at every --save_iterations entry), on the card unless
 with train.py's final compression: the k-means codebooks and the four
 PLYs point_cloud.ply, point_cloud_quantised.ply,
 point_cloud_quantised_half.ply and point_cloud_quantised_pack.ply of the
-last iteration.  Not ported, and refused up front: --start_checkpoint /
---checkpoint_iterations, --variable_sh_bands (a rendering option; see
-reduced3dgs_torch.render) and --fused_steps > 1.  No TensorBoard and no
-network GUI.
+last iteration.  --fused_steps K runs up to K fusible iterations as one
+Trainer.step_group (a replayed CUDA graph of the train step on the card),
+never across a test, checkpoint or save iteration, with K rounded down to
+a power of two so that few group lengths occur; the per-iteration logging
+replays after the group.  --checkpoint_iterations writes
+<model_dir>/chkpntN.npz (train/checkpoint.py, the JAX package's layout)
+and --start_checkpoint resumes from one.  Refused up front:
+--variable_sh_bands (a rendering option; see reduced3dgs_torch.render).
+No TensorBoard and no network GUI.
 """
 
 from __future__ import annotations
@@ -61,12 +68,10 @@ def build_parser():
 
 
 def refuse_unported(args):
-    """Raise NotImplementedError for the options this port lacks."""
+    """Raise NotImplementedError for the options training has no use
+    for."""
     unported = {
-        "--start_checkpoint": args.start_checkpoint is not None,
-        "--checkpoint_iterations": bool(args.checkpoint_iterations),
         "--variable_sh_bands": args.variable_sh_bands,
-        "--fused_steps > 1": args.fused_steps > 1,
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
@@ -129,6 +134,9 @@ def main(argv=None):
     from reduced3dgs_torch.ops.losses import psnr
     from reduced3dgs_torch.renderer import render
     from reduced3dgs_torch.scene import Scene
+    from reduced3dgs_torch.train.checkpoint import (
+        load_checkpoint, save_checkpoint,
+    )
     from reduced3dgs_torch.train.trainer import Trainer, prune_dead_step
 
     scene = Scene(dataset, load_iteration=None, device=device)
@@ -145,6 +153,12 @@ def main(argv=None):
         white_background=dataset.white_background,
         grad_reduce=pipe.grad_reduce)
     trainer.extent = scene.cameras_extent
+    first_iter = 0
+    if args.start_checkpoint:
+        trainer.state, first_iter, trainer.spatial_lr_scale = (
+            load_checkpoint(args.start_checkpoint, device))
+        print(f"Resuming from {args.start_checkpoint} at iteration "
+              f"{first_iter}")
 
     def eval_report(iteration):
         train_cams = scene.get_train_cameras()
@@ -175,9 +189,9 @@ def main(argv=None):
                   f"L1 {np.mean(l1s):.5f} PSNR {np.mean(ps):.2f}")
 
     ema = 0.0
-    t_start = time.perf_counter()
-    for iteration in range(1, opt.iterations + 1):
-        metrics = trainer.step(iteration)
+
+    def post_step(iteration, metrics):
+        nonlocal ema
         if iteration % 10 == 0 or iteration == opt.iterations:
             loss = float(metrics["loss"])
             if not np.isfinite(loss):
@@ -197,6 +211,11 @@ def main(argv=None):
                       f"N {int(metrics['num_alive'])}", flush=True)
         if iteration in args.test_iterations:
             eval_report(iteration)
+        if iteration in args.checkpoint_iterations:
+            print(f"\n[ITER {iteration}] Saving Checkpoint")
+            save_checkpoint(
+                os.path.join(args.model_path, f"chkpnt{iteration}.npz"),
+                trainer.state, iteration, trainer.spatial_lr_scale)
         if iteration in args.save_iterations:
             print(f"\n[ITER {iteration}] Saving Gaussians")
             if opt.prune_dead_points:
@@ -204,6 +223,30 @@ def main(argv=None):
                     trainer.state, float(trainer.extent))
             scene.pool = trainer.state.pool
             scene.save(iteration)
+
+    # groups of up to --fused_steps fusible iterations; an iteration whose
+    # state a test, checkpoint or save must see ends its group
+    fused = max(1, int(pipe.fused_steps))
+    host_bounds = (set(args.test_iterations) | set(args.checkpoint_iterations)
+                   | set(args.save_iterations))
+    t_start = time.perf_counter()
+    iteration = first_iter + 1
+    while iteration <= opt.iterations:
+        k = 1
+        if fused > 1 and trainer.fusible(iteration):
+            while (k < fused and iteration + k <= opt.iterations
+                   and trainer.fusible(iteration + k)
+                   and (iteration + k - 1) not in host_bounds):
+                k += 1
+            k = 1 << (k.bit_length() - 1)
+        if k > 1:
+            ms = trainer.step_group(range(iteration, iteration + k))
+            for j, m in enumerate(ms):
+                post_step(iteration + j, m)
+            iteration += len(ms)
+        else:
+            post_step(iteration, trainer.step(iteration))
+            iteration += 1
 
     scene.pool = trainer.state.pool
     t_train = time.perf_counter() - t_start

@@ -47,24 +47,35 @@ def _correction(b, t):
     return float(_f32(1.0) - np.power(_f32(b), _f32(t)))
 
 
+def corrections(t, b1=0.9, b2=0.999):
+    """The bias corrections (1 - b1^t, 1 - b2^t) of step t, float32
+    values as Python floats."""
+    return _correction(b1, t), _correction(b2, t)
+
+
 @torch.no_grad()
 def update(params, grads, state: AdamState, lr_tree, b1=0.9, b2=0.999,
-           eps=1e-15, skip_tree=None):
-    """One Adam step; lr_tree holds one float per leaf.  skip_tree:
-    optional per-leaf bools — True leaves stay untouched (the torch
-    behaviour for a parameter whose .grad is None).  Returns (params,
-    state) as new tensors."""
+           eps=1e-15, skip_tree=None, bias=None):
+    """One Adam step; lr_tree holds one float (or 0-dim float32 tensor)
+    per leaf.  skip_tree: optional per-leaf bools — True leaves stay
+    untouched (the torch behaviour for a parameter whose .grad is None).
+    bias: optional per-leaf (c1, c2) 0-dim float32 tensors that stand
+    for corrections(step + 1) — what a captured CUDA graph reads, filled
+    before each replay; a tensor and a Python float of the same float32
+    value round alike.  Returns (params, state) as new tensors."""
     cls = type(params)
     if skip_tree is None:
         skip_tree = cls(*(False for _ in params))
+    if bias is None:
+        bias = cls(*(None for _ in params))
     out = []  # (p, m, v, t) per leaf
-    for p, g, m, v, t, lr, skip in zip(params, grads, state.mu, state.nu,
-                                       state.step, lr_tree, skip_tree):
+    for p, g, m, v, t, lr, skip, cc in zip(params, grads, state.mu, state.nu,
+                                           state.step, lr_tree, skip_tree,
+                                           bias):
         if skip:
             out.append((p, m, v, t))
             continue
-        c1 = _correction(b1, t + 1)
-        c2 = _correction(b2, t + 1)
+        c1, c2 = corrections(t + 1, b1, b2) if cc is None else cc
         m2 = b1 * m + (1 - b1) * g
         v2 = b2 * v + (1 - b2) * g * g
         out.append((p - lr * (m2 / c1) / (torch.sqrt(v2 / c2) + eps),

@@ -18,13 +18,21 @@ Loss:
   + lambda_alpha_regul * mean(|sigmoid(opacity)| over visible)
   + lambda_sh_sparsity * mean(|f_rest| over visible)
 
-Not ported (they raise): fused steps (train_steps_fused / step_group,
-whose counterpart on the card is a CUDA graph).
+Fused steps (``Trainer.step_group``, the JAX package's ``lax.scan`` of k
+steps in one launch): on the card one train step is captured as a
+``torch.cuda.CUDAGraph`` on its own static buffers and replayed k times;
+between replays only device-to-device copies of the next step's inputs
+(camera, background, learning rate and Adam's bias corrections packed in
+one vector, and the ground-truth image) go into those buffers.  On the
+CPU the same fused step runs k times in a loop (``fused_step``), which
+tier-1 holds to sequential ``Trainer.step`` bit for bit.
 """
 
 from __future__ import annotations
 
 import math
+import time
+from collections import OrderedDict
 from typing import NamedTuple
 
 import numpy as np
@@ -44,6 +52,19 @@ from reduced3dgs_torch.train.adam import AdamState
 # stage names of the events a marked train step records (see train_step)
 TRAIN_STAGES = ("preprocess", "binning", "composite", "loss", "loss_bwd",
                 "tile_bwd", "reduce", "preprocess_bwd", "adam")
+
+# A fused step's input vector: the camera (viewmatrix 16, projmatrix 16,
+# campos 3, tan_fovx, tan_fovy), the background 3, then the 13 Adam
+# scalars of Trainer._adam_scalars.
+_VEC_BG = slice(37, 40)
+_VEC_ADAM = 40
+STEP_VEC = 53
+FLOAT_METRICS = ("loss", "l1", "ssim_loss", "alpha_regul",
+                 "sh_sparsity_loss")
+INT_METRICS = ("num_rendered", "num_alive")
+_STAT_LEAVES = ("max_radii2d", "xyz_grad_accum", "denom")
+GRAPH_CACHE = 4  # captured step graphs a Trainer keeps
+GRAPH_WARMUP = 2  # eager steps on the side stream before a capture
 
 
 class TrainState(NamedTuple):
@@ -85,13 +106,15 @@ def train_step(state: TrainState, cam: CameraParams, gt_image, background,
                iteration: int, *, width, height, budget, backend,
                opt_cfg: OptimizationParams, spatial_lr_scale: float,
                skip_update: bool = False, grad_reduce: str = "f32",
-               marks=None):
+               marks=None, adam_scalars=None):
     """One training iteration.  Returns (state, metrics) — and the
     gradients (a GaussianParams) when skip_update, for the host to replay
     the reference ordering backward -> surgery -> step.  metrics hold
     0-dim tensors on the device.  marks (on the card, "tile" backend): a
     list that receives one event as the render starts and one after each
-    of TRAIN_STAGES."""
+    of TRAIN_STAGES.  adam_scalars: (xyz learning rate, per-leaf (c1, c2)
+    bias corrections) as 0-dim float32 tensors in place of the values
+    `iteration` and the state's step counts give (see fused_step)."""
     pool, opt, gen = state
     leaves = [p.detach().requires_grad_(True) for p in pool.params]
     params = GaussianParams(*leaves)
@@ -142,10 +165,14 @@ def train_step(state: TrainState, cam: CameraParams, gt_image, background,
         if skip_update:
             new_params, new_opt = pool.params, opt
         else:
-            lr_tree = make_lr_tree(
-                opt_cfg, _xyz_lr(iteration, opt_cfg, spatial_lr_scale))
-            new_params, new_opt = adam.update(pool.params, grads, opt,
-                                              lr_tree)
+            if adam_scalars is None:
+                lr_xyz, bias = _xyz_lr(iteration, opt_cfg,
+                                       spatial_lr_scale), None
+            else:
+                lr_xyz, bias = adam_scalars
+            new_params, new_opt = adam.update(
+                pool.params, grads, opt, make_lr_tree(opt_cfg, lr_xyz),
+                bias=bias)
     _mark(marks)
     pool = pool.replace(params=new_params)
     metrics = {
@@ -160,13 +187,202 @@ def train_step(state: TrainState, cam: CameraParams, gt_image, background,
     return state, metrics
 
 
-def train_steps_fused(*args, **kw):
-    """Several steps in one launch: the JAX package's way around the
-    TPU's per-launch cost.  Its counterpart on the card (a CUDA graph) is
-    not ported yet."""
-    raise NotImplementedError(
-        "fused steps (fused_steps > 1) are not ported yet; their "
-        "counterpart on the card is a CUDA graph")
+def camera_vector(camera) -> np.ndarray:
+    """The camera part of a fused step's input vector (float32, 37)."""
+    return np.concatenate([
+        np.asarray(camera.world_view_transform, np.float32).reshape(16),
+        np.asarray(camera.full_proj_transform, np.float32).reshape(16),
+        np.asarray(camera.camera_center, np.float32).reshape(3),
+        np.float32([camera.tan_fovx, camera.tan_fovy])])
+
+
+def camera_from_vector(vec, width: int, height: int) -> CameraParams:
+    """CameraParams as views of a step vector (no copy)."""
+    return CameraParams(
+        viewmatrix=vec[0:16].view(4, 4), projmatrix=vec[16:32].view(4, 4),
+        campos=vec[32:35], tan_fovx=vec[35], tan_fovy=vec[36],
+        width=width, height=height)
+
+
+def adam_scalars(t):
+    """train_step's adam_scalars from the 13 values of
+    Trainer._adam_scalars (a float32 tensor, views of it)."""
+    n = len(GaussianParams._fields)
+    return t[0], GaussianParams(*((t[1 + i], t[1 + n + i])
+                                  for i in range(n)))
+
+
+def carried(state: TrainState):
+    """The tensors a train step hands to the next one: the six parameter
+    leaves, Adam's moments and the three densification statistics."""
+    pool, opt = state.pool, state.opt
+    return (*pool.params, *opt.mu, *opt.nu,
+            *(getattr(pool, k) for k in _STAT_LEAVES))
+
+
+class FusedBuffers:
+    """The static tensors a fused step reads and writes in place: what
+    carried() lists, the degrees and alive mask, the step vector, the
+    ground-truth image and the metrics of the last step."""
+
+    def __init__(self, state: TrainState, width: int, height: int):
+        pool = state.pool
+        dev = pool.device
+        self.carried = tuple(torch.empty_like(t) for t in carried(state))
+        self.degrees = torch.empty_like(pool.degrees)
+        self.alive = torch.empty_like(pool.alive)
+        self.vec = torch.zeros(STEP_VEC, dtype=torch.float32, device=dev)
+        self.gt = torch.zeros((height, width, 3), dtype=torch.float32,
+                              device=dev)
+        self.out_f = torch.zeros(len(FLOAT_METRICS), dtype=torch.float32,
+                                 device=dev)
+        self.out_i = torch.zeros(len(INT_METRICS), dtype=torch.int32,
+                                 device=dev)
+
+    @torch.no_grad()
+    def load(self, state: TrainState):
+        pool = state.pool
+        for dst, src in zip(self.carried + (self.degrees, self.alive),
+                            carried(state) + (pool.degrees, pool.alive)):
+            dst.copy_(src)
+
+    def state(self, active_sh_degree: int) -> TrainState:
+        """The buffers as a TrainState (views, no copy; step counts 0)."""
+        n = len(GaussianParams._fields)
+        c = self.carried
+        pool = GaussianPool(
+            params=GaussianParams(*c[:n]), degrees=self.degrees,
+            alive=self.alive, active_sh_degree=active_sh_degree,
+            **dict(zip(_STAT_LEAVES, c[3 * n:])))
+        opt = AdamState(mu=GaussianParams(*c[n:2 * n]),
+                        nu=GaussianParams(*c[2 * n:3 * n]),
+                        step=GaussianParams(*(0,) * n))
+        return TrainState(pool, opt, None)
+
+    def advanced(self, state: TrainState, k: int) -> TrainState:
+        """`state` after k fused steps: copies of the buffers' carried
+        tensors, the step counts advanced by k."""
+        new = self.state(state.pool.active_sh_degree)
+        clone = GaussianParams(*(t.clone() for t in new.pool.params))
+        pool = state.pool.replace(params=clone, **{
+            s: getattr(new.pool, s).clone() for s in _STAT_LEAVES})
+        opt = AdamState(
+            mu=GaussianParams(*(t.clone() for t in new.opt.mu)),
+            nu=GaussianParams(*(t.clone() for t in new.opt.nu)),
+            step=GaussianParams(*(t + k for t in state.opt.step)))
+        return TrainState(pool, opt, state.generator)
+
+
+def fused_step(buf: FusedBuffers, *, width, height, budget, backend,
+               opt_cfg: OptimizationParams, grad_reduce: str,
+               active_sh_degree: int):
+    """One non-surgery train step on `buf`: reads the state, the step
+    vector and the ground truth there and writes the new state and the
+    metrics back in place.  The step a CUDA graph captures; every input
+    that changes between steps is a tensor of `buf`, so a replay needs no
+    host value."""
+    state, metrics = train_step(
+        buf.state(active_sh_degree),
+        camera_from_vector(buf.vec, width, height), buf.gt,
+        buf.vec[_VEC_BG], 0, width=width, height=height, budget=budget,
+        backend=backend, opt_cfg=opt_cfg, spatial_lr_scale=0.0,
+        grad_reduce=grad_reduce,
+        adam_scalars=adam_scalars(buf.vec[_VEC_ADAM:]))
+    with torch.no_grad():
+        for dst, src in zip(buf.carried, carried(state)):
+            dst.copy_(src)
+        buf.out_f.copy_(torch.stack([metrics[k].to(torch.float32)
+                                     for k in FLOAT_METRICS]))
+        buf.out_i.copy_(torch.stack([metrics[k].to(torch.int32)
+                                     for k in INT_METRICS]))
+
+
+def _kernels():
+    """The launch counters of the kernels a train step can reach."""
+    from reduced3dgs_torch.ops import binning, tile_render
+
+    return {"expand": binning.EXPAND, "tile_fwd": tile_render.TILE_FWD,
+            "tile_bwd": tile_render.TILE_BWD,
+            "seg_reduce_f32": tile_render.SEG_REDUCE_F32,
+            "seg_reduce_packed": tile_render.SEG_REDUCE_PACKED}
+
+
+class StepLoop:
+    """The plain version of a step graph (the CPU's): replay() runs
+    fused_step on the buffers."""
+
+    launches: dict = {}
+
+    def __init__(self, state: TrainState, step_kw: dict):
+        self.buf = FusedBuffers(state, step_kw["width"], step_kw["height"])
+        self.step_kw = step_kw
+
+    def replay(self):
+        fused_step(self.buf, **self.step_kw)
+
+
+class StepGraph:
+    """fused_step captured once as a CUDA graph on its own buffers.
+
+    GRAPH_WARMUP eager steps run first on a side stream, from `state`
+    with the step vector `vec` and the ground truth `gt` (lazy library
+    loads, cuDNN and autograd set-up happen there), then the step is
+    captured; capture runs no kernel.  ``launches`` holds each kernel's
+    launches in one replay (its counter's rise during the capture), and
+    ``capture_s`` the seconds of warm-up and capture."""
+
+    def __init__(self, state: TrainState, vec, gt, step_kw: dict):
+        t0 = time.perf_counter()
+        self.buf = buf = FusedBuffers(state, step_kw["width"],
+                                      step_kw["height"])
+        self.step_kw = step_kw
+        side = torch.cuda.Stream(device=buf.vec.device)
+        side.wait_stream(torch.cuda.current_stream(buf.vec.device))
+        with torch.cuda.stream(side):
+            for _ in range(GRAPH_WARMUP):
+                buf.load(state)
+                buf.vec.copy_(vec)
+                buf.gt.copy_(gt)
+                fused_step(buf, **step_kw)
+        torch.cuda.current_stream(buf.vec.device).wait_stream(side)
+        kernels = _kernels()
+        before = {n: k.launches for n, k in kernels.items()}
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            fused_step(buf, **step_kw)
+        self.launches = {n: k.launches - before[n]
+                         for n, k in kernels.items()}
+        torch.cuda.synchronize(buf.vec.device)
+        self.capture_s = time.perf_counter() - t0
+
+    def replay(self):
+        self.graph.replay()
+
+
+def train_steps_fused(runner, state: TrainState, vecs, gts):
+    """k train steps in a row through one fused-step runner (a StepGraph
+    on the card, a StepLoop on the CPU): the counterpart of the JAX
+    package's lax.scan launch.  vecs: (k, STEP_VEC) float32 on the
+    device, gts: k ground-truth images there.  Loads `state` into the
+    runner's buffers (the state itself is not written), then per step
+    copies the inputs in, replays, and copies the metrics out; no host
+    read.  Returns the (k, 5) float and (k, 2) int32 metric rows
+    (FLOAT_METRICS, INT_METRICS); the new state stays in runner.buf."""
+    buf = runner.buf
+    k = vecs.shape[0]
+    dev = buf.vec.device
+    hist_f = torch.empty((k, len(FLOAT_METRICS)), dtype=torch.float32,
+                         device=dev)
+    hist_i = torch.empty((k, len(INT_METRICS)), dtype=torch.int32,
+                         device=dev)
+    buf.load(state)
+    for j in range(k):
+        buf.vec.copy_(vecs[j])
+        buf.gt.copy_(gts[j])
+        runner.replay()
+        hist_f[j].copy_(buf.out_f)
+        hist_i[j].copy_(buf.out_i)
+    return hist_f, hist_i
 
 
 @torch.no_grad()
@@ -266,6 +482,7 @@ class Trainer:
         self.device = pool.device
         self.background = torch.as_tensor(background, dtype=torch.float32,
                                           device=self.device)
+        self._background_host = self.background.cpu().numpy()
         self.backend = backend
         self.grad_reduce = grad_reduce
         self.max_sh_degree = max_sh_degree
@@ -285,6 +502,12 @@ class Trainer:
         self.extent = None  # set by the caller (scene cameras_extent)
         self.stats = {}
         self.iteration = 0
+        # step_group on the card: captured step graphs (least recently
+        # used first), and what their replays and captures amounted to
+        self._graphs: OrderedDict = OrderedDict()
+        self.graph_launches = {n: 0 for n in _kernels()}
+        self.graph_captures = 0
+        self.capture_s = 0.0
 
     # -- camera sampling: shuffle without replacement --------------------
     def _next_camera_idx(self):
@@ -326,8 +549,109 @@ class Trainer:
                            or iteration % cfg.opacity_reset_interval != 0))
         return will_densify, will_reset, will_prune_dead, will_mercy
 
+    def fusible(self, iteration):
+        """True when `iteration` has no host boundary of the trainer (SH
+        degree step, cull, densify / reset / prune / mercy, the final
+        iteration): such iterations may run in a step_group with the
+        results of sequential step() calls."""
+        if iteration % 1000 == 0 or iteration in self.cull_sh_iterations:
+            return False
+        if iteration >= self.opt_cfg.iterations:  # final never steps
+            return False
+        return not any(self._events(iteration))
+
     def step_group(self, iterations):
-        return train_steps_fused(iterations)
+        """Run consecutive fusible iterations as one group
+        (train_steps_fused: a replayed CUDA graph on the card, a loop on
+        the CPU).  Returns a list of per-iteration metrics dicts (device
+        tensors).  Semantics of sequential step(): the cameras are popped
+        and the random backgrounds drawn in step()'s order, and only a
+        same-resolution prefix runs (a resolution change un-pops the
+        camera and ends the group); one budget for the group, the largest
+        of its cameras'; one host read of num_rendered after the group,
+        and on overflow the cameras' budgets grow on the ladder and the
+        whole group runs again from the same state with the same cameras
+        and backgrounds."""
+        cfg = self.opt_cfg
+        iterations = list(iterations)
+        if not iterations or not all(self.fusible(i) for i in iterations):
+            raise ValueError(f"step_group: iterations {iterations} are not "
+                             f"all fusible")
+        cams, bgs = [], []
+        for _ in iterations:
+            i = self._next_camera_idx()
+            c = self.cameras[i]
+            if cams and (c.width, c.height) != (cams[0].width,
+                                                cams[0].height):
+                self._stack.append(i)
+                break
+            cams.append(c)
+            bgs.append(self.rng.uniform(0.0, 1.0, 3) if cfg.random_background
+                       else self._background_host)
+        k = len(cams)
+        iterations = iterations[:k]
+        self.iteration = iterations[-1]
+        vecs = torch.as_tensor(np.stack([
+            np.concatenate([camera_vector(c), np.asarray(bg, np.float32),
+                            self._adam_scalars(it, j)])
+            for j, (c, bg, it) in enumerate(zip(cams, bgs, iterations))]),
+            device=self.device)
+        gts = [self.gt_image(c) for c in cams]
+        while True:
+            budget = max(self._budget_for(c.uid) for c in cams)
+            runner = self._runner(cams[0].width, cams[0].height, budget,
+                                  vecs[0], gts[0])
+            hist_f, hist_i = train_steps_fused(runner, self.state, vecs, gts)
+            for n, v in runner.launches.items():
+                self.graph_launches[n] += v * k
+            needed = hist_i[:, 0].cpu().numpy()
+            if int(needed.max()) <= budget:
+                break
+            for c, n in zip(cams, needed):
+                if int(n) > self._budget_for(c.uid):
+                    self._budget_for(c.uid, int(n))
+        self.state = runner.buf.advanced(self.state, k)
+        out = []
+        for j in range(k):
+            m = {n: hist_f[j, i] for i, n in enumerate(FLOAT_METRICS)}
+            m.update({n: hist_i[j, i] for i, n in enumerate(INT_METRICS)})
+            out.append(m)
+        return out
+
+    def _adam_scalars(self, iteration, ahead=0):
+        """The xyz learning rate of `iteration` and Adam's bias
+        corrections c1 (six leaves), then c2, for each leaf's step count
+        plus `ahead` plus one: float32 (13,), the tail of a step vector."""
+        bias = [adam.corrections(t + ahead + 1)
+                for t in self.state.opt.step]
+        return np.float32([_xyz_lr(iteration, self.opt_cfg,
+                                   self.spatial_lr_scale)]
+                          + [b[0] for b in bias] + [b[1] for b in bias])
+
+    def _runner(self, width, height, budget, vec, gt):
+        """The fused-step runner of this group's shapes: a StepLoop on the
+        CPU; on the card the cached StepGraph of the key, or a new
+        capture (at most GRAPH_CACHE are kept, the least recently used
+        goes first)."""
+        pool = self.state.pool
+        step_kw = dict(width=width, height=height, budget=budget,
+                       backend=self.backend, opt_cfg=self.opt_cfg,
+                       grad_reduce=self.grad_reduce,
+                       active_sh_degree=int(pool.active_sh_degree))
+        if self.device.type != "cuda":
+            return StepLoop(self.state, step_kw)
+        key = (width, height, budget, pool.capacity,
+               step_kw["active_sh_degree"], self.grad_reduce,
+               self.opt_cfg.random_background, self.backend, self.opt_cfg)
+        graph = self._graphs.pop(key, None)
+        if graph is None:
+            while len(self._graphs) >= GRAPH_CACHE:
+                self._graphs.popitem(last=False)
+            graph = StepGraph(self.state, vec, gt, step_kw)
+            self.graph_captures += 1
+            self.capture_s += graph.capture_s
+        self._graphs[key] = graph
+        return graph
 
     def _budget_for(self, cam_uid, needed=None):
         # {2^k, 3*2^(k-1)} ladder: slack stays below 25 %
@@ -379,6 +703,12 @@ class Trainer:
         camera = self.next_camera()
         cp = camera.params(self.device)
         gt = self.gt_image(camera)
+        scalars = None
+        if not (surgery or final):
+            # the update's scalars as tensors on the device, as a fused
+            # step (a replayed graph) reads them: the same arithmetic
+            scalars = adam_scalars(torch.as_tensor(
+                self._adam_scalars(iteration), device=self.device))
         background = self.background
         if cfg.random_background:
             background = torch.as_tensor(self.rng.uniform(0.0, 1.0, 3),
@@ -394,7 +724,7 @@ class Trainer:
                 backend=self.backend, opt_cfg=cfg,
                 spatial_lr_scale=self.spatial_lr_scale,
                 skip_update=surgery or final, grad_reduce=self.grad_reduce,
-                marks=marks)
+                marks=marks, adam_scalars=scalars)
             st, metrics = out[0], out[1]
             grads = out[2] if len(out) == 3 else None
             needed = int(metrics["num_rendered"])

@@ -1,12 +1,15 @@
 """chip_smoke.py's kernel checks of phases 2, 3 and 5, the WALK_EXP2
-comparison of phases 4 and 10, and its training and compression phases
-(7-12) rehearsed on the CPU at a tiny size.  The CUDA
+comparison of phases 4 and 10, and its training, compression, fused-step
+and offline phases (7-14) rehearsed on the CPU at a tiny size.  The CUDA
 wrappers are replaced by their plain versions, which here count launches
 as the kernels do; CUDA events by a host clock; the profiled step is
-skipped.  What this checks is the phases' control flow,
+skipped, and the profiled group of phase 13 counts the plain versions'
+launches instead of kernel names (step_group runs its loop here, not a
+graph).  What this checks is the phases' control flow,
 shapes and checks, not the kernels (tests/test_torch_gpu.py does that on
 a card)."""
 
+import os
 import time
 
 import numpy as np
@@ -190,8 +193,9 @@ def test_phase9_and_12_rehearsal(cpu_card, tmp_path):
     assert it == cs.TRAIN["steps"] + cs.TRAIN["timed_steps"] + 1 \
         + cs.TRAIN["f32_steps"] + 1
     assert tr.state.pool.active_sh_degree == 3
-    launches = cs.compression_main_path(cpu_card, tr, it,
-                                        str(tmp_path / "run"), "cpu")
+    launches, next_it = cs.compression_main_path(
+        cpu_card, tr, it, str(tmp_path / "run"), "cpu")
+    assert next_it > it + 3
     nv = len(tr.cameras)
     # two culls (the paper's thresholds demote next to nothing here) and
     # one pass of statistics for the second pair of thresholds
@@ -232,3 +236,49 @@ def test_student_is_a_perturbed_copy():
     assert 0.2 < d.std() < 0.4
     np.testing.assert_array_equal(pool.params.xyz.numpy(), pl["xyz"])
     assert ttrainer.TRAIN_STAGES[-1] == "adam"
+
+
+def _counted(fn):
+    """chip_smoke.profiled on the CPU: the kernels' counts are the plain
+    versions' launches during fn(); no kernel time is known."""
+    kernels = {"expand": tbin.EXPAND, "tile_fwd": ttr.TILE_FWD,
+               "tile_bwd": ttr.TILE_BWD,
+               "seg_reduce_packed": ttr.SEG_REDUCE_PACKED,
+               "seg_reduce_f32": ttr.SEG_REDUCE_F32}
+    before = {n: kern.launches for n, kern in kernels.items()}
+    fn()
+    return ({n: kern.launches - before[n] for n, kern in kernels.items()},
+            0.0, 1.0, 0, 0)
+
+
+def test_phase13_and_14_rehearsal(cpu_card, tmp_path, monkeypatch, capsys):
+    """Phase 13 on a fresh phase-9 trainer (eager against grouped, the
+    overflow redo, the counted launches, the timing turns), then phase 14:
+    the checkpoint round trip and the step after it, and the compress and
+    metrics CLIs as subprocesses on a model written beside the ring's
+    COLMAP text."""
+    from reduced3dgs_torch.models.ply_io import save_gaussian_ply
+
+    monkeypatch.setattr(cs, "FUSED", dict(steps=4, group=2,
+                                          overflow_budget=1 << 10, rounds=1))
+    monkeypatch.setattr(cs, "COMPRESS", ("--pack_xyz", "--prune_frac",
+                                         "0.17", "--finetune_iters", "4"))
+    monkeypatch.setattr(cs, "profiled", _counted)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    cams, leaves = cs.train_cameras(cpu_card, 0)
+    tr = cs.make_trainer(cs.student_pool(cpu_card, leaves, 0), cams, 0)
+    it = cs.fused_main_path(tr, 1, "cpu")
+    assert it == 1 + 3 * 2 + 2 * 2
+    out = capsys.readouterr().out
+    assert "grouped against eager: loss 0.000e+00" in out
+    assert out.count("phase 13: ") == 5
+    root = str(tmp_path / "run")
+    cs.write_colmap_text(os.path.join(root, "source"), cams)
+    save_gaussian_ply(os.path.join(root, "model", "point_cloud",
+                                   "iteration_7", "point_cloud.ply"),
+                      tr.state.pool)
+    assert cs.checkpoint_check(tr, it, root, "cpu") == it + 1
+    cs.compress_and_metrics(tr, root, 0, "cpu")
+    out = capsys.readouterr().out
+    assert "state by 0.000e+00" in out and "Fine-tuned 4 iterations" in out
+    assert "train_quantised_half/ours_7: PSNR" in out

@@ -28,6 +28,12 @@ rtol 1e-3, counts differing on <= 0.01 % of the slots by at most 2, exact
 zeros outside the walked ranges, two launches bit for bit, also on the
 edge cases; the transmittance render on the card
 within atol 1e-3 / rtol 1e-3 of the "ref" oracle, touched within 2.
+Trainer.step_group on the card (a captured CUDA graph of the train step,
+replayed) against eager Trainer.steps on the 512p scene with the
+tolerances of tests/test_fused_steps.py (loss rtol 1e-5, parameters rtol
+5e-4 / atol 1e-3, num_rendered within 2, budgets equal), one capture for
+two groups, K1 / K2 / K3 / K6 once per replayed step; a capacity change
+between groups captures anew.
 """
 
 import numpy as np
@@ -286,3 +292,85 @@ def test_render_on_card_matches_cpu(cuda):
                                atol=2e-5, rtol=1e-4)
     np.testing.assert_allclose(gpu.final_t.cpu().numpy(),
                                cpu.final_t.numpy(), atol=2e-5, rtol=1e-4)
+
+
+def _graph_trainers(cuda, count=2, seed=0):
+    """`count` identical Trainers on bench.py's 512p scene: ground truth
+    rendered at four ring views, a perturbed copy to train (chip_smoke's
+    phase 9 set-up at 512p), a budget that fits every view."""
+    import chip_smoke as cs
+    from reduced3dgs_torch.models.gaussians import (
+        padded_leaves, pool_from_numpy,
+    )
+    from reduced3dgs_torch.render import PoolView, render_view
+
+    s = cs.K2_SCENE
+    leaves = padded_leaves(cs.make_arrays(s["n"], s["scales"], seed),
+                           capacity=s["n"])
+    cams = cs.ring_cameras(s["width"], s["height"], n_views=4)
+    pv = PoolView(pool_from_numpy(leaves, cuda))
+    bg = torch.zeros(3, device=cuda)
+    for cam in cams:
+        out, _ = render_view(pv, cam, bg, s["budget"])
+        cam.image = out.color.clamp(0, 1).cpu().numpy()
+    trainers = []
+    for _ in range(count):
+        tr = cs.make_trainer(cs.student_pool(cuda, leaves, seed), cams, seed)
+        tr.initial_budget = s["budget"]
+        trainers.append(tr)
+    return trainers
+
+
+def _assert_group_matches(eager, graphed, m_eager, m_graphed):
+    """chip_smoke phase 13's tolerances (tests/test_fused_steps.py)."""
+    assert len(m_eager) == len(m_graphed)
+    for a, b in zip(m_eager, m_graphed):
+        np.testing.assert_allclose(float(b["loss"]), float(a["loss"]),
+                                   rtol=1e-5)
+        assert abs(int(a["num_rendered"]) - int(b["num_rendered"])) <= 2
+    for a, b in zip(eager.state.pool.params, graphed.state.pool.params):
+        np.testing.assert_allclose(b.cpu().numpy(), a.cpu().numpy(),
+                                   rtol=5e-4, atol=1e-3)
+    assert eager.budgets == graphed.budgets
+    assert list(eager.state.opt.step) == list(graphed.state.opt.step)
+
+
+def test_step_group_graph_matches_eager_steps(cuda):
+    """Two groups of four replays of one captured step against eight
+    eager steps: one capture, K1, K2, K3 and K6 once per replayed step."""
+    eager, graphed = _graph_trainers(cuda)
+    m_eager = [eager.step(i) for i in range(1, 9)]
+    m_graphed = graphed.step_group(range(1, 5))
+    m_graphed += graphed.step_group(range(5, 9))
+    _assert_group_matches(eager, graphed, m_eager, m_graphed)
+    assert graphed.graph_captures == 1
+    g = graphed.graph_launches
+    assert g["expand"] == g["tile_fwd"] == g["tile_bwd"] \
+        == g["seg_reduce_packed"] == 8 and g["seg_reduce_f32"] == 0
+
+
+def test_step_group_recaptures_on_capacity_growth(cuda):
+    """Pool growth between two groups changes the graph's key: the
+    second group captures anew, on the grown buffers, and still matches
+    the eager steps on the same grown pool."""
+    from reduced3dgs_torch.models.gaussians import round_capacity
+    from reduced3dgs_torch.train import trainer as T
+
+    eager, graphed = _graph_trainers(cuda)
+    m_eager = [eager.step(i) for i in range(1, 5)]
+    m_graphed = graphed.step_group(range(1, 5))
+    for tr in (eager, graphed):
+        cap = tr.state.pool.capacity
+        new_cap = round_capacity(cap * 2)
+        pool = T.grow(tr.state.pool, new_cap)
+        opt = tr.state.opt._replace(
+            mu=T._grow_params(tr.state.opt.mu, cap, new_cap),
+            nu=T._grow_params(tr.state.opt.nu, cap, new_cap))
+        tr.state = T.TrainState(pool, opt, tr.state.generator)
+    m_eager += [eager.step(i) for i in range(5, 9)]
+    m_graphed += graphed.step_group(range(5, 9))
+    assert graphed.state.pool.capacity == eager.state.pool.capacity \
+        == 2 * (1 << 17)
+    _assert_group_matches(eager, graphed, m_eager, m_graphed)
+    assert graphed.graph_captures == 2
+    assert len(graphed._graphs) == 2

@@ -154,9 +154,9 @@ def test_budget_ladder_growth():
 
 
 def test_unported_trainer_options_raise():
-    """Fused steps stay refused; mercy_points and cull_sh_iterations are
-    accepted and set the fine-tune limit (no mercy in the last 3000
-    iterations)."""
+    """step_group refuses an iteration that is not fusible (here the SH
+    degree step at 1000); mercy_points and cull_sh_iterations are accepted
+    and set the fine-tune limit (no mercy in the last 3000 iterations)."""
     cams = target_scene(n=4)
     pool = G.empty_pool(1024, "cpu")
     tr = Trainer(pool, OptimizationParams(mercy_points=True), cams,
@@ -174,8 +174,9 @@ def test_unported_trainer_options_raise():
     tr = Trainer(pool, OptimizationParams(), cams, spatial_lr_scale=1.0,
                  background=torch.zeros(3))
     assert tr.fine_tune_start == OptimizationParams().iterations
-    with pytest.raises(NotImplementedError):
-        tr.step_group([1, 2])
+    assert not tr.fusible(1000) and tr.fusible(999)
+    with pytest.raises(ValueError, match="not all fusible"):
+        tr.step_group([999, 1000])
 
 
 def test_trainer_cull_demotes_flat_primitives():
@@ -207,8 +208,17 @@ def test_trainer_cull_demotes_flat_primitives():
                                    ["--variable_sh_bands"],
                                    ["--fused_steps", "4"]])
 def test_cli_refuses_unported_flags(flags, tmp_path):
-    with pytest.raises(NotImplementedError):
-        train_cli.main(["-s", str(tmp_path), "--device", "cpu", *flags])
+    """--variable_sh_bands (a rendering option) is refused before anything
+    runs; the checkpoint flags and --fused_steps are ported and pass."""
+    if flags == ["--variable_sh_bands"]:
+        with pytest.raises(NotImplementedError):
+            train_cli.main(["-s", str(tmp_path), "--device", "cpu", *flags])
+        return
+    args = train_cli.build_parser().parse_args(
+        ["-s", str(tmp_path), "--device", "cpu", *flags])
+    train_cli.refuse_unported(args)  # does not raise
+    assert (args.start_checkpoint == "x.npz" or args.checkpoint_iterations
+            == [5] or args.fused_steps == 4)
 
 
 @pytest.mark.parametrize("flags", [["--mercy_points"], ["--cull_SH", "9"]])
