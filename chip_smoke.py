@@ -108,6 +108,23 @@ before the final line:
     and scored by python -m reduced3dgs_torch.metrics with random LPIPS
     weights from --seed.
 
+15. the multi-device path at full width (parallel/, strips): K2 / K3 / K4
+    at a tile base against their plain versions on a window past the
+    image height and one with no instances; the 8 ring views at 1920x1080
+    as 4 strips of 17 tile rows (their own binning, K1 / K2) stitched and
+    held to the full frame (bit for bit, else within 1e-6), their
+    backward (K3 / K6) summed per primitive against the full frame's
+    (atol 2e-4 max|g|, rtol 2e-3), one view's strip transmittance (K4 at a
+    tile base) added up; torch.distributed at world size 1 under NCCL:
+    ShardedTrainer on a (1, 1) mesh, replicated and param_shard, 4 steps
+    against the single-card Trainer (losses rtol 1e-5, parameters atol
+    5e-6 / rtol 1e-4) with ms per step, and one sharded_train_step per
+    layout against the single-card step's raw gradients (K5); the same
+    on a (1, 2) mesh of two gloo processes on the one card (or the reason
+    gloo refused); python -m reduced3dgs_torch.parallel.launch --scaling;
+    the certified blocked 30-NN search against knn_exact on 2^16 points
+    of the scene (phase 12's mercy pass already went through it).
+
 The last line is {"ok": true, "device": {...}}.  Without a card, or
 without the rest of the repository beside it, it exits non-zero first.
 """
@@ -199,6 +216,11 @@ BENCH_BUDGET = 1 << 22  # bench.py's 1080p instance budget
 # run starts every camera at a budget far under a 1080p view's need; the
 # timing alternates eager and graphed groups
 FUSED = dict(steps=16, group=8, overflow_budget=1 << 17, rounds=3)
+# phase 15: tile-row strips of the 1080p frame (cdiv(68, 4) = 17 rows
+# each), plain iterations of each sharded trainer, points of the kNN check
+STRIPS = 4
+MULTI = dict(steps=4, knn_points=1 << 16)
+SCALING_ARGS = ()  # python -m reduced3dgs_torch.parallel.launch --scaling
 # phase 14: the offline compression's options
 COMPRESS = ("--pack_xyz", "--prune_frac", "0.17", "--finetune_iters", "32")
 # profiler kernel names of the train step's kernels (K5 and K6 are the
@@ -212,6 +234,35 @@ STEP_KERNELS = {"expand": "bin_keys_kernel", "tile_fwd": "tile_fwd_kernel",
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
+
+
+@contextlib.contextmanager
+def blocked_rungs():
+    """The rungs of ops/knn.py's certified blocked search that run inside
+    the block, as [(m, certificate)]: a spy on _blocked_knn_step."""
+    from reduced3dgs_torch.ops import knn as tknn
+
+    rungs, step = [], tknn._blocked_knn_step
+
+    def spy(points, k, m, box):
+        out = step(points, k, m, box)
+        rungs.append((m, out[2]))
+        return out
+
+    tknn._blocked_knn_step = spy
+    try:
+        yield rungs
+    finally:
+        tknn._blocked_knn_step = step
+
+
+def search_of(rungs):
+    """What a kNN call did, from its blocked_rungs: ("exact", None) without
+    a rung, else ("blocked" or "brute_fallback", the last rung's m)."""
+    if not rungs:
+        return "exact", None
+    m, ok = rungs[-1]
+    return ("blocked" if bool(ok) else "brute_fallback"), m
 
 
 class Codebook(NamedTuple):
@@ -431,10 +482,10 @@ def bench_scene(n, scales, seed):
 
 
 def kernel_inputs(device, width, height, n, scales, budget, seed=0,
-                  eye=(0.0, 0.0, -RING_RADIUS), fast=False):
+                  eye=(0.0, 0.0, -RING_RADIUS), fast=False, tile_rows=None):
     """Run preprocess + binning of a bench-style scene on `device` and
     return (prep, binning, K2's (feat, ranges, limit)); fast: the bf16x2
-    feature table."""
+    feature table; tile_rows: the binning of that window of tile rows."""
     import torch
 
     from reduced3dgs_torch.cameras import Camera
@@ -448,7 +499,8 @@ def kernel_inputs(device, width, height, n, scales, budget, seed=0,
         prep = preprocess.preprocess(
             arrs[0], arrs[2], arrs[3], arrs[4], arrs[1], arrs[5],
             cam.params(device))
-        b = binning.bin_gaussians(prep, width, height, budget)
+        b = binning.bin_gaussians(prep, width, height, budget,
+                                  tile_rows=tile_rows)
         feat, b_pad = tile_render._pack_features(b, fast)
     limit = torch.clamp(b.total_padded, max=b_pad).to(torch.int32)
     return prep, b, (feat, b.tile_ranges.contiguous(), limit)
@@ -878,12 +930,12 @@ def exp2_frames(pv, views, budget, k2_expf):
     pixels = 0
     tile_fwd = ttr.tile_fwd
 
-    def spy(feat, ranges, limit, gx, w, h):
+    def spy(feat, ranges, limit, gx, w, h, base=0):
         nonlocal sq, pixels
-        out = tile_fwd(feat, ranges, limit, gx, w, h)
+        out = tile_fwd(feat, ranges, limit, gx, w, h, base)
         with swapped(ttr, "TILE_FWD", k2_expf):
-            alt = ttr._tile_fwd_cuda(feat, ranges, limit, gx, w, h)
-        ref = ttr.tile_fwd_plain(feat, ranges, limit, gx, w, h)
+            alt = ttr._tile_fwd_cuda(feat, ranges, limit, gx, w, h, base)
+        ref = ttr.tile_fwd_plain(feat, ranges, limit, gx, w, h, base)
         gy = ranges.shape[1] // gx
         img = {}
         for name, packed in (("ex2", out), ("expf", alt), ("plain", ref)):
@@ -1134,6 +1186,10 @@ def main(argv=None):
     compress_and_metrics(trainer, root, args.seed, smi)
     shutil.rmtree(root, ignore_errors=True)
     print(f"phase 14: {time.perf_counter() - t0:.3f} s", flush=True)
+    del trainer
+
+    # --- phase 15: the multi-device path -----------------------------------
+    multi_device_path(dev, args.seed, smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1645,9 +1701,10 @@ def fwd_bwd_rate(dev, seed):
     return w * h / (ms / 1e3), ms, n
 
 
-def train_cameras(dev, seed):
-    """The ring views with the bench scene rendered by the port as their
-    ground truth; returns (cameras, the scene's numpy leaves)."""
+def train_cameras(dev, seed, n_views=RING_VIEWS, scene=None):
+    """The ring views (the first n_views) with the bench scene (`scene`,
+    MAIN by default) rendered by the port as their ground truth; returns
+    (cameras, the scene's numpy leaves)."""
     import torch
 
     from reduced3dgs_torch.models.gaussians import (
@@ -1655,9 +1712,10 @@ def train_cameras(dev, seed):
     )
     from reduced3dgs_torch.render import PoolView, render_view
 
-    arrs = make_arrays(MAIN["n"], MAIN["scales"], seed)
-    cams = ring_cameras(MAIN["width"], MAIN["height"])
-    leaves = padded_leaves(arrs, capacity=MAIN["n"])
+    scene = scene or MAIN
+    arrs = make_arrays(scene["n"], scene["scales"], seed)
+    cams = ring_cameras(scene["width"], scene["height"])[:n_views]
+    leaves = padded_leaves(arrs, capacity=scene["n"])
     pv = PoolView(pool_from_numpy(leaves, dev))
     bg = torch.zeros(3, device=dev)
     budget = 1 << 19
@@ -1683,9 +1741,10 @@ def student_pool(dev, leaves, seed):
     return pool_from_numpy(s, dev)
 
 
-def make_trainer(pool, cams, seed, grad_reduce="bf16x2"):
-    """The port's Trainer with the default configuration, its densify
-    cadence moved into the first TRAIN['steps'] iterations."""
+def make_trainer(pool, cams, seed, grad_reduce="bf16x2", cls=None, **kw):
+    """The port's Trainer (or `cls`, a subclass, with its keywords `kw`)
+    with the default configuration, its densify cadence moved into the
+    first TRAIN['steps'] iterations."""
     import dataclasses
 
     import torch
@@ -1699,11 +1758,11 @@ def make_trainer(pool, cams, seed, grad_reduce="bf16x2"):
         percent_dense=TRAIN["percent_dense"],
         densify_grad_threshold=TRAIN["grad_threshold"])
     extent = 1.1 * RING_RADIUS  # the NeRF++ radius of the ring
-    tr = Trainer(pool, cfg, cams, spatial_lr_scale=extent,
-                 background=torch.zeros(3, device=pool.device),
-                 backend="tile", seed=seed,
-                 initial_budget=TRAIN["initial_budget"],
-                 grad_reduce=grad_reduce)
+    tr = (cls or Trainer)(pool, cfg, cams, spatial_lr_scale=extent,
+                          background=torch.zeros(3, device=pool.device),
+                          backend="tile", seed=seed,
+                          initial_budget=TRAIN["initial_budget"],
+                          grad_reduce=grad_reduce, **kw)
     tr.extent = extent
     return tr
 
@@ -2083,6 +2142,8 @@ def compression_main_path(dev, tr, it, root, smi, keep=False):
 
     from reduced3dgs_torch.config import ModelParams
     from reduced3dgs_torch.ops import binning as tbin
+    from reduced3dgs_torch.ops import knn as tknn
+    from reduced3dgs_torch.ops import redundancy
     from reduced3dgs_torch.ops import tile_render as ttr
     from reduced3dgs_torch.render import PoolView, measure_fps, render_once
     from reduced3dgs_torch.scene import Scene
@@ -2136,31 +2197,57 @@ def compression_main_path(dev, tr, it, root, smi, keep=False):
 
     step_s = []
     alive_before = int(tr.state.pool.num_alive)
-    for i in range(it, cull_it + 1):
-        hist = degree_histogram(tr.state.pool)
-        dt, d = step(i)
-        step_s.append(dt)
-        if i == mercy_it:
-            st = tr.stats
-            check("n_points_mercied" in st, "the mercy pass did not run")
-            print(f"phase 12: mercy at iteration {i}: {alive_before} alive, "
-                  f"{st['n_points_mercied']} mercied (redundancy threshold "
-                  f"{st['redundancy_threshold']:.4f}, opacity threshold "
-                  f"{st['opacity_threshold']:.4f}; lambda_mercy "
-                  f"{tr.opt_cfg.lambda_mercy}, mercy_minimum "
-                  f"{tr.opt_cfg.mercy_minimum}); step {dt:.3f} s (cut to keep "
-                  f"the run's time: the redundancy metric and its 30-NN "
-                  f"search are no longer run again to be timed apart); "
-                  f"{smi}", flush=True)
-        if i == cull_it:
-            check_cull(d, "cull")
-            after = degree_histogram(tr.state.pool)
-            print(f"phase 12: cull at iteration {i} (std_threshold 0.04, "
-                  f"cdist_threshold 6, budget "
-                  f"{max(tr.budgets.values())}): degrees 0..3 {hist} -> "
-                  f"{after}; step with {2 * nv} transmittance renders "
-                  f"{dt:.3f} s (a plain step {step_s[0]:.3f} s); launches "
-                  f"{d}; {smi}", flush=True)
+    searches = []  # (seconds, rows, blocked rungs) of the mercy's kNN
+    knn_indices = redundancy.knn_indices
+
+    def timed_knn(points, k, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with blocked_rungs() as rungs:
+            out = knn_indices(points, k, **kw)
+        torch.cuda.synchronize()
+        searches.append((time.perf_counter() - t0, points.shape[0], rungs))
+        return out
+
+    redundancy.knn_indices = timed_knn
+    try:
+        for i in range(it, cull_it + 1):
+            hist = degree_histogram(tr.state.pool)
+            dt, d = step(i)
+            step_s.append(dt)
+            if i == mercy_it:
+                st = tr.stats
+                check("n_points_mercied" in st and len(searches) == 1,
+                      "the mercy pass did not run, or not one kNN")
+                knn_s, rows, rungs = searches[0]
+                want = ("blocked" if rows > tknn.EXACT_LIMIT
+                        else "exact")  # knn's auto-select
+                method, m_cert = search_of(rungs)
+                check(method == want,
+                      f"the mercy's 30-NN search was not the {want} one: "
+                      f"{method}, rungs {[m for m, _ in rungs]}")
+                print(f"phase 12: mercy at iteration {i}: {alive_before} "
+                      f"alive, {st['n_points_mercied']} mercied (redundancy "
+                      f"threshold {st['redundancy_threshold']:.4f}, opacity "
+                      f"threshold {st['opacity_threshold']:.4f}; "
+                      f"lambda_mercy {tr.opt_cfg.lambda_mercy}, "
+                      f"mercy_minimum {tr.opt_cfg.mercy_minimum}); step "
+                      f"{dt:.3f} s, of which the 30-NN search "
+                      f"{knn_s:.3f} s over {rows} rows ({want} "
+                      f"search; certified at shortlist m = {m_cert}, "
+                      f"rung {len(rungs)} of {len(tknn._M_LADDER)}); "
+                      f"{smi}", flush=True)
+            if i == cull_it:
+                check_cull(d, "cull")
+                after = degree_histogram(tr.state.pool)
+                print(f"phase 12: cull at iteration {i} (std_threshold "
+                      f"0.04, cdist_threshold 6, budget "
+                      f"{max(tr.budgets.values())}): degrees 0..3 {hist} "
+                      f"-> {after}; step with {2 * nv} transmittance "
+                      f"renders {dt:.3f} s (a plain step {step_s[0]:.3f} "
+                      f"s); launches {d}; {smi}", flush=True)
+    finally:
+        redundancy.knn_indices = knn_indices
     i = cull_it + 1
     kept = after[3] / max(hist[3], 1)  # still at degree 3
     if kept > 0.95 or kept < 0.05:
@@ -2605,6 +2692,501 @@ def compress_and_metrics(tr, root, seed, smi, timeout=900):
                       f"LPIPS {v['LPIPS']:.6f}"
                       for k, v in sorted(results.items()))
           + f"; {smi}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the multi-device path
+# ---------------------------------------------------------------------------
+
+def strip_edge_cases(device, seed=0):
+    """[(name, binning, (feat, ranges, limit), width, height, base)]:
+    windows of tile rows binned on their own, at the tile base
+    r0 * grid_x: on the 200x136 scene (9 tile rows) one whose last rows
+    lie past the image height and one past the last tile row (no
+    instances); then the last of the STRIPS strips of the main path's
+    scene (MAIN at BENCH_BUDGET), which reaches past the height."""
+    from reduced3dgs_torch.ops import preprocess as tprep
+
+    cases = []
+    for name, rows in (("tile rows 6..9, past the height", (6, 4)),
+                       ("tile rows 9..10, no instances", (9, 2))):
+        _, b, k2in = kernel_inputs(device, 200, 136, 20000, (0.01, 0.05),
+                                   1 << 17, seed, tile_rows=rows)
+        cases.append((name, b, k2in, 200, 136, rows[0] * 13))
+    w, h = MAIN["width"], MAIN["height"]
+    gx, gy = tprep.tile_grid(w, h)
+    rows = -(-gy // STRIPS)
+    r0 = rows * (STRIPS - 1)
+    _, b, k2in = kernel_inputs(device, w, h, MAIN["n"], MAIN["scales"],
+                               BENCH_BUDGET, seed, tile_rows=(r0, rows))
+    cases.append((f"the main path's last strip, tile rows {r0}..{r0 + rows} "
+                  f"of {w}x{h}", b, k2in, w, h, r0 * gx))
+    return cases
+
+
+def strip_kernel_checks(device, seed=0):
+    """K2, K3 and K4 at a tile base on strip_edge_cases against their plain
+    versions at the same base (the criteria of phases 3, 5, 7 and 10),
+    two launches bit for bit, pixels past the image height exactly colour
+    0 and T 1, slots outside the walked ranges exactly 0."""
+    import torch
+
+    from reduced3dgs_torch.ops import tile_render as ttr
+
+    for name, b, (feat, ranges, limit), w, h, base in strip_edge_cases(
+            device, seed):
+        gx = -(-w // 16)
+        got = ttr._tile_fwd_cuda(feat, ranges, limit, gx, w, h, base=base)
+        again = ttr._tile_fwd_cuda(feat, ranges, limit, gx, w, h, base=base)
+        want = ttr.tile_fwd_plain(feat, ranges, limit, gx, w, h, base=base)
+        check(torch.equal(got, again), f"K2 {name}: two launches differ")
+        err2, share2 = compare_k2(got, want)
+        check(err2 <= 5e-3 and share2 >= 0.999,
+              f"K2 {name}: kernel != plain ({err2:.3e}, {share2:.6f})")
+        tiles = torch.arange(ranges.shape[1], device=device) + base
+        py = (tiles // gx * 16)[:, None] + torch.arange(256,
+                                                        device=device) // 16
+        past = py >= h
+        check(bool((got[:, 3][past] == 1).all())
+              and bool((got[:, 0:3].permute(1, 0, 2)[:, past] == 0).all()),
+              f"K2 {name}: a pixel past the height is not colour 0, T 1")
+        g = k3_cotangent(got, seed)
+        d = ttr._tile_bwd_cuda(feat, ranges, limit, gx, w, h, g, got,
+                               base=base)
+        d2 = ttr._tile_bwd_cuda(feat, ranges, limit, gx, w, h, g, got,
+                                base=base)
+        dw = ttr.tile_bwd_plain(feat, ranges, limit, gx, w, h, g, got,
+                                base=base)
+        check(torch.equal(d, d2), f"K3 {name}: two launches differ")
+        walked = walked_slots(ranges, limit, feat.shape[1])
+        check(bool((d[:, ~walked] == 0).all()),
+              f"K3 {name}: a slot outside the walked ranges is not 0")
+        rel3, share3 = ((compare_k3(d, dw)[1:]) if bool(walked.any())
+                        else (float(d.abs().max()), 1.0))
+        check(rel3 <= 5e-3 and share3 >= 0.999,
+              f"K3 {name}: kernel != plain ({rel3:.3e}, {share3})")
+        t4 = ttr._tile_trans_cuda(feat, ranges, limit, gx, w, h, base=base)
+        t4b = ttr._tile_trans_cuda(feat, ranges, limit, gx, w, h, base=base)
+        t4w = ttr.tile_trans_plain(feat, ranges, limit, gx, w, h, base=base)
+        check(torch.equal(t4, t4b), f"K4 {name}: two launches differ")
+        c = compare_k4(t4, t4w)
+        check(c["err"] <= 1.01 and c["share"] >= 0.9999
+              and c["flips"] <= max(1e-4 * t4.shape[1], 1)
+              and c["max_flip"] <= 2, f"K4 {name}: kernel != plain ({c})")
+        pg, pw = per_primitive(b, t4), per_primitive(b, t4w)
+        p_ok = (pg[:, 0] - pw[:, 0]).abs() <= 1e-3 + 1e-3 * pw[:, 0].abs()
+        p_touch = float((pg[:, 1] - pw[:, 1]).abs().max())
+        p_share = float(p_ok.double().mean())
+        check(p_share >= 0.9999 and p_touch <= 2,
+              f"K4 {name}: per-primitive sums off ({p_share}, {p_touch})")
+        print(f"phase 15: K2 / K3 / K4 at tile base {base}, {name} "
+              f"(num_rendered {int(b.num_rendered)}, {int(walked.sum())} "
+              f"walked slots, {int(past.sum())} pixels past the height): K2 "
+              f"max abs err {err2:.3e}, K3 largest error / row max "
+              f"{rel3:.3e}, K4 max abs err {c['err']:.3e}, counts differ on "
+              f"{c['flips']} slots, per-primitive sums within 1e-3 on "
+              f"{p_share:.6f}; two launches bit-identical each", flush=True)
+
+
+def strips_against_full(dev, seed, smi):
+    """Part 1: the ring at full width rendered as STRIPS strips of tile
+    rows (their own binning, K1 / K2), stitched and held to the full
+    frame; their backward (K3 / K6) under the full frame's cotangent
+    summed and held to the full frame's gradients; on the first view the
+    strips' transmittance statistics (K4 at a tile base) summed against
+    the full frame's.  Returns the kernels' launches of the strips."""
+    import torch
+
+    from reduced3dgs_torch.ops import binning as tbin
+    from reduced3dgs_torch.ops import preprocess as tprep
+    from reduced3dgs_torch.ops import tile_render as ttr
+
+    w, h = MAIN["width"], MAIN["height"]
+    gx, gy = tprep.tile_grid(w, h)
+    rows = -(-gy // STRIPS)
+    arrs = [torch.as_tensor(a, device=dev)
+            for a in bench_scene(MAIN["n"], MAIN["scales"], seed)]
+    bg = torch.zeros(3, device=dev)
+    kernels = {"expand": tbin.EXPAND, "tile_fwd": ttr.TILE_FWD,
+               "tile_bwd": ttr.TILE_BWD,
+               "seg_reduce_packed": ttr.SEG_REDUCE_PACKED,
+               "tile_trans": ttr.TILE_TRANS}
+    diff = ("means2d", "conic", "opacity", "color")
+    worst_px, worst_g, strip_l = 0.0, 0.0, {n: 0 for n in kernels}
+    gen = torch.Generator(dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    for v, cam in enumerate(ring_cameras(w, h)):
+        with torch.no_grad():
+            prep = tprep.preprocess(arrs[0], arrs[2], arrs[3], arrs[4],
+                                    arrs[1], arrs[5], cam.params(dev))
+        leaves = {k: getattr(prep, k).detach().requires_grad_(True)
+                  for k in diff}
+        prep = prep._replace(**leaves)
+        cot = torch.randn((rows * STRIPS * 16, w, 3), generator=gen,
+                          device=dev)
+        cot[h:] = 0.0
+        full_b = tbin.bin_gaussians(prep, w, h, BENCH_BUDGET)
+        check(int(full_b.num_rendered) <= BENCH_BUDGET,
+              "strips: the budget truncates the full frame")
+        color, t_fin, _, _ = ttr.tile_render(prep, full_b, bg, w, h,
+                                             grad_reduce="bf16x2")
+        g_full = torch.autograd.grad((color * cot[:h]).sum(),
+                                     list(leaves.values()))
+        before = {n: k.launches for n, k in kernels.items()}
+        parts, sums = [], None
+        for r0 in range(0, gy, rows):
+            b = tbin.bin_gaussians(prep, w, h, BENCH_BUDGET,
+                                   tile_rows=(r0, rows))
+            c, t, _, _ = ttr.tile_render(prep, b, bg, w, h,
+                                         tile_rows=(r0, rows),
+                                         grad_reduce="bf16x2")
+            g = torch.autograd.grad(
+                (c * cot[r0 * 16:(r0 + rows) * 16]).sum(),
+                list(leaves.values()))
+            parts.append((c.detach(), t.detach()))
+            sums = list(g) if sums is None else [
+                a + x for a, x in zip(sums, g)]
+            if v == 0:
+                trans = ttr.transmittance_by_primitive(b, w, h,
+                                                       base=r0 * gx)
+                tsum = trans if r0 == 0 else (tsum[0] + trans[0],
+                                              tsum[1] + trans[1])
+        n_strips = len(parts)
+        d = {n: k.launches - before[n] for n, k in kernels.items()}
+        check(all(d[n] == n_strips for n in ("expand", "tile_fwd",
+                                             "tile_bwd",
+                                             "seg_reduce_packed")),
+              f"strips: not one K1, K2, K3 and K6 per strip: {d}")
+        for n in strip_l:
+            strip_l[n] += d[n]
+        img = torch.cat([p[0] for p in parts])
+        tt = torch.cat([p[1] for p in parts])
+        check(bool((tt[h:] == 1).all()) and bool((img[h:] == 0).all()),
+              "strips: rows past the height are not background")
+        dpx = max(float((img[:h] - color.detach()).abs().max()),
+                  float((tt[:h] - t_fin.detach()).abs().max()))
+        check(dpx <= 1e-6, f"strips: stitched frame off by {dpx:.3e}")
+        worst_px = max(worst_px, dpx)
+        for a, b_ in zip(g_full, sums):
+            scale = float(a.abs().max())
+            err = float(((b_ - a).abs() - 2e-3 * a.abs()).max()) / scale
+            check(err <= 2e-4, f"strips: gradients off by {err:.3e} x max")
+            worst_g = max(worst_g, err)
+        if v == 0:
+            full_t = ttr.transmittance_by_primitive(full_b, w, h)
+            check(torch.equal(tsum[1], full_t[1]),
+                  "strips: the pixels touched differ from the full frame")
+            err_t = float(((tsum[0] - full_t[0]).abs()
+                           - 1e-5 * full_t[0].abs()).max())
+            check(err_t <= 1e-3, f"strips: transmittance off by {err_t}")
+    stitched = ("bit for bit" if worst_px == 0
+                else f"max abs diff {worst_px:.3e}")
+    print(f"phase 15: {RING_VIEWS} views at {w}x{h} as {n_strips} strips "
+          f"of {rows} tile rows (the last reaching {rows * n_strips * 16 - h}"
+          f" pixel rows past the height): stitched against the full frame "
+          f"{stitched}"
+          f"; per-primitive gradients of the strips summed (bf16x2) against "
+          f"the full frame's: largest excess over rtol 2e-3 {worst_g:.3e} x "
+          f"max|g| (tolerance 2e-4); on view 1 the strips' transmittance "
+          f"statistics (K4 at a tile base) add up to the full frame's "
+          f"(touched equal); launches of the strips {strip_l} (one K1, K2, "
+          f"K3 and K6 per strip); {time.perf_counter() - t0:.3f} s; {smi}",
+          flush=True)
+    return strip_l
+
+
+def sharded_trainers(dev, seed, smi, backend="nccl"):
+    """Part 2: torch.distributed at world size 1 under NCCL (a file://
+    rendezvous): ShardedTrainer on a (1, 1) mesh, replicated and
+    param_shard, against the single-card Trainer from the same state,
+    MULTI['steps'] plain bf16x2 iterations each, after raw_grad_check's
+    one sharded_train_step per layout.  Returns the kernels' launches of
+    the sharded steps alone (the single-card references excluded)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from reduced3dgs_torch.ops import binning as tbin
+    from reduced3dgs_torch.ops import tile_render as ttr
+    from reduced3dgs_torch.parallel.sharded import (
+        ShardedTrainer, gather_state, make_mesh,
+    )
+
+    kernels = {"expand": tbin.EXPAND, "tile_fwd": ttr.TILE_FWD,
+               "tile_bwd": ttr.TILE_BWD,
+               "seg_reduce_packed": ttr.SEG_REDUCE_PACKED}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, 1)
+        check(mesh.world is not None
+              and dist.get_backend(mesh.tile) == backend,
+              f"the (1, 1) mesh has no {backend} groups")
+        raw = raw_grad_check(dev, seed, dict(MAIN, budget=BENCH_BUDGET),
+                             mesh)
+        check_raw_grads([raw], f"{backend} at world size 1, one "
+                        "sharded_train_step", True)
+        launches = {n: 0 for n in kernels}
+        for shard in (False, True):
+            for n, v in raw[shard]["launches"].items():
+                launches[n] = launches.get(n, 0) + v
+        cams, leaves = train_cameras(dev, seed)
+        runs = {}
+        for name, shard in (("single", None), ("replicated", False),
+                            ("param_shard", True)):
+            pool = student_pool(dev, leaves, seed)
+            kw = ({} if shard is None else
+                  dict(cls=ShardedTrainer, mesh=mesh, param_shard=shard))
+            tr = make_trainer(pool, cams, seed, **kw)
+            before = {n: k.launches for n, k in kernels.items()}
+            losses, ms = run_steps(tr, 1, MULTI["steps"])
+            d = {n: k.launches - before[n] for n, k in kernels.items()}
+            check(all(v >= MULTI["steps"] and v == d["expand"]
+                      for v in d.values()),
+                  f"{name}: not one K1, K2, K3 and K6 per render: {d}")
+            if shard is not None:
+                for n in kernels:
+                    launches[n] += d[n]
+            st = (gather_state(tr.state, mesh, shard) if shard else
+                  tr.state)
+            runs[name] = (losses, ms, st, d)
+            del tr
+        l1, _, s1, _ = runs["single"]
+        for name in ("replicated", "param_shard"):
+            losses, ms, st, d = runs[name]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(losses, l1))
+            check(rel <= 1e-5, f"{name}: losses off by {rel:.3e}")
+            worst, same = 0.0, True
+            for leaf in ("xyz", "scaling", "opacity", "features_dc"):
+                a = getattr(st.pool.params, leaf)
+                b = getattr(s1.pool.params, leaf)
+                ex = float(((a - b).abs() - 1e-4 * b.abs()).max())
+                check(ex <= 5e-6, f"{name}: parameter {leaf} off by {ex:.3e}")
+                worst = max(worst, ex)
+                same = same and torch.equal(a, b)
+            print(f"phase 15: {backend} at world size 1, ShardedTrainer "
+                  f"{name} on a (1, 1) mesh against the single-card "
+                  f"Trainer, {MULTI['steps']} bf16x2 steps at "
+                  f"{MAIN['width']}x{MAIN['height']}: losses off by at most "
+                  f"{rel:.3e} (rtol 1e-5), xyz / scaling / opacity / DC "
+                  f"at most {worst:.3e} past rtol 1e-4 (atol 5e-6)"
+                  f"{', bit for bit' if same else ''}; ms per "
+                  f"step {', '.join(f'{v:.1f}' for v in ms)} against "
+                  f"{', '.join(f'{v:.1f}' for v in runs['single'][1])} "
+                  f"single-card (host wall, synchronized; the first step "
+                  f"of each run warms up); launches {d}; {smi}", flush=True)
+        return launches
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def raw_grad_check(device, seed, scene, mesh):
+    """One sharded_train_step (skip_update, the default f32 reduction) in
+    each layout against the single-card step's raw gradients, leaf by
+    leaf, on the first ring view of `scene` (with its "budget").  Returns
+    {"loss": the single-card loss, False / True: {"loss", "worst" (the
+    largest error over its tolerance 2e-6 + 1e-4 max|g|), "launches",
+    "nr"}}."""
+    import torch
+
+    from reduced3dgs_torch.config import OptimizationParams
+    from reduced3dgs_torch.ops import binning as tbin
+    from reduced3dgs_torch.ops import tile_render as ttr
+    from reduced3dgs_torch.parallel.sharded import (
+        all_gather_rows, shard_state, sharded_train_step,
+    )
+    from reduced3dgs_torch.train import adam
+    from reduced3dgs_torch.train.trainer import TrainState, train_step
+
+    cams, leaves = train_cameras(device, seed, n_views=1, scene=scene)
+    pool = student_pool(device, leaves, seed)
+    state = TrainState(pool, adam.init(pool.params),
+                       torch.Generator(device).manual_seed(seed))
+    cp = cams[0].params(device)
+    gt = torch.as_tensor(cams[0].image, device=device)
+    bg = torch.zeros(3, device=device)
+    kw = dict(width=scene["width"], height=scene["height"],
+              budget=scene["budget"], opt_cfg=OptimizationParams(),
+              spatial_lr_scale=1.0)
+    _, m1, g1 = train_step(state, cp, gt, bg, 1, backend="tile",
+                           skip_update=True, **kw)
+    kernels = {"expand": tbin.EXPAND, "tile_fwd": ttr.TILE_FWD,
+               "tile_bwd": ttr.TILE_BWD, "seg_reduce_f32": ttr.SEG_REDUCE_F32}
+    out = {"loss": float(m1["loss"])}
+    for shard in (False, True):
+        before = {n: k.launches for n, k in kernels.items()}
+        _, m, g = sharded_train_step(shard_state(state, mesh, shard), [cp],
+                                     [gt], bg, 1, mesh=mesh,
+                                     param_shard=shard, skip_update=True,
+                                     **kw)
+        launches = {n: k.launches - before[n] for n, k in kernels.items()}
+        if shard:
+            g = [all_gather_rows(x, mesh.tile) for x in g]
+        worst = 0.0
+        for a, b in zip(g1, g):
+            tol = 2e-6 + 1e-4 * float(a.abs().max())
+            worst = max(worst, float((a - b).abs().max()) / tol)
+        out[shard] = dict(loss=float(m["loss"]), worst=worst,
+                          launches=launches, nr=int(m["num_rendered_max"]))
+    return out
+
+
+def check_raw_grads(res, what, count_launches):
+    """raw_grad_check's results of every rank held to their tolerances."""
+    for shard in (False, True):
+        for rank, r in enumerate(res):
+            o = r[shard]
+            check(abs(o["loss"] - r["loss"]) <= 1e-5 * abs(r["loss"]),
+                  f"{what}: loss off on rank {rank}")
+            check(o["worst"] <= 1.0, f"{what}, param_shard={shard}: "
+                  f"gradients off ({o['worst']:.3f} x tolerance)")
+            check(not count_launches
+                  or all(v == 1 for v in o["launches"].values()),
+                  f"{what}: not one K1, K2, K3, K5 per strip: "
+                  f"{o['launches']}")
+        print(f"phase 15: {what}, param_shard={shard}: raw gradients "
+              f"(f32 reduction) against the single-card step's at most "
+              f"{max(r[shard]['worst'] for r in res):.3f} x the tolerance "
+              f"(atol 2e-6 + 1e-4 max|g| per leaf); loss "
+              f"{res[0][shard]['loss']:.6f} (single "
+              f"{res[0]['loss']:.6f}); largest strip demand "
+              f"{res[0][shard]['nr']}; launches per rank "
+              f"{res[0][shard]['launches']}", flush=True)
+
+
+def two_rank_child(rank, world, device, seed, scene):
+    """Part 3, one rank of a (1, 2) mesh on the one card, gloo: whether
+    gloo carries CUDA tensors for the collectives the step uses; then
+    raw_grad_check."""
+    import torch
+    import torch.distributed as dist
+
+    from reduced3dgs_torch.parallel.sharded import make_mesh
+
+    probe = torch.arange(4, dtype=torch.float32, device=device)
+    try:
+        dist.all_reduce(probe.clone())
+        dist.all_reduce(probe.to(torch.int32), op=dist.ReduceOp.MAX)
+        dist.all_gather([torch.empty_like(probe) for _ in range(world)],
+                        probe)
+        dist.broadcast(probe.clone(), 0)
+    except RuntimeError as e:
+        return {"refused": str(e).strip().splitlines()[0]}
+    return raw_grad_check(device, seed, scene, make_mesh(1, 2))
+
+
+def two_ranks_on_one_card(seed, smi, device="cuda"):
+    """Part 3: mesh (1, 2) as two processes on the one card over gloo (NCCL
+    refuses two ranks on one device), if gloo carries CUDA tensors."""
+    from reduced3dgs_torch.parallel.launch import spawn_local
+
+    t0 = time.perf_counter()
+    res = spawn_local(two_rank_child, 2, "gloo", device, seed,
+                      dict(MAIN, budget=BENCH_BUDGET))
+    refused = [r["refused"] for r in res if "refused" in r]
+    if refused:
+        print(f"phase 15: the two-rank (1, 2) run on one card is left out: "
+              f"gloo refused CUDA tensors ({refused[0]}); "
+              f"tests/test_torch_parallel.py runs such ranks on the CPU",
+              flush=True)
+        return
+    check_raw_grads(res, "mesh (1, 2), two gloo ranks on the one card",
+                    device == "cuda")
+    print(f"phase 15: two-rank run {time.perf_counter() - t0:.3f} s "
+          f"(both processes' start included); {smi}", flush=True)
+
+
+def scaling_line(smi):
+    """Part 4: python -m reduced3dgs_torch.parallel.launch --scaling at
+    world size 1 (its own width and primitive defaults)."""
+    t0 = time.perf_counter()
+    out = _run_module(["reduced3dgs_torch.parallel.launch", "--scaling",
+                       *SCALING_ARGS], timeout=300)
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    check(len(lines) == 1 and json.loads(lines[0])["pixels_per_s"] > 0,
+          f"scaling_bench printed {lines}")
+    print(f"phase 15: scaling_bench {lines[0]} "
+          f"({time.perf_counter() - t0:.3f} s with the process start); "
+          f"{smi}", flush=True)
+
+
+def knn_subset_check(dev, seed, smi):
+    """Part 5: the certified blocked 30-NN search against knn_exact on the
+    first MULTI['knn_points'] points of the bench scene: the same
+    neighbour sets (a near tie at the 30th may swap, then the distances
+    agree), distances within rtol 1e-5 / atol 2e-6."""
+    import torch
+
+    from reduced3dgs_torch.ops import knn as tknn
+
+    pts = torch.as_tensor(make_arrays(MAIN["n"], MAIN["scales"], seed)[
+        "xyz"][:MULTI["knn_points"]], device=dev)
+    k = 30
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with blocked_rungs() as rungs:
+        (d2, idx), t_b = timed(lambda: tknn.knn(pts, k))
+    method, m_cert = search_of(rungs)
+    check(method == "blocked", f"kNN subset: {method}, rungs "
+          f"{[m for m, _ in rungs]}")
+    (d2e, idxe), t_e = timed(lambda: tknn.knn_exact(pts, k))
+    same = (torch.sort(idx, 1).values == torch.sort(idxe, 1).values).all(1)
+    direct = ((pts[idx] - pts[:, None, :]) ** 2).sum(-1)
+    ex = float(((d2 - d2e).abs() - 1e-5 * d2e.abs()).max())
+    ex2 = float(((torch.sort(direct, 1).values - d2e).abs()
+                 - 1e-5 * d2e.abs()).max())
+    check(ex <= 2e-6 and ex2 <= 2e-6,
+          f"kNN subset: distances off ({ex:.3e}, {ex2:.3e})")
+    check(float(same.double().mean()) >= 0.999,
+          f"kNN subset: {int((~same).sum())} neighbour sets differ")
+    print(f"phase 15: 30-NN of {pts.shape[0]} points of the scene: blocked "
+          f"search {t_b:.3f} s (certified at m = {m_cert}, rung "
+          f"{len(rungs)}) against knn_exact {t_e:.3f} s; neighbour sets "
+          f"equal on {int(same.sum())} of {same.numel()} points (the rest "
+          f"swap a near tie: their distances agree), distances at most "
+          f"{ex:.3e} past rtol 1e-5 (atol 2e-6); {smi}", flush=True)
+
+
+def multi_device_path(dev, seed, smi, backend="nccl", device="cuda"):
+    """Phase 15.  The kernels' counts are zeroed after the checks against
+    the plain versions; the launches of the path are those of the strips
+    and of the sharded steps in this process, each read around its own
+    run (the full frames and single-card steps they are held to are not
+    counted); every kernel must have run.  Returns those counts."""
+    from reduced3dgs_torch.ops import binning as tbin
+    from reduced3dgs_torch.ops import tile_render as ttr
+
+    t0 = time.perf_counter()
+    strip_kernel_checks(dev, seed)
+    path = {"expand": tbin.EXPAND, "tile_fwd": ttr.TILE_FWD,
+            "tile_bwd": ttr.TILE_BWD, "tile_trans": ttr.TILE_TRANS,
+            "seg_reduce_f32": ttr.SEG_REDUCE_F32,
+            "seg_reduce_packed": ttr.SEG_REDUCE_PACKED}
+    for k in path.values():
+        k.launches = 0
+    strip_l = strips_against_full(dev, seed, smi)
+    shard_l = sharded_trainers(dev, seed, smi, backend)
+    launches = {n: strip_l.get(n, 0) + shard_l.get(n, 0) for n in path}
+    check(all(v > 0 for v in launches.values()),
+          f"the multi-device path bypassed a kernel: {launches}")
+    print(f"phase 15: launches of the multi-device path in this process "
+          f"(the strips {strip_l} and the sharded steps {shard_l}; the "
+          f"references they are held to not counted) {launches}",
+          flush=True)
+    two_ranks_on_one_card(seed, smi, device)
+    scaling_line(smi)
+    knn_subset_check(dev, seed, smi)
+    print(f"phase 15: {time.perf_counter() - t0:.3f} s", flush=True)
+    return launches
 
 
 if __name__ == "__main__":

@@ -34,9 +34,12 @@ bits from two launches, and timed (CUDA events, chip_smoke.time_ms) at the
 1080p main-path inputs and at the 512p scene, in turns: the whole list is
 walked --turns times.  --parent DIR also builds DIR/reduced3dgs_torch/
 csrc/{tile_fwd,tile_bwd,tile_trans}.cu (an unpacked earlier commit), times
-them in the same turns and says whether each default gives the parent's
-bits.  The lane utilisation of each warp footprint and the
-instances staged per batch size are printed first.  Every line carries the
+them in the same turns, says whether each default gives the parent's bits
+(K2, K3, K4) and prints each library's SASS instruction count
+(cuobjdump -sass; the listings are written beside the built libraries,
+reduced3dgs_torch/_build/variants/*.sass).  The lane utilisation of each
+warp footprint and the instances staged per batch size are printed
+first.  Every line carries the
 card's name and power limit.  --quick: the defaults and the parent only;
 --match TEXT: the defaults and the variants whose -D list contains TEXT.
 """
@@ -151,19 +154,31 @@ def main(argv=None):
                 "tile_bwd")
     trans = build(_cuda.CSRC / "tile_trans.cu", chosen(K4_VARIANTS), _cuda,
                   "tile_trans")
+    # libraries of a parent whose walks take no tile base (before the
+    # strips of the multi-device path): their launches have no base
+    # argument, the sixth of the current ones
+    baseless = set()
     if args.parent:
         csrc = Path(args.parent) / "reduced3dgs_torch" / "csrc"
         for libs, src in ((fwd, "tile_fwd"), (bwd, "tile_bwd"),
                           (trans, "tile_trans")):
-            libs.update(build(csrc / f"{src}.cu", [dict(PARENT=1)], _cuda,
-                              f"parent_{src}"))
+            got = build(csrc / f"{src}.cu", [dict(PARENT=1)], _cuda,
+                        f"parent_{src}")
+            if b"int base" not in (csrc / f"{src}.cu").read_bytes():
+                baseless |= {id(lib) for lib in got.values()}
+            libs.update(got)
     for libs, sym, kern in ((fwd, "tile_fwd_launch", ttr.TILE_FWD),
                             (bwd, "tile_bwd_launch", ttr.TILE_BWD),
                             (trans, "tile_trans_launch", ttr.TILE_TRANS)):
         for lib in libs.values():
             fn = getattr(lib, sym)
             fn.restype = ctypes.c_int
-            fn.argtypes = kern.argtypes
+            fn.argtypes = (kern.argtypes[:6] + kern.argtypes[7:]
+                           if id(lib) in baseless else kern.argtypes)
+
+    def base0(lib):
+        """The tile base argument (0: the whole frame), if lib takes one."""
+        return () if id(lib) in baseless else (0,)
 
     def run_fwd(lib, k2in, gx, w, h):
         feat, ranges, limit = k2in
@@ -171,8 +186,8 @@ def main(argv=None):
                           dtype=torch.float32, device=dev)
         err = lib.tile_fwd_launch(
             _cuda.ptr(feat), feat.stride(0), _cuda.ptr(ranges),
-            ranges.shape[1], _cuda.ptr(limit), gx, w, h, _cuda.ptr(out),
-            _cuda.stream_of(feat))
+            ranges.shape[1], _cuda.ptr(limit), gx, *base0(lib), w, h,
+            _cuda.ptr(out), _cuda.stream_of(feat))
         assert err == 0, err
         return out
 
@@ -182,8 +197,8 @@ def main(argv=None):
                           device=dev)
         err = lib.tile_bwd_launch(
             _cuda.ptr(feat), feat.stride(0), _cuda.ptr(ranges),
-            ranges.shape[1], _cuda.ptr(limit), gx, w, h, _cuda.ptr(g),
-            _cuda.ptr(packed), _cuda.ptr(rec), ttr.GRAD_REC,
+            ranges.shape[1], _cuda.ptr(limit), gx, *base0(lib), w, h,
+            _cuda.ptr(g), _cuda.ptr(packed), _cuda.ptr(rec), ttr.GRAD_REC,
             _cuda.stream_of(feat))
         assert err == 0, err
         return rec.T[:ttr.TABLE_ROWS]
@@ -194,8 +209,8 @@ def main(argv=None):
                           device=dev)
         err = lib.tile_trans_launch(
             _cuda.ptr(feat), feat.stride(0), _cuda.ptr(ranges),
-            ranges.shape[1], _cuda.ptr(limit), gx, w, h, _cuda.ptr(out),
-            out.stride(0), _cuda.stream_of(feat))
+            ranges.shape[1], _cuda.ptr(limit), gx, *base0(lib), w, h,
+            _cuda.ptr(out), out.stride(0), _cuda.stream_of(feat))
         assert err == 0, err
         return out
 
@@ -243,11 +258,6 @@ def main(argv=None):
             parent_bits.setdefault(name, {})[t] = got
             print(f"K2 [{t}] {name}: max abs err {err:.3e}, share within "
                   f"1e-4 {share:.6f}, two launches bit-identical", flush=True)
-    for name, outs in parent_bits.items():
-        if "PARENT=1" in outs:
-            same = torch.equal(outs["default"], outs["PARENT=1"])
-            print(f"K2 {name}: the default gives the parent's bits: {same}",
-                  flush=True)
     for t, lib in trans.items():
         for name, sc in scenes.items():
             a = (sc["k2in"], sc["gx"], sc["w"], sc["h"])
@@ -257,6 +267,7 @@ def main(argv=None):
             assert bool((got[:, sc["unwalked"]] == 0).all()), (t, name)
             c = cs.compare_k4(got, sc["twant"])
             assert c["err"] <= 1.01 and c["share"] >= 0.9999, (t, name, c)
+            parent_bits.setdefault(("K4", name), {})[t] = got
             print(f"K4 [{t}] {name}: max abs err of the sums {c['err']:.3e}, "
                   f"share within 1e-3 {c['share']:.6f}, counts differ on "
                   f"{c['flips']} slots, two launches bit-identical",
@@ -270,9 +281,33 @@ def main(argv=None):
             assert bool((got[:, sc["unwalked"]] == 0).all()), (t, name)
             err, rel, share = cs.compare_k3(got, sc["dwant"])
             assert rel <= 5e-3 and share >= 0.999, (t, name, rel, share)
+            parent_bits.setdefault(("K3", name), {})[t] = got
             print(f"K3 [{t}] {name}: largest error / row max {rel:.3e}, "
                   f"share within 1e-4 of the row max {share:.6f}, two "
                   "launches bit-identical", flush=True)
+
+    for key, outs in parent_bits.items():
+        if "PARENT=1" in outs:
+            kname, name = key if isinstance(key, tuple) else ("K2", key)
+            same = torch.equal(outs["default"], outs["PARENT=1"])
+            print(f"{kname} {name}: the default gives the parent's bits: "
+                  f"{same}", flush=True)
+    if args.parent:
+        cuda_bin = os.path.dirname(_cuda._nvcc())
+        sass_dir = _cuda.BUILD_DIR / "variants"
+        for kname, libs in (("K2", fwd), ("K3", bwd), ("K4", trans)):
+            counts = {}
+            for t in ("default", "PARENT=1"):
+                listing = subprocess.run(
+                    [str(Path(cuda_bin) / "cuobjdump"), "-sass",
+                     libs[t]._name], capture_output=True, text=True).stdout
+                (sass_dir / f"{kname}_{t.replace('=', '')}.sass").write_text(
+                    listing)
+                counts[t] = sum(1 for ln in listing.splitlines()
+                                if ln.strip().startswith("/*")
+                                and "*/" in ln and ";" in ln)
+            print(f"{kname}: SASS instructions, default {counts['default']}"
+                  f", parent {counts['PARENT=1']}", flush=True)
 
     # times, in turns
     for turn in range(args.turns):

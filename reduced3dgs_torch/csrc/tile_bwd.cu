@@ -178,8 +178,8 @@ __device__ __forceinline__ bool all_done(const bool (&done)[kPpt]) {
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 tile_bwd_kernel(const float* __restrict__ feat, long long stride,
                 const int* __restrict__ ranges, int num_tiles,
-                const int* __restrict__ limit, int grid_x, int width,
-                int height, const float* __restrict__ gpix,
+                const int* __restrict__ limit, int grid_x, int base,
+                int width, int height, const float* __restrict__ gpix,
                 const float* __restrict__ spix, float* __restrict__ dfeat,
                 int rec) {
   __shared__ float4 sm[3][kBatch];
@@ -187,12 +187,13 @@ tile_bwd_kernel(const float* __restrict__ feat, long long stride,
   // reads consecutive words for consecutive output floats
   __shared__ float part[kWarps][kBatch * kRows];
   const int t = blockIdx.x;
+  const unsigned tile = static_cast<unsigned>(base) + blockIdx.x;  // K2's
   const int tid = threadIdx.x;
   int lane = tid & 31;
   const int warp = tid >> 5;
   const int p0 = pixel_of(warp * kPpt, lane);
-  const int x0 = (t % grid_x) * kTile + (p0 % kTile);
-  const int y0 = (t / grid_x) * kTile + (p0 / kTile);
+  const int x0 = (tile % grid_x) * kTile + (p0 % kTile);
+  const int y0 = (tile / grid_x) * kTile + (p0 / kTile);
   const int start = ranges[t];
   const int end = min(ranges[num_tiles + t], *limit);
 
@@ -351,15 +352,16 @@ tile_bwd_kernel(const float* __restrict__ feat, long long stride,
 
 extern "C" int tile_bwd_launch(const void* feat, long long stride,
                                const void* ranges, int num_tiles,
-                               const void* limit, int grid_x, int width,
-                               int height, const void* gpix, const void* spix,
+                               const void* limit, int grid_x, int base,
+                               int width, int height, const void* gpix,
+                               const void* spix,
                                void* dfeat, int rec, void* stream) {
   if (num_tiles > 0) {
     tile_bwd_kernel<<<num_tiles, kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(feat), stride,
         static_cast<const int*>(ranges), num_tiles,
-        static_cast<const int*>(limit), grid_x, width, height,
+        static_cast<const int*>(limit), grid_x, base, width, height,
         static_cast<const float*>(gpix), static_cast<const float*>(spix),
         static_cast<float*>(dfeat), rec);
   }

@@ -17,8 +17,11 @@
 //   skip if alpha < 1/255; stop once T (1 - alpha) < 1e-4
 //   C += c alpha T;  T *= 1 - alpha
 //
-// Pixels outside the image start done; the block leaves its range once
-// every pixel is done (__syncthreads_count).  Empty tiles write colour 0
+// Block t walks the tile base + t of the image (base = r0 * grid_x for a
+// strip of tile rows from r0, 0 for the whole frame; the ranges and the
+// output are the window's, indexed by t), as _tile_info(base + t) does in
+// the TPU kernel.  Pixels outside the image start done; the block leaves
+// its range once every pixel is done (__syncthreads_count).  Empty tiles write colour 0
 // and T 1; the background is added outside.  Instances at or past
 // *limit (min(total_padded, B_pad)) are never read.
 //
@@ -77,14 +80,17 @@ using Stager = Stage<kBatch, kThreads>;
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 tile_fwd_kernel(const float* __restrict__ feat, long long stride,
                 const int* __restrict__ ranges, int num_tiles,
-                const int* __restrict__ limit, int grid_x, int width,
-                int height, float* __restrict__ out) {
+                const int* __restrict__ limit, int grid_x, int base,
+                int width, int height, float* __restrict__ out) {
   __shared__ float4 sm[3][kBatch];
   const int t = blockIdx.x;
+  // the tile's place in the image, unsigned as blockIdx.x: the
+  // division by grid_x below stays the unsigned one
+  const unsigned tile = static_cast<unsigned>(base) + blockIdx.x;
   const int tid = threadIdx.x;
   const int p = pixel_of(tid >> 5, tid & 31);
-  const int px = (t % grid_x) * kTile + (p % kTile);
-  const int py = (t / grid_x) * kTile + (p / kTile);
+  const int px = (tile % grid_x) * kTile + (p % kTile);
+  const int py = (tile / grid_x) * kTile + (p / kTile);
   const float fx = static_cast<float>(px);
   const float fy = static_cast<float>(py);
   const int start = ranges[t];
@@ -135,14 +141,15 @@ tile_fwd_kernel(const float* __restrict__ feat, long long stride,
 
 extern "C" int tile_fwd_launch(const void* feat, long long stride,
                                const void* ranges, int num_tiles,
-                               const void* limit, int grid_x, int width,
-                               int height, void* out, void* stream) {
+                               const void* limit, int grid_x, int base,
+                               int width, int height, void* out,
+                               void* stream) {
   if (num_tiles > 0) {
     tile_fwd_kernel<<<num_tiles, kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(feat), stride,
         static_cast<const int*>(ranges), num_tiles,
-        static_cast<const int*>(limit), grid_x, width, height,
+        static_cast<const int*>(limit), grid_x, base, width, height,
         static_cast<float*>(out));
   }
   return static_cast<int>(cudaGetLastError());

@@ -111,17 +111,19 @@ __device__ __forceinline__ unsigned warp_sum(float v) {
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 tile_trans_kernel(const float* __restrict__ feat, long long stride,
                   const int* __restrict__ ranges, int num_tiles,
-                  const int* __restrict__ limit, int grid_x, int width,
-                  int height, float* __restrict__ out, long long ostride) {
+                  const int* __restrict__ limit, int grid_x, int base,
+                  int width, int height, float* __restrict__ out,
+                  long long ostride) {
   __shared__ float4 sm[2][kBatch];
   __shared__ Part part[kWarps][kBatch];
   const int t = blockIdx.x;
+  const unsigned tile = static_cast<unsigned>(base) + blockIdx.x;  // K2's
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int p = pixel_of(warp, lane);
-  const int px = (t % grid_x) * kTile + (p % kTile);
-  const int py = (t / grid_x) * kTile + (p / kTile);
+  const int px = (tile % grid_x) * kTile + (p % kTile);
+  const int py = (tile / grid_x) * kTile + (p / kTile);
   const float fx = static_cast<float>(px);
   const float fy = static_cast<float>(py);
   const int start = ranges[t];
@@ -186,15 +188,16 @@ tile_trans_kernel(const float* __restrict__ feat, long long stride,
 
 extern "C" int tile_trans_launch(const void* feat, long long stride,
                                  const void* ranges, int num_tiles,
-                                 const void* limit, int grid_x, int width,
-                                 int height, void* out, long long ostride,
+                                 const void* limit, int grid_x, int base,
+                                 int width, int height, void* out,
+                                 long long ostride,
                                  void* stream) {
   if (num_tiles > 0) {
     tile_trans_kernel<<<num_tiles, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(feat), stride,
         static_cast<const int*>(ranges), num_tiles,
-        static_cast<const int*>(limit), grid_x, width, height,
+        static_cast<const int*>(limit), grid_x, base, width, height,
         static_cast<float*>(out), ostride);
   }
   return static_cast<int>(cudaGetLastError());

@@ -63,10 +63,14 @@ def _slack_pool(num_tiles: int) -> int:
     return min(num_tiles * ALIGN, stat)
 
 
-def padded_size(budget: int, width: int, height: int) -> int:
+def padded_size(budget: int, width: int, height: int,
+                tile_rows=None) -> int:
+    """B_pad of a binning at `budget`; tile_rows=(r0, num_rows): of that
+    window of tile rows (its slack pool sized by the window's tiles)."""
     gx, gy = tile_grid(width, height)
+    rows = gy if tile_rows is None else tile_rows[1]
     budget = -(-budget // ALIGN) * ALIGN  # keep B_pad a multiple of K
-    size = budget + _slack_pool(gx * gy)
+    size = budget + _slack_pool(gx * rows)
     group = ALIGN * CHUNK_GROUP
     return -(-size // group) * group
 
@@ -253,14 +257,20 @@ def _tile_counts(x0, x1, y0, y1, include, grid_x, grid_y):
 
 
 def bin_gaussians(prep: PreprocessOut, width: int, height: int,
-                  budget: int) -> BinningOut:
+                  budget: int, tile_rows=None) -> BinningOut:
     """Build the sorted, K-aligned per-tile instance lists.
 
     budget: static instance capacity B (pre-alignment).  num_rendered
     reports the true instance count, which may exceed it (truncation).
+    tile_rows: (r0, num_rows), two ints: bin only the tiles of rows
+    [r0, r0 + num_rows) (a strip of the multi-device path), with tile ids
+    local to the window; the window may reach past the last tile row.
+    The rects' rows are clipped to the window and shifted by -r0, so the
+    rest is the binning of a num_rows-row frame (K1's launch included).
     """
     budget = -(-budget // ALIGN) * ALIGN
     grid_x, grid_y = tile_grid(width, height)
+    r0, grid_y = (0, grid_y) if tile_rows is None else tile_rows
     num_tiles = grid_x * grid_y
     p = prep.tiles_touched.shape[0]
     dev = prep.tiles_touched.device
@@ -271,6 +281,9 @@ def bin_gaussians(prep: PreprocessOut, width: int, height: int,
 
     rx0, ry0 = prep.rect_min[:, 0], prep.rect_min[:, 1]
     rx1, ry1 = prep.rect_max[:, 0], prep.rect_max[:, 1]
+    if tile_rows is not None:
+        ry0 = torch.clamp(ry0, r0, r0 + grid_y) - r0
+        ry1 = torch.clamp(ry1, r0, r0 + grid_y) - r0
     # gate on the validity-masked tiles_touched: raw rects of culled
     # primitives are stale and would emit phantom instances
     counts0 = torch.where(
@@ -335,7 +348,7 @@ def bin_gaussians(prep: PreprocessOut, width: int, height: int,
     new_start = torch.cat([torch.zeros(1, dtype=i32, device=dev),
                            csum_padded[:-1]])
     total_padded = csum_padded[-1] if num_tiles > 0 else i32t(0)
-    b_pad = padded_size(budget, width, height)
+    b_pad = padded_size(budget, width, height, tile_rows)
     # synthetic padding instances: each tile's padding need, as prefix sums
     pad_start = torch.cat([torch.zeros(1, dtype=i32, device=dev),
                            torch.cumsum(padded - tcounts, dim=0, dtype=i32)])

@@ -4,6 +4,8 @@ Counterpart of reduced3dgs_tpu/ops/losses.py: L1, PSNR and the windowed
 SSIM (11x11 Gaussian window, sigma 1.5, as two separable 11-tap passes).
 Images are (..., H, W, C) channels-last, as in the JAX package.
 
+``ssim_band_sum`` is the band decomposition the multi-device step uses.
+
 Precision: the JAX package runs the two depthwise passes at
 Precision.HIGHEST.  A float32 convolution on the card runs in TF32 by
 default (torch.backends.cudnn.allow_tf32 is True), so ``_blur`` turns
@@ -44,11 +46,13 @@ def _gaussian_1d(window_size: int, sigma: float, device):
     return (g / g.sum()).to(torch.float32)
 
 
-def _sep_conv(x, win):
-    """Same-padded separable blur of (N, C, H, W): horizontal, then
-    vertical, full f32 (no TF32)."""
+def _sep_conv(x, win, v_pad=None):
+    """Separable blur of (N, C, H, W), full f32 (no TF32): horizontal
+    same-padded, then vertical with v_pad rows of zeros on each side
+    (None: same-padded; 0: valid, H - (k - 1) rows out)."""
     c = x.shape[1]
     k = win.shape[0]
+    v_pad = k // 2 if v_pad is None else v_pad
     kh = win.reshape(1, 1, 1, k).expand(c, 1, 1, k)
     kv = win.reshape(1, 1, k, 1).expand(c, 1, k, 1)
     with torch.backends.cudnn.flags(
@@ -57,19 +61,25 @@ def _sep_conv(x, win):
             deterministic=torch.backends.cudnn.deterministic,
             allow_tf32=False):
         x = F.conv2d(x, kh, padding=(0, k // 2), groups=c)
-        return F.conv2d(x, kv, padding=(k // 2, 0), groups=c)
+        return F.conv2d(x, kv, padding=(v_pad, 0), groups=c)
 
 
 class _Blur(torch.autograd.Function):
+    """_sep_conv with its adjoint as the backward: the window is
+    symmetric, so the adjoint of a correlation padded by v rows is the
+    same correlation padded by k - 1 - v rows (same-padded: itself)."""
+
     @staticmethod
-    def forward(ctx, x, win):
+    def forward(ctx, x, win, v_pad=None):
         ctx.save_for_backward(win)
-        return _sep_conv(x, win)
+        ctx.v_pad = v_pad
+        return _sep_conv(x, win, v_pad)
 
     @staticmethod
     def backward(ctx, g):
         (win,) = ctx.saved_tensors
-        return _sep_conv(g.contiguous(), win), None
+        v_pad = None if ctx.v_pad is None else win.shape[0] - 1 - ctx.v_pad
+        return _sep_conv(g.contiguous(), win, v_pad), None, None
 
 
 def _ssim_map(m, n):
@@ -95,3 +105,29 @@ def ssim(img1, img2, window_size: int = WINDOW):
     m = torch.cat([img1, img2, img1 * img1, img2 * img2, img1 * img2])
     m = _Blur.apply(m.permute(0, 3, 1, 2).contiguous(), win)
     return _ssim_map(m, n).mean()
+
+
+def ssim_band_sum(img1, img2, band_start: int, band_rows: int,
+                  window_size: int = WINDOW):
+    """Sum of the same-padded SSIM map of an (H, W, C) pair over the rows
+    [band_start, band_start + band_rows) that lie in [0, H).
+
+    The band decomposition of ``ssim`` (the JAX package's, losses.py:102):
+    the horizontal pass same-padded, then a valid vertical pass over the
+    band's slab of the zero-padded image gives the same-padded map's rows
+    of the band, so the sums over a disjoint row cover add up to
+    ssim * H * W * C (parallel/sharded.py: each tile rank sums its band)."""
+    h, w, c = img1.shape
+    pad = window_size // 2
+    win = _gaussian_1d(window_size, SIGMA, img1.device)
+
+    def slab(x):
+        x = F.pad(x, (0, 0, 0, 0, pad, pad + band_rows))
+        return x[band_start:band_start + band_rows + 2 * pad][None]
+
+    a, b = slab(img1), slab(img2)
+    m = torch.cat([a, b, a * a, b * b, a * b])
+    m = _Blur.apply(m.permute(0, 3, 1, 2).contiguous(), win, 0)
+    ssim_map = _ssim_map(m, 1)  # (1, C, band_rows, W)
+    row = band_start + torch.arange(band_rows, device=img1.device)
+    return torch.where((row < h)[None, None, :, None], ssim_map, 0.0).sum()

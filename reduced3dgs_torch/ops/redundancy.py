@@ -9,9 +9,10 @@ Counterpart of reduced3dgs_tpu/ops/redundancy.py:
   3. a scatter of the minimum redundancy value to every intersecting
      neighbour (``scatter_reduce_`` "amin" for the reference's atomicMin).
 
-The neighbours come from the exact blocked search of ops/knn.py on a
-compacted alive-rows-first view padded with +inf "absent" rows to a
-power-of-two bucket, as the JAX package searches it.
+The neighbours come from ops/knn.py:knn_indices (brute force up to
+EXACT_LIMIT rows, the certified blocked search above) on a compacted
+alive-rows-first view padded with +inf "absent" rows to a power-of-two
+bucket, as the JAX package searches it.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import math
 
 import torch
 
-from reduced3dgs_torch.ops.knn import knn_exact
+from reduced3dgs_torch.ops.knn import knn_indices
 from reduced3dgs_torch.ops.transforms import quat_to_rotmat
 
 
@@ -113,7 +114,7 @@ def redundancy_metric(xyz, scales, rotations_norm, alive, projmatrices,
     """Returns (min_redundancy (P,) int32, cube_size (P,) f32) over the
     full capacity; dead pool slots report 0.
 
-    neighbours_fn(points (M, 3), k) -> (M, k) indices replaces the exact
+    neighbours_fn(points (M, 3), k) -> (M, k) indices replaces the
     search (the tests hand both packages the same neighbour lists)."""
     cap = xyz.shape[0]
     dev = xyz.device
@@ -125,7 +126,7 @@ def redundancy_metric(xyz, scales, rotations_norm, alive, projmatrices,
     absent = torch.arange(m, device=dev) >= n_alive
     xyz_c = torch.where(absent[:, None], torch.inf, xyz[sel])
     if neighbours_fn is None:
-        neighbours = knn_exact(xyz_c, num_neighbours)[1]
+        neighbours = knn_indices(xyz_c, num_neighbours)
     else:
         neighbours = neighbours_fn(xyz_c, num_neighbours)
     red_c, cube_c = _redundancy_core(

@@ -29,7 +29,10 @@ version; a CUDA tensor launches the kernel or raises):
 
 ``_RasterizeCore`` is the autograd Function around them (the JAX
 package's custom VJP): means2d, conic, opacity and colour in, packed tile
-rows out.
+rows out.  A strip of tile rows (the multi-device path, tile_rows=) is
+walked at a tile base: window tile t is image tile base + t, as
+_tile_info(base + t) in the JAX kernels, in K2, K3, K4 and their plain
+versions alike.
 """
 
 from __future__ import annotations
@@ -73,8 +76,11 @@ def _argtypes(*names):
 # shared plain-version chunk state
 # ---------------------------------------------------------------------------
 
-def _tile_pixels(tiles, grid_x, width, height):
+def _tile_pixels(tiles, grid_x, width, height, base=0):
+    """Pixel coordinates of window tiles `tiles`, which lie at image tiles
+    base + tiles (a strip's window starts at tile base = r0 * grid_x)."""
     pix = torch.arange(NPIX, device=tiles.device)
+    tiles = tiles + base
     px = (tiles % grid_x * TILE_X)[:, None] + pix % TILE_X  # (G, 256)
     py = (tiles // grid_x * TILE_Y)[:, None] + pix // TILE_X
     done = (px >= width) | (py >= height)  # cropped pixels start done
@@ -127,8 +133,8 @@ def _busy_tiles(ranges, limit):
 # ---------------------------------------------------------------------------
 
 TILE_FWD = _cuda.Kernel("tile_fwd", "tile_fwd_launch",
-                        _argtypes("p", "l", "p", "i", "p", "i", "i", "i", "p",
-                             "p"))
+                        _argtypes("p", "l", "p", "i", "p", "i", "i", "i", "i",
+                                  "p", "p"))
 
 
 def warp_pixels(warp_shape=(16, 2), pixels_per_thread: int = 1):
@@ -167,13 +173,15 @@ def walk_layout(source: str) -> dict:
 
 
 def tile_fwd_plain(feat, ranges, limit, grid_x: int, width: int,
-                   height: int, count_pairs: bool = False,
+                   height: int, base: int = 0, count_pairs: bool = False,
                    warp_shape=(16, 2), pixels_per_thread: int = 1,
                    batch: int = K):
     """Plain version of K2.
 
     feat: (9, B_pad) f32; ranges: (2, num_tiles) int32 K-aligned
-    [start, end); limit: () int32, no instance at or past it is read.
+    [start, end); limit: () int32, no instance at or past it is read;
+    base: the image tile of window tile 0 (r0 * grid_x for a strip of
+    tile rows from r0).
     Returns (num_tiles, 8, 256) f32; with count_pairs, also a dict of the
     (pixel, instance) pairs K2's sequential walk visits: "walked" (each
     pixel up to and including its stopping instance), "blended" (those
@@ -200,7 +208,7 @@ def tile_fwd_plain(feat, ranges, limit, grid_x: int, width: int,
     for g0 in range(0, busy.numel(), TILE_GROUP):
         tiles = busy[g0:g0 + TILE_GROUP]
         s, e = starts[tiles], ends[tiles]
-        pxf, pyf, done = _tile_pixels(tiles, grid_x, width, height)
+        pxf, pyf, done = _tile_pixels(tiles, grid_x, width, height, base)
         t_cur = torch.ones(done.shape, dtype=torch.float32, device=dev)
         acc = torch.zeros(done.shape + (3,), dtype=torch.float32, device=dev)
         n_chunks = int(((e - s + K - 1) // K).max())
@@ -249,25 +257,28 @@ def _check_walk_inputs(name, feat, ranges, limit):
 
 
 def _tile_fwd_cuda(feat, ranges, limit, grid_x: int, width: int,
-                   height: int):
+                   height: int, base: int = 0):
     _check_walk_inputs("tile_fwd", feat, ranges, limit)
     num_tiles = ranges.shape[1]
     out = torch.empty((num_tiles, PIX_ROWS, NPIX), dtype=torch.float32,
                       device=feat.device)
     with torch.cuda.device(feat.device):
         TILE_FWD(_cuda.ptr(feat), feat.stride(0), _cuda.ptr(ranges),
-                 num_tiles, _cuda.ptr(limit), grid_x, width, height,
+                 num_tiles, _cuda.ptr(limit), grid_x, base, width, height,
                  _cuda.ptr(out), _cuda.stream_of(feat))
     return out
 
 
-def tile_fwd(feat, ranges, limit, grid_x: int, width: int, height: int):
+def tile_fwd(feat, ranges, limit, grid_x: int, width: int, height: int,
+             base: int = 0):
     """K2 dispatch: the CUDA kernel on a CUDA tensor, the plain version on
     a CPU tensor (no fallback between them)."""
     if feat.device.type == "cuda":
-        return _tile_fwd_cuda(feat, ranges, limit, grid_x, width, height)
+        return _tile_fwd_cuda(feat, ranges, limit, grid_x, width, height,
+                              base)
     if feat.device.type == "cpu":
-        return tile_fwd_plain(feat, ranges, limit, grid_x, width, height)
+        return tile_fwd_plain(feat, ranges, limit, grid_x, width, height,
+                              base)
     raise ValueError(f"tile_fwd: unsupported device {feat.device}")
 
 
@@ -276,15 +287,15 @@ def tile_fwd(feat, ranges, limit, grid_x: int, width: int, height: int):
 # ---------------------------------------------------------------------------
 
 TILE_BWD = _cuda.Kernel("tile_bwd", "tile_bwd_launch",
-                        _argtypes("p", "l", "p", "i", "p", "i", "i", "i", "p",
-                             "p", "p", "i", "p"))
+                        _argtypes("p", "l", "p", "i", "p", "i", "i", "i", "i",
+                                  "p", "p", "p", "i", "p"))
 
 
 def tile_bwd_plain(feat, ranges, limit, grid_x: int, width: int,
-                   height: int, g_packed, packed):
+                   height: int, g_packed, packed, base: int = 0):
     """Plain version of K3.
 
-    feat/ranges/limit as K2; g_packed: (num_tiles, 8, 256) f32 cotangent
+    feat/ranges/limit/base as K2; g_packed: (num_tiles, 8, 256) f32 cotangent
     of K2's output (rows dL/dC, dL/dT_final); packed: K2's output.
     Returns dfeat (9, B_pad) f32, the gradient of each slot's features;
     slots the walk never reaches are exactly 0.  Front-to-back, as the
@@ -298,7 +309,7 @@ def tile_bwd_plain(feat, ranges, limit, grid_x: int, width: int,
     for g0 in range(0, busy.numel(), TILE_GROUP):
         tiles = busy[g0:g0 + TILE_GROUP]
         s, e = starts[tiles], ends[tiles]
-        pxf, pyf, done = _tile_pixels(tiles, grid_x, width, height)
+        pxf, pyf, done = _tile_pixels(tiles, grid_x, width, height, base)
         gpix = g_packed[tiles]  # (G, 8, 256)
         spix = packed[tiles]
         gcol = gpix[:, 0:3, :].permute(0, 2, 1)  # (G, 256, 3)
@@ -341,7 +352,7 @@ def tile_bwd_plain(feat, ranges, limit, grid_x: int, width: int,
 
 
 def _tile_bwd_cuda(feat, ranges, limit, grid_x: int, width: int,
-                   height: int, g_packed, packed):
+                   height: int, g_packed, packed, base: int = 0):
     _check_walk_inputs("tile_bwd", feat, ranges, limit)
     num_tiles = ranges.shape[1]
     shape = (num_tiles, PIX_ROWS, NPIX)
@@ -357,22 +368,22 @@ def _tile_bwd_cuda(feat, ranges, limit, grid_x: int, width: int,
                           device=feat.device)
     with torch.cuda.device(feat.device):
         TILE_BWD(_cuda.ptr(feat), feat.stride(0), _cuda.ptr(ranges),
-                 num_tiles, _cuda.ptr(limit), grid_x, width, height,
+                 num_tiles, _cuda.ptr(limit), grid_x, base, width, height,
                  _cuda.ptr(g_packed), _cuda.ptr(packed), _cuda.ptr(records),
                  GRAD_REC, _cuda.stream_of(feat))
     return records.T[:TABLE_ROWS]
 
 
 def tile_bwd(feat, ranges, limit, grid_x: int, width: int, height: int,
-             g_packed, packed):
+             g_packed, packed, base: int = 0):
     """K3 dispatch: the CUDA kernel on a CUDA tensor, the plain version on
     a CPU tensor (no fallback between them)."""
     if feat.device.type == "cuda":
         return _tile_bwd_cuda(feat, ranges, limit, grid_x, width, height,
-                              g_packed, packed)
+                              g_packed, packed, base)
     if feat.device.type == "cpu":
         return tile_bwd_plain(feat, ranges, limit, grid_x, width, height,
-                              g_packed, packed)
+                              g_packed, packed, base)
     raise ValueError(f"tile_bwd: unsupported device {feat.device}")
 
 
@@ -382,14 +393,14 @@ def tile_bwd(feat, ranges, limit, grid_x: int, width: int, height: int,
 
 TILE_TRANS = _cuda.Kernel("tile_trans", "tile_trans_launch",
                           _argtypes("p", "l", "p", "i", "p", "i", "i", "i",
-                                    "p", "l", "p"))
+                                    "i", "p", "l", "p"))
 
 
 def tile_trans_plain(feat, ranges, limit, grid_x: int, width: int,
-                     height: int):
+                     height: int, base: int = 0):
     """Plain version of K4.
 
-    feat/ranges/limit as K2.  Returns (2, B_pad) f32 rows [trans_sum,
+    feat/ranges/limit/base as K2.  Returns (2, B_pad) f32 rows [trans_sum,
     touched]: per slot, over the tile's pixels that blend the instance,
     the sum of the transmittance before the blend and the number of those
     pixels.  The pair that stops a pixel adds nothing, and slots the walk
@@ -401,7 +412,7 @@ def tile_trans_plain(feat, ranges, limit, grid_x: int, width: int,
     for g0 in range(0, busy.numel(), TILE_GROUP):
         tiles = busy[g0:g0 + TILE_GROUP]
         s, e = starts[tiles], ends[tiles]
-        pxf, pyf, done = _tile_pixels(tiles, grid_x, width, height)
+        pxf, pyf, done = _tile_pixels(tiles, grid_x, width, height, base)
         t_cur = torch.ones(done.shape, dtype=torch.float32, device=dev)
         n_chunks = int(((e - s + K - 1) // K).max())
         for c in range(n_chunks):
@@ -420,38 +431,43 @@ def tile_trans_plain(feat, ranges, limit, grid_x: int, width: int,
 
 
 def _tile_trans_cuda(feat, ranges, limit, grid_x: int, width: int,
-                     height: int):
+                     height: int, base: int = 0):
     _check_walk_inputs("tile_trans", feat, ranges, limit)
     # zeros: slots the walk never reaches must read exactly 0
     out = torch.zeros((2, feat.shape[1]), dtype=torch.float32,
                       device=feat.device)
     with torch.cuda.device(feat.device):
         TILE_TRANS(_cuda.ptr(feat), feat.stride(0), _cuda.ptr(ranges),
-                   ranges.shape[1], _cuda.ptr(limit), grid_x, width, height,
-                   _cuda.ptr(out), out.stride(0), _cuda.stream_of(feat))
+                   ranges.shape[1], _cuda.ptr(limit), grid_x, base, width,
+                   height, _cuda.ptr(out), out.stride(0),
+                   _cuda.stream_of(feat))
     return out
 
 
-def tile_trans(feat, ranges, limit, grid_x: int, width: int, height: int):
+def tile_trans(feat, ranges, limit, grid_x: int, width: int, height: int,
+               base: int = 0):
     """K4 dispatch: the CUDA kernel on a CUDA tensor, the plain version on
     a CPU tensor (no fallback between them)."""
     if feat.device.type == "cuda":
-        return _tile_trans_cuda(feat, ranges, limit, grid_x, width, height)
+        return _tile_trans_cuda(feat, ranges, limit, grid_x, width, height,
+                                base)
     if feat.device.type == "cpu":
-        return tile_trans_plain(feat, ranges, limit, grid_x, width, height)
+        return tile_trans_plain(feat, ranges, limit, grid_x, width, height,
+                                base)
     raise ValueError(f"tile_trans: unsupported device {feat.device}")
 
 
 @torch.no_grad()
-def transmittance_by_primitive(binning: BinningOut, width: int, height: int):
+def transmittance_by_primitive(binning: BinningOut, width: int, height: int,
+                               base: int = 0):
     """(trans_sum (P,) f32, touched (P,) int32) in original primitive
     order: K4 on the exact f32 feature table (whatever grad_reduce is),
     then a scatter-add per primitive.  The accumulators are all positive,
     so a direct sum per primitive keeps the precision the culling
     statistics need; padding slots and slots at or past total_padded go
-    to a dump row."""
+    to a dump row.  base: as K2's (a strip's binning)."""
     feat, ranges, limit, grid_x = _walk_inputs(binning, width, fast=False)
-    acc = tile_trans(feat, ranges, limit, grid_x, width, height)
+    acc = tile_trans(feat, ranges, limit, grid_x, width, height, base)
     b_pad = feat.shape[1]
     num_p = binning.prim_inv.shape[0]
     slot = torch.arange(b_pad, device=feat.device)
@@ -670,26 +686,26 @@ class _RasterizeCore(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, means2d, conic, opacity, color, binning, width, height,
-                grad_reduce, marks):
+                grad_reduce, marks, base):
         fast = grad_reduce == "bf16x2"
         feat, ranges, limit, grid_x = _walk_inputs(binning, width, fast)
-        packed = tile_fwd(feat, ranges, limit, grid_x, width, height)
+        packed = tile_fwd(feat, ranges, limit, grid_x, width, height, base)
         ctx.save_for_backward(feat, ranges, limit, packed)
-        ctx.meta = (binning, grid_x, width, height, grad_reduce, marks)
+        ctx.meta = (binning, grid_x, width, height, grad_reduce, marks, base)
         return packed
 
     @staticmethod
     def backward(ctx, g_packed):
         feat, ranges, limit, packed = ctx.saved_tensors
-        binning, grid_x, width, height, grad_reduce, marks = ctx.meta
+        binning, grid_x, width, height, grad_reduce, marks, base = ctx.meta
         _mark(marks)
         dfeat = tile_bwd(feat, ranges, limit, grid_x, width, height,
-                         g_packed.contiguous(), packed)
+                         g_packed.contiguous(), packed, base)
         _mark(marks)
         sums = segment_reduce_by_src(dfeat, binning, grad_reduce)
         _mark(marks)
         return (sums[0:2].T, sums[2:5].T, sums[5], sums[6:9].T,
-                None, None, None, None, None)
+                None, None, None, None, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -702,24 +718,33 @@ def tile_render(prep: PreprocessOut, binning: BinningOut, background,
     """Tile-rendered image with reference-parity semantics, differentiable
     in prep.means2d, conic, opacity and color.
 
-    Returns (color (H,W,3), final_T (H,W), trans_sum (P,) | None, touched
+    tile_rows=(r0, num_rows), two ints, renders only that strip of tile
+    rows from the binning of the same window (bin_gaussians(tile_rows=)):
+    exactly num_rows * 16 pixel rows from row r0 * 16, where rows past the
+    image height composite to pure background (the caller crops them).
+
+    Returns (color (h,W,3), final_T (h,W), trans_sum (P,) | None, touched
     (P,) int32 | None); the last two (want_transmittance, kernel K4) carry
     no gradient.
     """
-    if tile_rows is not None:
-        raise NotImplementedError("strip rendering (tile_rows) is not "
-                                  "ported yet")
     if grad_reduce not in GRAD_REDUCE:
         raise ValueError(f"unknown grad_reduce {grad_reduce!r}")
     grid_x, grid_y = tile_grid(width, height)
+    r0, num_rows, crop_h = 0, grid_y, height
+    if tile_rows is not None:
+        r0, num_rows = tile_rows
+        crop_h = num_rows * TILE_Y
+    base = r0 * grid_x
     packed = _RasterizeCore.apply(prep.means2d, prep.conic, prep.opacity,
                                   prep.color, binning, width, height,
-                                  grad_reduce, marks)
-    color, t_fin = _packed_to_images(packed, grid_x, grid_y, width, height)
+                                  grad_reduce, marks, base)
+    color, t_fin = _packed_to_images(packed, grid_x, num_rows, width,
+                                     crop_h)
     bg = torch.as_tensor(background, dtype=torch.float32,
                          device=color.device)
     color = color + t_fin[:, :, None] * bg[None, None, :]
     g_trans = g_touch = None
     if want_transmittance:
-        g_trans, g_touch = transmittance_by_primitive(binning, width, height)
+        g_trans, g_touch = transmittance_by_primitive(binning, width, height,
+                                                      base)
     return color, t_fin, g_trans, g_touch

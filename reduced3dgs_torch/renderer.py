@@ -81,8 +81,15 @@ def render(
     grad_reduce: str = "f32",
     want_transmittance: bool = False,
     marks: list | None = None,
+    strip_r0: int | None = None,
+    strip_rows: int | None = None,
 ) -> RenderOut:
     """Render one view; every tensor lies on one device (the camera's).
+
+    strip_r0 / strip_rows ("tile" backend): bin and render only the strip
+    of tile rows [strip_r0, strip_r0 + strip_rows), strip_rows * 16 pixel
+    rows from row strip_r0 * 16 (the multi-device path); num_rendered is
+    the strip's demand.
 
     grad_reduce: the "tile" backend's per-primitive gradient reduction,
     "f32" or "bf16x2" (packed payload and the fast feature table, as in
@@ -100,7 +107,11 @@ def render(
         alive_mask=alive_mask, scale_modifier=scale_modifier,
         color_precomp=color_precomp, screen_offset=screen_offset)
     _mark(marks)
-    b = binning_ops.bin_gaussians(prep, width, height, instance_budget)
+    tile_rows = None if strip_rows is None else (strip_r0, strip_rows)
+    if tile_rows is not None and backend != "tile":
+        raise NotImplementedError("strip rendering is the tile backend's")
+    b = binning_ops.bin_gaussians(prep, width, height, instance_budget,
+                                  tile_rows=tile_rows)
     _mark(marks)
     # Overflow report: num_rendered > budget means truncation, and
     # total_padded > b_pad means the alignment slack pool ran out (the
@@ -124,8 +135,8 @@ def render(
 
         color, final_t, g_trans, g_touch = tile_render(
             prep, b, background, width, height,
-            want_transmittance=want_transmittance, grad_reduce=grad_reduce,
-            marks=marks)
+            want_transmittance=want_transmittance, tile_rows=tile_rows,
+            grad_reduce=grad_reduce, marks=marks)
     _mark(marks)
     return RenderOut(
         color=color,

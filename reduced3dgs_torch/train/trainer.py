@@ -734,8 +734,17 @@ class Trainer:
             # (same camera, same background)
             self._budget_for(camera.uid, needed)
         self.state = st
+        self._surgery(iteration, grads, final)
+        return metrics
 
-        pending = grads
+    def _surgery(self, iteration: int, pending, final: bool):
+        """What step() does after the backward: the densify / reset /
+        prune / mercy surgery of `iteration`'s events, the deferred
+        optimizer step with the `pending` gradients (None: none), and the
+        SH-band cull of a listed iteration."""
+        cfg = self.opt_cfg
+        will_densify, will_reset, will_prune_dead, will_mercy = (
+            self._events(iteration))
         if will_densify:
             pending = self.maybe_grow_pool(pending)
             use_size = iteration > cfg.opacity_reset_interval
@@ -790,4 +799,3 @@ class Trainer:
                 backend=self.backend, max_sh_degree=self.max_sh_degree,
                 active_sh_degree=int(self.state.pool.active_sh_degree))
             self.state = self.state._replace(pool=pool)
-        return metrics

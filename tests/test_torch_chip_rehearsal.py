@@ -1,6 +1,7 @@
 """chip_smoke.py's kernel checks of phases 2, 3 and 5, the WALK_EXP2
-comparison of phases 4 and 10, and its training, compression, fused-step
-and offline phases (7-14) rehearsed on the CPU at a tiny size.  The CUDA
+comparison of phases 4 and 10, and its training, compression, fused-step,
+offline and multi-device phases (7-15) rehearsed on the CPU at a tiny
+size.  The CUDA
 wrappers are replaced by their plain versions, which here count launches
 as the kernels do; CUDA events by a host clock; the profiled step is
 skipped, and the profiled group of phase 13 counts the plain versions'
@@ -282,3 +283,42 @@ def test_phase13_and_14_rehearsal(cpu_card, tmp_path, monkeypatch, capsys):
     out = capsys.readouterr().out
     assert "state by 0.000e+00" in out and "Fine-tuned 4 iterations" in out
     assert "train_quantised_half/ours_7: PSNR" in out
+
+
+def test_phase15_rehearsal(cpu_card, monkeypatch, capsys):
+    """Phase 15 at 96x64: the kernels at a tile base against their plain
+    versions, the strips against the full frame, the sharded trainers at
+    world size 1 (gloo here, NCCL on the card), the (1, 2) run as two
+    processes, the scaling harness's line and the blocked kNN check (its
+    limit lowered so that 3000 points take the blocked search)."""
+    from reduced3dgs_torch.ops import knn as tknn
+
+    monkeypatch.setattr(cs, "MULTI", dict(steps=3, knn_points=3000))
+    monkeypatch.setattr(cs, "SCALING_ARGS", (
+        "--device", "cpu", "--width", "64", "--prims", "256", "--iters",
+        "1"))
+    monkeypatch.setattr(tknn, "EXACT_LIMIT", 1000)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    launches = cs.multi_device_path(cpu_card, 0, "cpu", backend="gloo",
+                                    device="cpu")
+    out = capsys.readouterr().out
+    assert out.count("phase 15: K2 / K3 / K4 at tile base") == 3
+    assert "no instances" in out and "past the height" in out
+    assert "the main path's last strip, tile rows 3..4 of 96x64" in out
+    assert "as 4 strips of 1 tile rows" in out
+    assert "stitched against the full frame bit for bit" in out
+    for name in ("replicated", "param_shard"):
+        assert f"gloo at world size 1, ShardedTrainer {name}" in out
+    assert out.count("one sharded_train_step, param_shard=") == 2
+    assert out.count("two gloo ranks on the one card, param_shard=") == 2
+    assert "phase 15: scaling_bench {" in out
+    assert "blocked search" in out and "neighbour sets equal on" in out
+    # the path alone: per view a K1 / K2 / K3 / K6 per strip (4), the two
+    # sharded trainers' 2 x 3 steps, K4 on view 1's 4 strips, K5 once per
+    # layout of the raw-gradient step (not the full frames or the
+    # single-card references)
+    nv = cs.RING_VIEWS
+    assert launches["tile_trans"] == 4
+    assert launches["seg_reduce_packed"] == 4 * nv + 6
+    assert launches["seg_reduce_f32"] == 2
+    assert launches["expand"] == launches["tile_fwd"] == 4 * nv + 6 + 2

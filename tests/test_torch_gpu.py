@@ -33,7 +33,11 @@ replayed) against eager Trainer.steps on the 512p scene with the
 tolerances of tests/test_fused_steps.py (loss rtol 1e-5, parameters rtol
 5e-4 / atol 1e-3, num_rendered within 2, budgets equal), one capture for
 two groups, K1 / K2 / K3 / K6 once per replayed step; a capacity change
-between groups captures anew.
+between groups captures anew.  K2 / K3 / K4 at a tile base (the strips of
+the multi-device path) against their plain versions at that base, on a
+window past the image height and one with no instances, and at base 0
+the bits of a launch without it; strips of a view stitched, the full
+frame's pixels bit for bit.
 """
 
 import numpy as np
@@ -374,3 +378,60 @@ def test_step_group_recaptures_on_capacity_growth(cuda):
     _assert_group_matches(eager, graphed, m_eager, m_graphed)
     assert graphed.graph_captures == 2
     assert len(graphed._graphs) == 2
+
+
+def test_walk_kernels_at_a_tile_base_match_plain(cuda):
+    """K2, K3 and K4 on windows of tile rows at a tile base (one past the
+    image height, one with no instances, the main path's last 1080p
+    strip) against their plain versions at that base, two launches bit
+    for bit (chip_smoke.strip_kernel_checks checks all of it)."""
+    import chip_smoke as cs
+    from reduced3dgs_torch.ops import tile_render
+
+    before = [k.launches for k in (tile_render.TILE_FWD,
+                                   tile_render.TILE_BWD,
+                                   tile_render.TILE_TRANS)]
+    cs.strip_kernel_checks(cuda)
+    after = [k.launches for k in (tile_render.TILE_FWD,
+                                  tile_render.TILE_BWD,
+                                  tile_render.TILE_TRANS)]
+    assert [a - b for a, b in zip(after, before)] == [6, 6, 6]
+
+
+def test_walk_kernels_at_base_zero_unchanged(cuda):
+    """base = 0 is the whole frame: the keyword gives the bits of a launch
+    without it, K2, K3 and K4."""
+    import chip_smoke as cs
+    from reduced3dgs_torch.ops import tile_render as ttr
+
+    _, _, k2in = cs.kernel_inputs(cuda, 200, 136, 20000, (0.01, 0.05),
+                                  1 << 17)
+    a = ttr.tile_fwd(*k2in, 13, 200, 136)
+    assert torch.equal(a, ttr.tile_fwd(*k2in, 13, 200, 136, base=0))
+    g = cs.k3_cotangent(a, 0)
+    assert torch.equal(ttr.tile_bwd(*k2in, 13, 200, 136, g, a),
+                       ttr.tile_bwd(*k2in, 13, 200, 136, g, a, base=0))
+    assert torch.equal(ttr.tile_trans(*k2in, 13, 200, 136),
+                       ttr.tile_trans(*k2in, 13, 200, 136, base=0))
+
+
+def test_strips_stitch_to_the_full_frame_on_card(cuda):
+    """A 200x136 view as strips of 3 + 3 + 3 tile rows on the card (their
+    own binning, K1 / K2): stitched, the full frame's pixels bit for bit."""
+    import chip_smoke as cs
+    from reduced3dgs_torch.ops import binning, tile_render
+
+    prep, full_b, _ = cs.kernel_inputs(cuda, 200, 136, 20000, (0.01, 0.05),
+                                       1 << 17)
+    bg = torch.tensor([0.2, 0.1, 0.4], device=cuda)
+    with torch.no_grad():
+        full = tile_render.tile_render(prep, full_b, bg, 200, 136)
+        parts = [tile_render.tile_render(
+            prep, binning.bin_gaussians(prep, 200, 136, 1 << 17,
+                                        tile_rows=(r0, 3)),
+            bg, 200, 136, tile_rows=(r0, 3)) for r0 in (0, 3, 6)]
+    color = torch.cat([p[0] for p in parts])
+    t_fin = torch.cat([p[1] for p in parts])
+    assert torch.equal(color[:136], full[0])
+    assert torch.equal(t_fin[:136], full[1])
+    assert bool((t_fin[136:] == 1).all())

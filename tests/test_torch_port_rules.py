@@ -291,3 +291,41 @@ def test_walk_layout_tile_trans_mirrors_the_sources(tmp_path, monkeypatch):
     (copy / "tile_trans.cu").write_text(k4.replace(
         f"#define TILE_TRANS_BATCH {batch} ", "#define TILE_TRANS_BATCH 32 "))
     assert ttr.walk_layout("tile_trans")["batch"] == 32
+
+
+def test_parallel_and_utils_import_no_jax():
+    """parallel/ and utils/ are among the files the import rule reads, and
+    importing them (what spawn_local's children import) loads neither jax
+    nor reduced3dgs_tpu."""
+    files = _port_files()
+    for sub in ("parallel", "utils"):
+        assert any(f"{os.sep}{sub}{os.sep}" in f for f in files), sub
+    code = ("import sys; import reduced3dgs_torch.parallel.launch, "
+            "reduced3dgs_torch.parallel.sharded, "
+            "reduced3dgs_torch.utils.profiling; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}))")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip() == "[]"
+
+
+def test_profiling_scope_and_trace(tmp_path, capsys, monkeypatch):
+    """synced_scope names a range the torch.profiler trace holds (no NVTX
+    on the CPU) and, with record_time, prints its wall time; stop_trace
+    writes a Chrome trace."""
+    import json
+
+    from reduced3dgs_torch.utils import profiling
+
+    monkeypatch.setattr(profiling, "record_time", True)
+    profiling.start_trace(str(tmp_path / "trace"))
+    with profiling.synced_scope("scope_under_test"):
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    path = profiling.stop_trace()
+    events = json.load(open(path))["traceEvents"]
+    assert any(e.get("name") == "scope_under_test" for e in events)
+    assert "[profile] scope_under_test:" in capsys.readouterr().out
+    with pytest.raises(RuntimeError):
+        profiling.stop_trace()

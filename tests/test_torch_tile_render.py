@@ -299,7 +299,13 @@ def test_unported_options_raise(jax_prep):
     assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
     assert got[2].shape == got[3].shape == (tp.means2d.shape[0],)
     assert got[3].dtype == torch.int32 and int(got[3].sum()) > 1000
-    with pytest.raises(NotImplementedError):
-        ttr.tile_render(tp, tb, bg, W, H, tile_rows=(0, 1))
+    # strips are ported too (tests/test_torch_strips.py): the window of
+    # every tile row is the whole frame, padded to whole tiles
+    gy = -(-H // 16)
+    strip = ttr.tile_render(tp, tbin.bin_gaussians(tp, W, H, BUDGET,
+                                                   tile_rows=(0, gy)),
+                            bg, W, H, tile_rows=(0, gy))
+    assert torch.equal(strip[0][:H], plain[0])
+    assert torch.equal(strip[1][:H], plain[1])
     with pytest.raises(ValueError, match="grad_reduce"):
         ttr.tile_render(tp, tb, bg, W, H, grad_reduce="bf16")
