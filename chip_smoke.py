@@ -24,7 +24,8 @@ before the final line:
     primitives made from --seed, written as point_cloud.ply and
     point_cloud_quantised_half.ply (256-entry quantile codebooks), loaded
     through the port's Scene / ply_io, and rendered over a ring of 8 views
-    through reduced3dgs_torch.render (budget ladder, FPS by CUDA events);
+    through reduced3dgs_torch.render (budget ladder; FPS of the ring as a
+    replayed CUDA graph of its frames, timed by CUDA events);
     the kernels' launch counters are zeroed just before and read just
     after, and must have risen; the ring once more through K2 as built
     and through its expf build on the same inputs (PSNR between the two,
@@ -64,7 +65,9 @@ before the final line:
     densify iteration with pool growth and budget regrow included), then
     a few f32 steps; the loss must be finite and fall, and K1, K2, K3 and
     K6 (K5 in f32 mode) must run once per render.  It prints the median
-    step time, the fwd+bwd pixels/s bench.py reports, the stage times by
+    step time, the fwd+bwd pixels/s bench.py reports (through
+    reduced3dgs_torch.bench: its step replayed as a CUDA graph, at the
+    1080p geometry), the stage times by
     CUDA events (the reduction stage also split into key sort, kernel
     and reorder, on one step's own inputs) and the launches and idle
     share of one profiled step;
@@ -124,6 +127,19 @@ before the final line:
     gloo refused); python -m reduced3dgs_torch.parallel.launch --scaling;
     the certified blocked 30-NN search against knn_exact on 2^16 points
     of the scene (phase 12's mercy pass already went through it).
+16. on phase 12's model directory: the FPS ring through the graphed
+    measure_fps for baseline and quantised_half, dense and variable-SH,
+    every view of a replay bit for bit the eager render_once image, FPS
+    graphed and eager in turns (3 rounds), launches per replay, capture
+    seconds and the device idle share of one profiled replay;
+    python -m reduced3dgs_torch.bench --configs 1080p as a subprocess,
+    its num_rendered against an eager step's and one replayed step's
+    loss and gradients against the eager step's, bit for bit; one 1080p
+    viewer frame through network_gui.NetworkGUI over loopback against
+    render_view's image, byte for byte; python -m
+    reduced3dgs_torch.full_eval --dry_run --custom_scene on its scene and
+    python -m reduced3dgs_torch.generate_results on its model (with the
+    ring's FPS as fps_results.json).
 
 The last line is {"ok": true, "device": {...}}.  Without a card, or
 without the rest of the repository beside it, it exits non-zero first.
@@ -212,6 +228,9 @@ TRAIN = dict(steps=24, timed_steps=4, f32_steps=4, densify_from=15,
              densify_interval=24, percent_dense=0.003, grad_threshold=1e-4,
              dc_noise=0.3, opacity_noise=0.5, initial_budget=1 << 17)
 BENCH_BUDGET = 1 << 22  # bench.py's 1080p instance budget
+# phase 16: reduced3dgs_torch.bench's headline configuration (bench.py's
+# 1080p: width, height, primitives, scale range, budget, tag)
+BENCH_CONFIG = (1920, 1080, 1 << 19, (0.00432, 0.0189), 1 << 22, "1080p")
 # phase 13: 16 fusible iterations, eager and in groups of 8; the overflow
 # run starts every camera at a budget far under a 1080p view's need; the
 # timing alternates eager and graphed groups
@@ -868,9 +887,10 @@ def main_path(device, root, width, height, n, scales, seed, n_views):
             nrs.append(nr)
         fps = measure_fps(pv, views, bg)
         results[variant] = dict(
-            fps=fps["fps"], view_ms=fps["view_ms"], fps_budget=fps["budget"],
-            num_rendered=nrs, budgets=budgets, load_s=t_load,
-            images=torch.stack(imgs), pool=pv)
+            fps=fps["fps"], frames=fps["frames"], reps=fps["reps"],
+            capture_s=fps["capture_s"], fps_launches=fps["launches"],
+            fps_budget=fps["budget"], num_rendered=nrs, budgets=budgets,
+            load_s=t_load, images=torch.stack(imgs), pool=pv)
     results["write_s"] = t_write
     results["views"] = views
     return results
@@ -1094,11 +1114,12 @@ def main(argv=None):
           f"main path bypassed a kernel: {launches}")
     for variant in ("baseline", "quantised_half"):
         r = res[variant]
-        print(f"phase 4: {variant}: {r['fps']:.3f} FPS over {RING_VIEWS} "
-              f"views at {MAIN['width']}x{MAIN['height']} (budget "
+        print(f"phase 4: {variant}: {r['fps']:.3f} FPS over {r['frames']} "
+              f"frames ({RING_VIEWS} views x {r['reps']} replays of the "
+              f"graphed ring) at {MAIN['width']}x{MAIN['height']} (budget "
               f"{r['fps_budget']}, num_rendered {min(r['num_rendered'])}.."
-              f"{max(r['num_rendered'])}, view ms "
-              f"{', '.join(f'{v:.3f}' for v in r['view_ms'])}; load "
+              f"{max(r['num_rendered'])}; capture {r['capture_s']:.3f} s, "
+              f"launches per replay {r['fps_launches']}; load "
               f"{r['load_s']:.3f} s)", flush=True)
     q_psnr = psnr(res["baseline"]["images"], res["quantised_half"]["images"])
     print(f"phase 4: model write {res['write_s']:.3f} s; quantised_half vs "
@@ -1145,8 +1166,9 @@ def main(argv=None):
           f"{worst_16:.3e}", flush=True)
 
     # --- phase 9: the training main path at full width ------------------
-    pps, fb_ms, fb_nr = fwd_bwd_rate(dev, args.seed)
-    print(f"phase 9: fwd+bwd (render + L1 + gradients, bf16x2) at "
+    pps, fb_ms, fb_nr = fwd_bwd_rate(dev)
+    print(f"phase 9: fwd+bwd (render + L1 + gradients, bf16x2; "
+          f"reduced3dgs_torch.bench's step, a replayed CUDA graph) at "
           f"{MAIN['width']}x{MAIN['height']}, num_rendered {fb_nr}, budget "
           f"{BENCH_BUDGET}: {fb_ms:.3f} ms, {pps:.4e} pixels/s; {smi}",
           flush=True)
@@ -1184,12 +1206,15 @@ def main(argv=None):
     t0 = time.perf_counter()
     checkpoint_check(trainer, next_it, root, smi)
     compress_and_metrics(trainer, root, args.seed, smi)
-    shutil.rmtree(root, ignore_errors=True)
     print(f"phase 14: {time.perf_counter() - t0:.3f} s", flush=True)
     del trainer
 
     # --- phase 15: the multi-device path -----------------------------------
     multi_device_path(dev, args.seed, smi)
+
+    # --- phase 16: graphed ring and bench, viewer bridge, evaluation CLIs --
+    serving_tools_path(dev, root, smi)
+    shutil.rmtree(root, ignore_errors=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1671,34 +1696,18 @@ def small_grad_check(dev):
     return worst_ref, worst_16
 
 
-def fwd_bwd_rate(dev, seed):
-    """bench.py's quantity on the card: pixels/s through one
-    differentiable 1080p render (bf16x2) plus the L1 loss and its
-    gradients, on the bench scene seen from (0, 0, -3.6)."""
-    import torch
+def fwd_bwd_rate(dev):
+    """bench.py's quantity on the card through reduced3dgs_torch.bench:
+    pixels/s of its fwd+bwd step (one differentiable render, bf16x2, the
+    L1 loss and the gradients of the five leaves) replayed as a CUDA
+    graph, at MAIN's geometry and BENCH_BUDGET.  Returns (pixels/s, ms
+    per step, num_rendered)."""
+    from reduced3dgs_torch import bench
 
-    from reduced3dgs_torch.cameras import Camera
-    from reduced3dgs_torch.renderer import render
-
-    w, h = MAIN["width"], MAIN["height"]
-    arrs = [torch.as_tensor(a, device=dev)
-            for a in bench_scene(MAIN["n"], MAIN["scales"], seed)]
-    cp = Camera.look_at(eye=(0, 0, -3.6), target=(0, 0, 0), width=w,
-                        height=h).params(dev)
-    bg = torch.zeros(3, device=dev)
-    leaves = [a.requires_grad_(True) for a in arrs[:5]]
-    nr = []
-
-    def step():
-        out = render(*leaves, arrs[5], cp, bg, width=w, height=h,
-                     instance_budget=BENCH_BUDGET, grad_reduce="bf16x2")
-        torch.autograd.grad(out.color.abs().mean(), leaves)
-        nr.append(out.num_rendered)
-
-    ms = time_ms(step, 10)
-    n = int(nr[-1])
+    pps, n, step_s = bench.measure(MAIN["width"], MAIN["height"], MAIN["n"],
+                                   *MAIN["scales"], BENCH_BUDGET, dev)
     check(n <= BENCH_BUDGET, "fwd+bwd: the bench budget truncates")
-    return w * h / (ms / 1e3), ms, n
+    return pps, step_s * 1e3, n
 
 
 def train_cameras(dev, seed, n_views=RING_VIEWS, scene=None):
@@ -3187,6 +3196,236 @@ def multi_device_path(dev, seed, smi, backend="nccl", device="cuda"):
     knn_subset_check(dev, seed, smi)
     print(f"phase 15: {time.perf_counter() - t0:.3f} s", flush=True)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the graphed ring and bench step, the viewer bridge, the
+# evaluation CLIs
+# ---------------------------------------------------------------------------
+
+def bench_line(device, config):
+    """python -m reduced3dgs_torch.bench --configs <tag> as a subprocess;
+    returns its JSON line."""
+    out = _run_module(["reduced3dgs_torch.bench", "--configs", config[-1],
+                       "--device", device], timeout=900)
+    lines = [json.loads(ln) for ln in out.splitlines()
+             if ln.startswith("{")]
+    check(len(lines) == 1, f"phase 16: bench printed {out!r}")
+    return lines[0]
+
+
+def ring_graph_checks(scene, dev, smi):
+    """The FPS ring of phase 12's model through measure_fps, for baseline
+    and quantised_half, dense and variable-SH: every view of one graph
+    replay bit for bit the eager render_once image; FPS graphed and eager
+    in turns; the launches per replay, capture_s and the device idle
+    share of one profiled replay.  Returns ({variant: graphed FPS of the
+    dense path}, the baseline's settled budget)."""
+    import torch
+
+    from reduced3dgs_torch.graphs import Looped, time_replays
+    from reduced3dgs_torch.render import (
+        MODELS_CONFIG, PoolView, fps_ring, measure_fps, render_once,
+    )
+
+    views = scene.get_train_cameras()
+    bg = torch.zeros(3, device=dev)
+    fps, budgets = {}, {}
+    for variant in ("baseline", "quantised_half"):
+        conf = MODELS_CONFIG[variant]
+        pool = scene.load_model(quantised=conf["quantised"],
+                                half_float=conf["half_float"], device=dev)
+        for variable_sh in (False, True):
+            what = f"{variant}{', variable-SH' if variable_sh else ''}"
+            pv = PoolView(pool, variable_sh=variable_sh)
+            res = measure_fps(pv, views, bg)
+            budget, reps = res["budget"], res["reps"]
+            cps = [c.params(dev) for c in views]
+            graph = fps_ring(pv, cps, bg, budget)
+            eager = Looped(lambda: [render_once(pv, cp, bg, budget)
+                                    for cp in cps])
+            graph.replay()
+            for cp, g in zip(cps, graph.out):
+                e = render_once(pv, cp, bg, budget)
+                check(torch.equal(g.color, e.color)
+                      and torch.equal(g.final_t, e.final_t)
+                      and int(g.num_rendered) == int(e.num_rendered),
+                      f"phase 16: {what}: a graphed view differs from "
+                      "its eager render")
+            turns = {"graphed": [], "eager": []}
+            for r in range(3):
+                order = (graph, eager) if r % 2 == 0 else (eager, graph)
+                for run in order:
+                    sec = time_replays(run, reps, dev)
+                    turns["graphed" if run is graph else "eager"].append(
+                        res["frames"] / sec)
+            counts, busy, span, _, host = profiled(graph.replay)
+            print(f"phase 16: {what}: measure_fps {res['fps']:.3f} FPS over "
+                  f"{res['frames']} frames ({len(views)} views x {reps} "
+                  f"replays, budget {budget}, capture {res['capture_s']:.3f}"
+                  f" s, launches per replay {res['launches']}); "
+                  f"{len(views)} graphed views bit for bit the eager "
+                  "images; FPS in turns "
+                  + "; ".join(f"{k} {', '.join(f'{v:.3f}' for v in t)}"
+                              for k, t in turns.items())
+                  + f"; one profiled replay: kernels by name {counts}, "
+                  f"{busy:.3f} ms of kernel time over a CUDA-event span of "
+                  f"{span:.3f} ms ({busy / len(views):.3f} ms per frame), "
+                  f"device idle {(1 - busy / span) * 100:.1f} %, host "
+                  f"launch calls {host}; {smi}", flush=True)
+            want = {"expand": len(views), "tile_fwd": len(views)}
+            check(all(res["launches"][k] == v for k, v in want.items()),
+                  f"phase 16: {what}: not one K1 and K2 per frame: "
+                  f"{res['launches']}")
+            if not variable_sh:
+                fps[variant] = res["fps"]
+                budgets[variant] = budget
+            del graph, eager
+    return fps, budgets["baseline"]
+
+
+def bench_checks(dev, smi):
+    """bench.py's 1080p configuration through the port's bench CLI, then
+    its step in this process: num_rendered of an eager step equals the
+    line's, and one replayed step's gradients equal the eager step's bit
+    for bit."""
+    import torch
+
+    from reduced3dgs_torch import bench
+
+    cfg = BENCH_CONFIG
+    t0 = time.perf_counter()
+    line = bench_line(dev.type, cfg)
+    t_cli = time.perf_counter() - t0
+    width, height, n, (smin, smax), budget, tag = cfg
+    fb = bench.FwdBwd(width, height, n, smin, smax, budget, dev)
+    loss, nr, grads = fb.step()
+    run = fb.runner()
+    run.replay()
+    g_loss, g_nr, g_grads = run.out
+    same = (torch.equal(loss, g_loss) and int(nr) == int(g_nr)
+            and all(torch.equal(a, b) for a, b in zip(grads, g_grads)))
+    print(f"phase 16: python -m reduced3dgs_torch.bench --configs {tag} in "
+          f"{t_cli:.3f} s: {json.dumps(line)}; eager num_rendered "
+          f"{int(nr)}; one replayed step's loss and five gradients "
+          f"{'bit for bit' if same else 'DIFFER from'} the eager step's "
+          f"(launches per replay {run.launches}, capture "
+          f"{run.capture_s:.3f} s); {smi}", flush=True)
+    check(line["metric"] == f"raster_fwd_bwd_{tag}" and line["value"] > 0
+          and line["num_rendered"] == int(nr),
+          f"phase 16: the bench line {line} against num_rendered {int(nr)}")
+    check(same, "phase 16: the replayed bench step differs from the eager")
+
+
+def viewer_frame_check(scene, src, dev, budget, smi):
+    """One loopback frame of ring view 0 through NetworkGUI on the card:
+    its bytes equal render_view's image quantised the same way."""
+    import socket
+    import struct
+    import threading
+    from types import SimpleNamespace
+
+    import torch
+
+    from reduced3dgs_torch.network_gui import NetworkGUI
+    from reduced3dgs_torch.render import PoolView, render_view
+
+    pool = scene.load_model(device=dev)
+    cam = scene.get_train_cameras()[0]
+    bg = torch.zeros(3, device=dev)
+    trainer = SimpleNamespace(state=SimpleNamespace(pool=pool),
+                              opt_cfg=SimpleNamespace(iterations=100),
+                              initial_budget=budget, device=dev)
+    gui = NetworkGUI("127.0.0.1", 0, src, trainer,
+                     SimpleNamespace(backend="tile"), bg)
+    check(gui.enabled, "phase 16: the viewer bridge did not bind")
+    view = cam.world_view_transform.copy()
+    view[:, 1:3] *= -1
+    proj = cam.full_proj_transform.copy()
+    proj[:, 1] *= -1
+    msg = json.dumps({
+        "resolution_x": cam.width, "resolution_y": cam.height,
+        "train": True, "keep_alive": False, "scaling_modifier": 1.0,
+        "fov_x": cam.fov_x, "fov_y": cam.fov_y, "z_near": 0.01,
+        "z_far": 100.0, "view_matrix": view.ravel().tolist(),
+        "view_projection_matrix": proj.ravel().tolist()}).encode()
+    nbytes = cam.width * cam.height * 3
+    t0 = time.perf_counter()
+    with socket.create_connection(gui.listener.getsockname()) as client:
+        client.sendall(struct.pack("<I", len(msg)) + msg)
+        reply = []
+
+        def receive():  # the frame does not fit the socket's buffers
+            buf = b""
+            while len(buf) < nbytes + 4:
+                buf += client.recv(1 << 20)
+            vlen = struct.unpack("<I", buf[nbytes:nbytes + 4])[0]
+            while len(buf) < nbytes + 4 + vlen:
+                buf += client.recv(1 << 20)
+            reply.append(buf)
+
+        th = threading.Thread(target=receive)
+        th.start()
+        gui.poll(1)
+        th.join(timeout=60)
+        check(not th.is_alive() and reply, "phase 16: no viewer reply")
+    dt = time.perf_counter() - t0
+    gui.close()
+    frame, verify = reply[0][:nbytes], reply[0][nbytes + 4:].decode()
+    out, _ = render_view(PoolView(pool), cam, bg, budget)
+    want = (torch.clamp(out.color, 0, 1).cpu().numpy() * 255).astype(
+        np.uint8).tobytes()
+    print(f"phase 16: one {cam.width}x{cam.height} viewer frame through "
+          f"NetworkGUI (loopback, budget {budget}) in {dt:.3f} s: "
+          f"{'bytes equal' if frame == want else 'bytes DIFFER from'} "
+          f"render_view's image, verify string {verify!r}; {smi}",
+          flush=True)
+    check(frame == want and verify == src,
+          "phase 16: the viewer frame differs from render_view's")
+
+
+def serving_tools_path(dev, root, smi):
+    """Phase 16 on phase 12's model directory (root/model, its COLMAP
+    text in root/source): the graphed FPS ring, the bench, one viewer
+    frame, full_eval --dry_run and generate_results."""
+    from reduced3dgs_torch.config import ModelParams
+    from reduced3dgs_torch.generate_results import VARIANT_FILES
+    from reduced3dgs_torch.scene import Scene, search_max_iteration
+
+    t0 = time.perf_counter()
+    src, model = os.path.join(root, "source"), os.path.join(root, "model")
+    it = search_max_iteration(os.path.join(model, "point_cloud"))
+    scene = Scene(ModelParams(source_path=src, model_path=model,
+                              resolution=1),
+                  load_iteration=it, shuffle=False, lazy_images=True)
+    fps, budget = ring_graph_checks(scene, dev, smi)
+    with open(os.path.join(model, "fps_results.json"), "w") as f:
+        json.dump(fps, f, indent=2)
+    bench_checks(dev, smi)
+    viewer_frame_check(scene, src, dev, budget, smi)
+
+    out = _run_module(["reduced3dgs_torch.full_eval", "--dry_run",
+                       "--custom_scene", src, "--iterations", "30",
+                       "--device", dev.type], timeout=120)
+    cmds = out.strip().splitlines()
+    check(len(cmds) == 3 and all(
+        f"-m reduced3dgs_torch.{m} " in c and c.endswith(
+            f"--device {dev.type}")
+        for m, c in zip(("train", "render", "metrics"), cmds)),
+        f"phase 16: full_eval --dry_run printed {cmds}")
+    _run_module(["reduced3dgs_torch.generate_results", "-m", model,
+                 "--iteration", str(it)], timeout=120)
+    stored = [f for _, f in VARIANT_FILES if os.path.exists(
+        os.path.join(model, "point_cloud", f"iteration_{it}", f))]
+    with open(os.path.join(root, "summary.csv")) as f:
+        rows = f.read().strip().splitlines()
+    check(len(rows) == 1 + len(stored) and rows[0].endswith(",fps"),
+          f"phase 16: summary.csv {rows} for {stored}")
+    print(f"phase 16: full_eval --dry_run --custom_scene on phase 12's "
+          f"scene: {len(cmds)} commands ({'; '.join(cmds)}); "
+          f"generate_results on its model: summary.csv header "
+          f"{rows[0]}, {len(rows) - 1} rows", flush=True)
+    print(f"phase 16: {time.perf_counter() - t0:.3f} s", flush=True)
 
 
 if __name__ == "__main__":

@@ -7,8 +7,9 @@
 Loads a trained model directory (self-describing via cfg_args), renders
 the train/test splits of each requested variant into
 ``<split>/<variant>/ours_<iter>/{renders,gt}/NNNNN.png``, and measures
-FPS per view with CUDA events after one warm-up pass (on the CPU with the
-host clock), writing ``fps_results.json``:
+FPS as root render.py does (the first 50 test, else train, views of one
+resolution, repeated to at least 32 frames, timed in one window), writing
+``fps_results.json``:
 
   baseline        point_cloud.ply
   quantised       point_cloud_quantised.ply
@@ -16,16 +17,18 @@ host clock), writing ``fps_results.json``:
   quantised_pack  point_cloud_quantised_pack.ply (u16c xyz codec)
 
 The instance budget climbs the {2^k, 3*2^(k-1)} ladder until the views'
-true instance counts fit.  --variable_sh_bands reorders each loaded pool
-by SH degree once and shades from one packed coefficient block per band
-(models/variable_sh.py); the colours enter the renderer as color_precomp.
+true instance counts fit; the FPS ring then renders every view at one
+budget, on the card as a replayed CUDA graph of all its frames.
+--variable_sh_bands reorders each loaded pool by SH degree once and
+shades from one packed coefficient block per band
+(models/variable_sh.py); the colours enter the renderer as
+color_precomp.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import time
 from argparse import ArgumentParser
 
 import numpy as np
@@ -39,6 +42,7 @@ MODELS_CONFIG = {
                        "pack_xyz": True},
 }
 FPS_START_BUDGET = 1 << 15
+FPS_MIN_FRAMES = 32  # the views repeat to at least this many timed frames
 VIEW_START_BUDGET = 1 << 19
 
 
@@ -125,36 +129,62 @@ def render_set(pv: PoolView, cams, background, out_dir: str,
                       (np.clip(cam.image, 0, 1) * 255).astype(np.uint8))
 
 
-def measure_fps(pv: PoolView, cams, background, backend: str = "tile",
-                budget: int = FPS_START_BUDGET):
-    """One warm-up pass that also settles the budget on the ladder, then
-    one timed pass, each view timed alone (CUDA events on the card, the
-    host clock on the CPU).  Returns a dict with fps, the budget, the
-    per-view milliseconds and the largest instance count."""
-    cps = [c.params(pv.device) for c in cams]
-    while True:  # warm-up; restart whenever a view needs a larger budget
+def settle_budget(pv: PoolView, cps, background, budget: int,
+                  backend: str = "tile"):
+    """The eager warm-up pass of the FPS ring: render every view at
+    `budget`, climbing the ladder and starting over whenever a view
+    needs more.  Returns (budget, the largest instance count)."""
+    while True:
         needed = max(int(render_once(pv, cp, background, budget,
                                      backend).num_rendered) for cp in cps)
         if needed <= budget:
-            break
+            return budget, needed
         budget = next_budget(budget, needed)
-    ms = []
-    on_card = pv.device.type == "cuda"
-    for cp in cps:
-        if on_card:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            render_once(pv, cp, background, budget, backend)
-            end.record()
-            end.synchronize()
-            ms.append(start.elapsed_time(end))
-        else:
-            t0 = time.perf_counter()
-            render_once(pv, cp, background, budget, backend)
-            ms.append((time.perf_counter() - t0) * 1e3)
-    return {"fps": len(cams) / (sum(ms) / 1e3), "budget": budget,
-            "view_ms": ms, "num_rendered_max": needed}
+
+
+def fps_ring(pv: PoolView, cps, background, budget: int,
+             backend: str = "tile"):
+    """The ring's frames, one render_once per view at one budget, as a
+    replayable runner (graphs.py): on the card the n_views frames
+    captured in one CUDA graph (the counterpart of root render.py's
+    lax.scan over the stacked views in one launch), on the CPU the same
+    frames eagerly.  ``runner.out`` holds the views' RenderOuts."""
+    from reduced3dgs_torch import graphs
+
+    def frames():
+        return [render_once(pv, cp, background, budget, backend)
+                for cp in cps]
+
+    return graphs.runner(frames, pv.device)
+
+
+def measure_fps(pv: PoolView, cams, background, backend: str = "tile",
+                budget: int = FPS_START_BUDGET):
+    """Root render.py's FPS: the views (one resolution) repeated to at
+    least FPS_MIN_FRAMES frames, one budget for all of them settled by
+    the eager ladder, then one timed window of n_views * reps frames with
+    no host read inside it: the graphed ring replayed reps times on the
+    card (CUDA events around the window), the same frames eagerly on the
+    CPU (host clock).  Returns fps, the budget, frames, reps, capture_s,
+    the launches of each kernel per replay and the largest instance
+    count."""
+    from reduced3dgs_torch.graphs import time_replays
+
+    cps = [c.params(pv.device) for c in cams]
+    budget, needed = settle_budget(pv, cps, background, budget, backend)
+    reps = ring_reps(len(cps))
+    ring = fps_ring(pv, cps, background, budget, backend)
+    seconds = time_replays(ring, reps, pv.device)
+    frames = len(cps) * reps
+    return {"fps": frames / seconds, "budget": budget, "frames": frames,
+            "reps": reps, "capture_s": ring.capture_s,
+            "launches": ring.launches, "num_rendered_max": needed}
+
+
+def ring_reps(n_views: int) -> int:
+    """How often root render.py repeats n_views views in its timed
+    launch: to at least FPS_MIN_FRAMES frames."""
+    return max(1, -(-FPS_MIN_FRAMES // n_views))
 
 
 def main(argv=None):
@@ -211,8 +241,9 @@ def main(argv=None):
             cams = [c for c in cams if (c.width, c.height) == (w, h)]
             res = measure_fps(pv, cams, background, pipe.backend)
             fps_results[model] = res["fps"]
-            print(f"Model {model}: {res['fps']:.1f} FPS over {len(cams)} "
-                  f"views on {device} (budget {res['budget']})")
+            print(f"Model {model}: {res['fps']:.1f} FPS ({len(cams)} views "
+                  f"x {res['reps']} reps in one timed window) on {device} "
+                  f"(budget {res['budget']})")
 
     with open(os.path.join(args.model_path, "fps_results.json"), "w") as f:
         json.dump(fps_results, f, indent=2)

@@ -19,7 +19,10 @@ replays after the group.  --checkpoint_iterations writes
 <model_dir>/chkpntN.npz (train/checkpoint.py, the JAX package's layout)
 and --start_checkpoint resumes from one.  Refused up front:
 --variable_sh_bands (a rendering option; see reduced3dgs_torch.render).
-No TensorBoard and no network GUI.
+--ip / --port open the SIBR viewer bridge (network_gui.py), polled at
+the top of every iteration or step group as train.py does; if the port
+cannot be bound it prints "Network GUI disabled" and training goes on.
+No TensorBoard.
 """
 
 from __future__ import annotations
@@ -131,6 +134,7 @@ def main(argv=None):
     if args.detect_anomaly:
         torch.autograd.set_detect_anomaly(True)
 
+    from reduced3dgs_torch.network_gui import NetworkGUI
     from reduced3dgs_torch.ops.losses import psnr
     from reduced3dgs_torch.renderer import render
     from reduced3dgs_torch.scene import Scene
@@ -159,6 +163,8 @@ def main(argv=None):
             load_checkpoint(args.start_checkpoint, device))
         print(f"Resuming from {args.start_checkpoint} at iteration "
               f"{first_iter}")
+    gui = NetworkGUI(args.ip, args.port, dataset.source_path, trainer, pipe,
+                     background)
 
     def eval_report(iteration):
         train_cams = scene.get_train_cameras()
@@ -232,6 +238,7 @@ def main(argv=None):
     t_start = time.perf_counter()
     iteration = first_iter + 1
     while iteration <= opt.iterations:
+        gui.poll(iteration)
         k = 1
         if fused > 1 and trainer.fusible(iteration):
             while (k < fused and iteration + k <= opt.iterations
@@ -248,6 +255,7 @@ def main(argv=None):
             post_step(iteration, trainer.step(iteration))
             iteration += 1
 
+    gui.close()
     scene.pool = trainer.state.pool
     t_train = time.perf_counter() - t_start
     stats = {}

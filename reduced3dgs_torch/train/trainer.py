@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from reduced3dgs_torch.config import OptimizationParams
+from reduced3dgs_torch.graphs import Captured, kernel_counters
 from reduced3dgs_torch.models.gaussians import (
     GaussianParams, GaussianPool, grow, one_up_sh_degree, reset_opacity,
     round_capacity,
@@ -297,16 +298,6 @@ def fused_step(buf: FusedBuffers, *, width, height, budget, backend,
                                      for k in INT_METRICS]))
 
 
-def _kernels():
-    """The launch counters of the kernels a train step can reach."""
-    from reduced3dgs_torch.ops import binning, tile_render
-
-    return {"expand": binning.EXPAND, "tile_fwd": tile_render.TILE_FWD,
-            "tile_bwd": tile_render.TILE_BWD,
-            "seg_reduce_f32": tile_render.SEG_REDUCE_F32,
-            "seg_reduce_packed": tile_render.SEG_REDUCE_PACKED}
-
-
 class StepLoop:
     """The plain version of a step graph (the CPU's): replay() runs
     fused_step on the buffers."""
@@ -322,13 +313,10 @@ class StepLoop:
 
 
 class StepGraph:
-    """fused_step captured once as a CUDA graph on its own buffers.
-
-    GRAPH_WARMUP eager steps run first on a side stream, from `state`
-    with the step vector `vec` and the ground truth `gt` (lazy library
-    loads, cuDNN and autograd set-up happen there), then the step is
-    captured; capture runs no kernel.  ``launches`` holds each kernel's
-    launches in one replay (its counter's rise during the capture), and
+    """fused_step captured once as a CUDA graph on its own buffers
+    (graphs.Captured): GRAPH_WARMUP eager steps run first on a side
+    stream, from `state` with the step vector `vec` and the ground truth
+    `gt`.  ``launches`` holds each kernel's launches in one replay and
     ``capture_s`` the seconds of warm-up and capture."""
 
     def __init__(self, state: TrainState, vec, gt, step_kw: dict):
@@ -336,27 +324,18 @@ class StepGraph:
         self.buf = buf = FusedBuffers(state, step_kw["width"],
                                       step_kw["height"])
         self.step_kw = step_kw
-        side = torch.cuda.Stream(device=buf.vec.device)
-        side.wait_stream(torch.cuda.current_stream(buf.vec.device))
-        with torch.cuda.stream(side):
-            for _ in range(GRAPH_WARMUP):
-                buf.load(state)
-                buf.vec.copy_(vec)
-                buf.gt.copy_(gt)
-                fused_step(buf, **step_kw)
-        torch.cuda.current_stream(buf.vec.device).wait_stream(side)
-        kernels = _kernels()
-        before = {n: k.launches for n, k in kernels.items()}
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            fused_step(buf, **step_kw)
-        self.launches = {n: k.launches - before[n]
-                         for n, k in kernels.items()}
-        torch.cuda.synchronize(buf.vec.device)
-        self.capture_s = time.perf_counter() - t0
 
-    def replay(self):
-        self.graph.replay()
+        def warm():
+            buf.load(state)
+            buf.vec.copy_(vec)
+            buf.gt.copy_(gt)
+            fused_step(buf, **step_kw)
+
+        graph = Captured(lambda: fused_step(buf, **step_kw), warm,
+                         buf.vec.device, GRAPH_WARMUP)
+        self.replay = graph.replay
+        self.launches = graph.launches
+        self.capture_s = time.perf_counter() - t0
 
 
 def train_steps_fused(runner, state: TrainState, vecs, gts):
@@ -505,7 +484,7 @@ class Trainer:
         # step_group on the card: captured step graphs (least recently
         # used first), and what their replays and captures amounted to
         self._graphs: OrderedDict = OrderedDict()
-        self.graph_launches = {n: 0 for n in _kernels()}
+        self.graph_launches = {n: 0 for n in kernel_counters()}
         self.graph_captures = 0
         self.capture_s = 0.0
 

@@ -37,7 +37,8 @@ between groups captures anew.  K2 / K3 / K4 at a tile base (the strips of
 the multi-device path) against their plain versions at that base, on a
 window past the image height and one with no instances, and at base 0
 the bits of a launch without it; strips of a view stitched, the full
-frame's pixels bit for bit.
+frame's pixels bit for bit.  The FPS ring and the bench step as replayed
+CUDA graphs against their eager runs, bit for bit.
 """
 
 import numpy as np
@@ -435,3 +436,44 @@ def test_strips_stitch_to_the_full_frame_on_card(cuda):
     assert torch.equal(color[:136], full[0])
     assert torch.equal(t_fin[:136], full[1])
     assert bool((t_fin[136:] == 1).all())
+
+
+def test_graphed_ring_and_bench_step_match_eager(cuda):
+    """The FPS ring captured as one CUDA graph (render.py fps_ring) gives
+    every view's eager image bit for bit, dense and variable-SH, with one
+    K1 and one K2 per frame; the bench step replayed gives the eager
+    step's loss and gradients bit for bit."""
+    import chip_smoke as cs
+    from reduced3dgs_torch import bench
+    from reduced3dgs_torch.models.gaussians import (
+        padded_leaves, pool_from_numpy,
+    )
+    from reduced3dgs_torch.render import (
+        PoolView, fps_ring, measure_fps, render_once,
+    )
+
+    arrs = cs.make_arrays(1 << 14, (0.01, 0.05), 0)
+    arrs["degrees"] = np.random.default_rng(0).integers(
+        0, 4, 1 << 14).astype(np.int32)
+    pool = pool_from_numpy(padded_leaves(arrs), cuda)
+    cams = cs.ring_cameras(320, 240, n_views=3)
+    bg = torch.zeros(3, device=cuda)
+    for variable_sh in (False, True):
+        pv = PoolView(pool, variable_sh=variable_sh)
+        res = measure_fps(pv, cams, bg)
+        assert res["frames"] == 33 and res["fps"] > 0
+        assert res["launches"]["expand"] == res["launches"]["tile_fwd"] == 3
+        cps = [c.params(cuda) for c in cams]
+        ring = fps_ring(pv, cps, bg, res["budget"])
+        ring.replay()
+        for cp, got in zip(cps, ring.out):
+            want = render_once(pv, cp, bg, res["budget"])
+            assert torch.equal(got.color, want.color)
+            assert torch.equal(got.final_t, want.final_t)
+    fb = bench.FwdBwd(320, 240, 1 << 14, 0.01, 0.05, 1 << 17, cuda)
+    loss, nr, grads = fb.step()
+    run = fb.runner()
+    run.replay()
+    assert torch.equal(run.out[0], loss) and int(run.out[1]) == int(nr)
+    assert all(torch.equal(a, b) for a, b in zip(run.out[2], grads))
+    assert run.launches["tile_bwd"] == run.launches["seg_reduce_packed"] == 1
