@@ -124,7 +124,8 @@ before the final line:
     5e-6 / rtol 1e-4) with ms per step, and one sharded_train_step per
     layout against the single-card step's raw gradients (K5); the same
     on a (1, 2) mesh of two gloo processes on the one card (or the reason
-    gloo refused); python -m reduced3dgs_torch.parallel.launch --scaling;
+    gloo refused), whose step_group phase 17 reads; python -m
+    reduced3dgs_torch.parallel.launch --scaling (its step a graph);
     the certified blocked 30-NN search against knn_exact on 2^16 points
     of the scene (phase 12's mercy pass already went through it).
 16. on phase 12's model directory: the FPS ring through the graphed
@@ -140,6 +141,21 @@ before the final line:
     reduced3dgs_torch.full_eval --dry_run --custom_scene on its scene and
     python -m reduced3dgs_torch.generate_results on its model (with the
     ring's FPS as fps_results.json).
+17. sharded step groups and the profiling tools, in phase 15's process
+    group (world size 1, NCCL; phases 15-17 run inside it):
+    ShardedTrainer.step_group at the 1080p training geometry, replicated
+    and param_shard: a group of 8 replayed from one CUDA graph (its NCCL
+    collectives captured) against 8 ShardedTrainer.step calls from the
+    same state, every metric and every leaf bit for bit, one K1, K2, K3
+    and K6 per replayed step; from budgets that overflow, the group
+    re-run against the eager steps; graphed and eager ms per step in
+    turns (3 rounds); ShardedTrainer.step_group on phase 15's two gloo
+    ranks on the card raises; scaling_bench at 512x512 with 2^15
+    primitives graphed beside an eager run of the same steps (the same
+    loss); python -m reduced3dgs_torch.profile_components and
+    profile_trace (bf16x2: the top kernels of a replayed step) at bench.py's
+    1080p geometry in this process, microbench_gather and
+    microbench_binning as subprocesses, their lines printed.
 
 The last line is {"ok": true, "device": {...}}.  Without a card, or
 without the rest of the repository beside it, it exits non-zero first.
@@ -240,6 +256,16 @@ FUSED = dict(steps=16, group=8, overflow_budget=1 << 17, rounds=3)
 STRIPS = 4
 MULTI = dict(steps=4, knn_points=1 << 16)
 SCALING_ARGS = ()  # python -m reduced3dgs_torch.parallel.launch --scaling
+# phase 17: sharded step groups (their size, the rounds in turns, the
+# overflow run's starting budget), the graphed scaling harness at
+# parallel/launch.py's defaults, the profiling tools at bench.py's 1080p
+# geometry (profile_trace's replays and the kernels it lists), and extra
+# arguments of the microbenchmark subprocesses
+SHARDED = dict(group=8, rounds=3, overflow_budget=1 << 17)
+SCALING = dict(width=512, prims=1 << 15, iters=20)
+TOOLS = (1920, 1080, 1 << 19, 1 << 22)
+TRACE = dict(iters=5, top=30, scales=(0.00432, 0.0189))
+MICRO_ARGS = {"microbench_gather": (), "microbench_binning": ()}
 # phase 14: the offline compression's options
 COMPRESS = ("--pack_xyz", "--prune_frac", "0.17", "--finetune_iters", "32")
 # profiler kernel names of the train step's kernels (K5 and K6 are the
@@ -1209,12 +1235,19 @@ def main(argv=None):
     print(f"phase 14: {time.perf_counter() - t0:.3f} s", flush=True)
     del trainer
 
-    # --- phase 15: the multi-device path -----------------------------------
-    multi_device_path(dev, args.seed, smi)
+    with world_of_one("nccl"):
+        # --- phase 15: the multi-device path -------------------------------
+        _, gloo_groups = multi_device_path(dev, args.seed, smi)
 
-    # --- phase 16: graphed ring and bench, viewer bridge, evaluation CLIs --
+        # --- phase 17, part 1: sharded step groups in phase 15's group -----
+        launches17 = sharded_group_path(dev, args.seed, smi, gloo_groups)
+
+    # --- phase 16: graphed ring and bench, viewer bridge, CLIs -------------
     serving_tools_path(dev, root, smi)
     shutil.rmtree(root, ignore_errors=True)
+
+    # --- phase 17, part 2: scaling harness, profiling tools ----------------
+    sharded_tools_path(dev, smi, launches17)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1374,8 +1407,8 @@ def _profile_frames(pv, views, budget, smi):
     the idle share comes from one pass under torch.profiler: its kernel
     time against the CUDA-event span of that same pass."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
+    from reduced3dgs_torch.profile_trace import trace_call
     from reduced3dgs_torch.render import render_once
     from reduced3dgs_torch.renderer import STAGES
 
@@ -1401,39 +1434,26 @@ def _profile_frames(pv, views, budget, smi):
           f"; frame {sum(stage) / nv:.3f} ms on the device, "
           f"{host / nv * 1e3:.3f} ms host wall; {smi}", flush=True)
 
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for cp in cps:
-            render_once(pv, cp, bg, budget)
-        end.record()
-        end.synchronize()
-    span = start.elapsed_time(end) / nv
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-        if dev_us > 0:
-            rows.append((dev_us, e.count, e.key))
-    rows.sort(reverse=True)
+    trace, span = trace_call(
+        lambda: [render_once(pv, cp, bg, budget) for cp in cps], pv.device,
+        cuda_only=True, iters=nv)
+    rows = trace.kernel_rows()
     check(rows, "profiler saw no kernel on the card")
+    span /= nv
     # K1 writes binning's keys: no running max of the former key pass
     check(not any("cummax" in r[2] for r in rows),
           "a cummax kernel runs in the frame")
-    busy = sum(r[0] for r in rows) / 1e3 / nv
-    launches = sum(r[1] for r in rows) / nv
+    busy = trace.busy_ms
+    launches = sum(r[1] for r in rows)
     print(f"phase 6: profiled pass: {launches:.1f} kernel launches and "
           f"{busy:.3f} ms of kernel time per frame over a CUDA-event span "
           f"of {span:.3f} ms per frame (same pass, profiler on, CUDA "
           f"activity only): device "
           f"idle {(1 - busy / span) * 100:.1f} %; no cummax kernel; {smi}",
           flush=True)
-    for dev_us, count, key in rows[:PROFILE_TOP]:
-        print(f"phase 6: {dev_us / nv / 1e3:9.4f} ms/frame x{count / nv:<6.1f}"
-              f" {key[:100]}", flush=True)
+    for ms, count, key in rows[:PROFILE_TOP]:
+        print(f"phase 6: {ms:9.4f} ms/frame x{count:<6.1f} {key[:100]}",
+              flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1917,35 +1937,18 @@ def reduction_split(dfeat, binning, mode, smi):
 def profile_step(tr, it, smi):
     """One bf16x2 Trainer step under torch.profiler: kernel launches and
     kernel time against the CUDA-event span of that same step."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from reduced3dgs_torch.profile_trace import trace_call
 
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        start.record()
-        tr.step(it)
-        end.record()
-        end.synchronize()
-    span = start.elapsed_time(end)
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-        if dev_us > 0:
-            rows.append((dev_us, e.count, e.key))
-    rows.sort(reverse=True)
+    trace, span = trace_call(lambda: tr.step(it), tr.device, cuda_only=True)
+    rows = trace.kernel_rows()
     check(rows, "profiler saw no kernel of the train step")
-    busy = sum(r[0] for r in rows) / 1e3
+    busy = trace.busy_ms
     print(f"phase 9: profiled step: {sum(r[1] for r in rows)} kernel "
           f"launches and {busy:.3f} ms of kernel time over a CUDA-event "
           f"span of {span:.3f} ms (profiler on, CUDA activity only): "
           f"device idle {(1 - busy / span) * 100:.1f} %; {smi}", flush=True)
-    for dev_us, count, key in rows[:PROFILE_TOP]:
-        print(f"phase 9: {dev_us / 1e3:9.4f} ms x{count:<5d} {key[:100]}",
-              flush=True)
+    for ms, count, key in rows[:PROFILE_TOP]:
+        print(f"phase 9: {ms:9.4f} ms x{count:<5d} {key[:100]}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2398,33 +2401,15 @@ def profiled(fn):
     kernels by STEP_KERNELS name, kernel ms, the CUDA-event span in ms,
     all kernel launches, the host's launch calls: cudaLaunchKernel,
     cudaGraphLaunch, cudaMemcpyAsync and their variants)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from reduced3dgs_torch.profile_trace import LAUNCH_CALLS, trace_call
 
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-    counts = {n: 0 for n in STEP_KERNELS}
-    busy, launches, host = 0.0, 0, 0
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            dev_us = getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0.0))
-            if dev_us > 0:
-                busy += dev_us / 1e3
-                launches += e.count
-            for n, sym in STEP_KERNELS.items():
-                if sym in e.key:
-                    counts[n] += e.count
-        elif e.key.startswith(("cudaLaunchKernel", "cudaGraphLaunch",
-                               "cudaMemcpyAsync", "cuLaunchKernel")):
-            host += e.count
-    return counts, busy, start.elapsed_time(end), launches, host
+    trace, span = trace_call(fn, "cuda")
+    rows = trace.kernel_rows()
+    counts = {n: sum(c for _, c, key in rows if sym in key)
+              for n, sym in STEP_KERNELS.items()}
+    host = sum(c for name, c in trace.host_calls.items()
+               if name.startswith(LAUNCH_CALLS))
+    return (counts, trace.busy_ms, span, sum(r[1] for r in rows), host)
 
 
 def fused_main_path(tr, it, smi):
@@ -2904,15 +2889,33 @@ def strips_against_full(dev, seed, smi):
     return strip_l
 
 
-def sharded_trainers(dev, seed, smi, backend="nccl"):
-    """Part 2: torch.distributed at world size 1 under NCCL (a file://
-    rendezvous): ShardedTrainer on a (1, 1) mesh, replicated and
-    param_shard, against the single-card Trainer from the same state,
-    MULTI['steps'] plain bf16x2 iterations each, after raw_grad_check's
-    one sharded_train_step per layout.  Returns the kernels' launches of
-    the sharded steps alone (the single-card references excluded)."""
+@contextlib.contextmanager
+def world_of_one(backend):
+    """torch.distributed at world size 1 (a file:// rendezvous in a
+    temporary directory) for the body: phase 15 and phase 17's sharded
+    step groups run inside it."""
     import tempfile
 
+    import torch.distributed as dist
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous",
+                            world_size=1, rank=0)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def sharded_trainers(dev, seed, smi, backend="nccl"):
+    """Part 2: torch.distributed at world size 1 under NCCL (world_of_one,
+    open around phase 15 and phase 17's groups): ShardedTrainer on a
+    (1, 1) mesh, replicated and param_shard, against the single-card
+    Trainer from the same state, MULTI['steps'] plain bf16x2 iterations
+    each, after raw_grad_check's one sharded_train_step per layout.
+    Returns the kernels' launches of the sharded steps alone (the
+    single-card references excluded)."""
     import torch
     import torch.distributed as dist
 
@@ -2925,71 +2928,66 @@ def sharded_trainers(dev, seed, smi, backend="nccl"):
     kernels = {"expand": tbin.EXPAND, "tile_fwd": ttr.TILE_FWD,
                "tile_bwd": ttr.TILE_BWD,
                "seg_reduce_packed": ttr.SEG_REDUCE_PACKED}
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
-    dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous",
-                            world_size=1, rank=0)
-    try:
-        mesh = make_mesh(1, 1)
-        check(mesh.world is not None
-              and dist.get_backend(mesh.tile) == backend,
-              f"the (1, 1) mesh has no {backend} groups")
-        raw = raw_grad_check(dev, seed, dict(MAIN, budget=BENCH_BUDGET),
-                             mesh)
-        check_raw_grads([raw], f"{backend} at world size 1, one "
-                        "sharded_train_step", True)
-        launches = {n: 0 for n in kernels}
-        for shard in (False, True):
-            for n, v in raw[shard]["launches"].items():
-                launches[n] = launches.get(n, 0) + v
-        cams, leaves = train_cameras(dev, seed)
-        runs = {}
-        for name, shard in (("single", None), ("replicated", False),
-                            ("param_shard", True)):
-            pool = student_pool(dev, leaves, seed)
-            kw = ({} if shard is None else
-                  dict(cls=ShardedTrainer, mesh=mesh, param_shard=shard))
-            tr = make_trainer(pool, cams, seed, **kw)
-            before = {n: k.launches for n, k in kernels.items()}
-            losses, ms = run_steps(tr, 1, MULTI["steps"])
-            d = {n: k.launches - before[n] for n, k in kernels.items()}
-            check(all(v >= MULTI["steps"] and v == d["expand"]
-                      for v in d.values()),
-                  f"{name}: not one K1, K2, K3 and K6 per render: {d}")
-            if shard is not None:
-                for n in kernels:
-                    launches[n] += d[n]
-            st = (gather_state(tr.state, mesh, shard) if shard else
-                  tr.state)
-            runs[name] = (losses, ms, st, d)
-            del tr
-        l1, _, s1, _ = runs["single"]
-        for name in ("replicated", "param_shard"):
-            losses, ms, st, d = runs[name]
-            rel = max(abs(a - b) / abs(b) for a, b in zip(losses, l1))
-            check(rel <= 1e-5, f"{name}: losses off by {rel:.3e}")
-            worst, same = 0.0, True
-            for leaf in ("xyz", "scaling", "opacity", "features_dc"):
-                a = getattr(st.pool.params, leaf)
-                b = getattr(s1.pool.params, leaf)
-                ex = float(((a - b).abs() - 1e-4 * b.abs()).max())
-                check(ex <= 5e-6, f"{name}: parameter {leaf} off by {ex:.3e}")
-                worst = max(worst, ex)
-                same = same and torch.equal(a, b)
-            print(f"phase 15: {backend} at world size 1, ShardedTrainer "
-                  f"{name} on a (1, 1) mesh against the single-card "
-                  f"Trainer, {MULTI['steps']} bf16x2 steps at "
-                  f"{MAIN['width']}x{MAIN['height']}: losses off by at most "
-                  f"{rel:.3e} (rtol 1e-5), xyz / scaling / opacity / DC "
-                  f"at most {worst:.3e} past rtol 1e-4 (atol 5e-6)"
-                  f"{', bit for bit' if same else ''}; ms per "
-                  f"step {', '.join(f'{v:.1f}' for v in ms)} against "
-                  f"{', '.join(f'{v:.1f}' for v in runs['single'][1])} "
-                  f"single-card (host wall, synchronized; the first step "
-                  f"of each run warms up); launches {d}; {smi}", flush=True)
-        return launches
-    finally:
-        dist.destroy_process_group()
-        shutil.rmtree(tmp, ignore_errors=True)
+    check(dist.is_initialized() and dist.get_world_size() == 1,
+          "phase 15 runs inside a process group of one rank")
+    mesh = make_mesh(1, 1)
+    check(mesh.world is not None
+          and dist.get_backend(mesh.tile) == backend,
+          f"the (1, 1) mesh has no {backend} groups")
+    raw = raw_grad_check(dev, seed, dict(MAIN, budget=BENCH_BUDGET),
+                         mesh)
+    check_raw_grads([raw], f"{backend} at world size 1, one "
+                    "sharded_train_step", True)
+    launches = {n: 0 for n in kernels}
+    for shard in (False, True):
+        for n, v in raw[shard]["launches"].items():
+            launches[n] = launches.get(n, 0) + v
+    cams, leaves = train_cameras(dev, seed)
+    runs = {}
+    for name, shard in (("single", None), ("replicated", False),
+                        ("param_shard", True)):
+        pool = student_pool(dev, leaves, seed)
+        kw = ({} if shard is None else
+              dict(cls=ShardedTrainer, mesh=mesh, param_shard=shard))
+        tr = make_trainer(pool, cams, seed, **kw)
+        before = {n: k.launches for n, k in kernels.items()}
+        losses, ms = run_steps(tr, 1, MULTI["steps"])
+        d = {n: k.launches - before[n] for n, k in kernels.items()}
+        check(all(v >= MULTI["steps"] and v == d["expand"]
+                  for v in d.values()),
+              f"{name}: not one K1, K2, K3 and K6 per render: {d}")
+        if shard is not None:
+            for n in kernels:
+                launches[n] += d[n]
+        st = (gather_state(tr.state, mesh, shard) if shard else
+              tr.state)
+        runs[name] = (losses, ms, st, d)
+        del tr
+    l1, _, s1, _ = runs["single"]
+    for name in ("replicated", "param_shard"):
+        losses, ms, st, d = runs[name]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, l1))
+        check(rel <= 1e-5, f"{name}: losses off by {rel:.3e}")
+        worst, same = 0.0, True
+        for leaf in ("xyz", "scaling", "opacity", "features_dc"):
+            a = getattr(st.pool.params, leaf)
+            b = getattr(s1.pool.params, leaf)
+            ex = float(((a - b).abs() - 1e-4 * b.abs()).max())
+            check(ex <= 5e-6, f"{name}: parameter {leaf} off by {ex:.3e}")
+            worst = max(worst, ex)
+            same = same and torch.equal(a, b)
+        print(f"phase 15: {backend} at world size 1, ShardedTrainer "
+              f"{name} on a (1, 1) mesh against the single-card "
+              f"Trainer, {MULTI['steps']} bf16x2 steps at "
+              f"{MAIN['width']}x{MAIN['height']}: losses off by at most "
+              f"{rel:.3e} (rtol 1e-5), xyz / scaling / opacity / DC "
+              f"at most {worst:.3e} past rtol 1e-4 (atol 5e-6)"
+              f"{', bit for bit' if same else ''}; ms per "
+              f"step {', '.join(f'{v:.1f}' for v in ms)} against "
+              f"{', '.join(f'{v:.1f}' for v in runs['single'][1])} "
+              f"single-card (host wall, synchronized; the first step "
+              f"of each run warms up); launches {d}; {smi}", flush=True)
+    return launches
 
 
 def raw_grad_check(device, seed, scene, mesh):
@@ -3075,6 +3073,8 @@ def two_rank_child(rank, world, device, seed, scene):
 
     from reduced3dgs_torch.parallel.sharded import make_mesh
 
+    mesh = make_mesh(1, 2)
+    group = group_under_gloo(device, mesh)
     probe = torch.arange(4, dtype=torch.float32, device=device)
     try:
         dist.all_reduce(probe.clone())
@@ -3083,8 +3083,33 @@ def two_rank_child(rank, world, device, seed, scene):
                         probe)
         dist.broadcast(probe.clone(), 0)
     except RuntimeError as e:
-        return {"refused": str(e).strip().splitlines()[0]}
-    return raw_grad_check(device, seed, scene, make_mesh(1, 2))
+        return {"refused": str(e).strip().splitlines()[0], "group": group}
+    return dict(raw_grad_check(device, seed, scene, mesh), group=group)
+
+
+def group_under_gloo(device, mesh):
+    """ShardedTrainer.step_group of two iterations on a small scene on the
+    ranks' mesh under gloo (for phase 17): on the card it must raise,
+    since gloo's collectives cannot be captured in a CUDA graph; on the
+    CPU it runs its loop.  Returns ("raised", the message's first line)
+    or ("ran", the losses)."""
+    from reduced3dgs_torch.models.gaussians import (
+        padded_leaves, pool_from_numpy,
+    )
+    from reduced3dgs_torch.parallel.sharded import ShardedTrainer
+
+    cams = ring_cameras(64, 48, n_views=2)
+    for c in cams:
+        c.image = np.zeros((48, 64, 3), np.float32)
+    pool = pool_from_numpy(padded_leaves(make_arrays(256, MAIN["scales"], 0),
+                                         capacity=256), device)
+    tr = make_trainer(pool, cams, 0, cls=ShardedTrainer, mesh=mesh,
+                      param_shard=True)
+    try:
+        ms = tr.step_group([1, 2])
+    except RuntimeError as e:
+        return "raised", str(e).strip().splitlines()[0]
+    return "ran", [float(m["loss"]) for m in ms]
 
 
 def two_ranks_on_one_card(seed, smi, device="cuda"):
@@ -3095,17 +3120,19 @@ def two_ranks_on_one_card(seed, smi, device="cuda"):
     t0 = time.perf_counter()
     res = spawn_local(two_rank_child, 2, "gloo", device, seed,
                       dict(MAIN, budget=BENCH_BUDGET))
+    groups = [r["group"] for r in res]
     refused = [r["refused"] for r in res if "refused" in r]
     if refused:
         print(f"phase 15: the two-rank (1, 2) run on one card is left out: "
               f"gloo refused CUDA tensors ({refused[0]}); "
               f"tests/test_torch_parallel.py runs such ranks on the CPU",
               flush=True)
-        return
+        return groups
     check_raw_grads(res, "mesh (1, 2), two gloo ranks on the one card",
                     device == "cuda")
     print(f"phase 15: two-rank run {time.perf_counter() - t0:.3f} s "
           f"(both processes' start included); {smi}", flush=True)
+    return groups
 
 
 def scaling_line(smi):
@@ -3166,11 +3193,13 @@ def knn_subset_check(dev, seed, smi):
 
 
 def multi_device_path(dev, seed, smi, backend="nccl", device="cuda"):
-    """Phase 15.  The kernels' counts are zeroed after the checks against
-    the plain versions; the launches of the path are those of the strips
-    and of the sharded steps in this process, each read around its own
-    run (the full frames and single-card steps they are held to are not
-    counted); every kernel must have run.  Returns those counts."""
+    """Phase 15, inside world_of_one(backend).  The kernels' counts are
+    zeroed after the checks against the plain versions; the launches of
+    the path are those of the strips and of the sharded steps in this
+    process, each read around its own run (the full frames and
+    single-card steps they are held to are not counted); every kernel
+    must have run.  Returns those counts and the two gloo ranks'
+    step_group outcomes (group_under_gloo), which phase 17 reads."""
     from reduced3dgs_torch.ops import binning as tbin
     from reduced3dgs_torch.ops import tile_render as ttr
 
@@ -3191,11 +3220,11 @@ def multi_device_path(dev, seed, smi, backend="nccl", device="cuda"):
           f"(the strips {strip_l} and the sharded steps {shard_l}; the "
           f"references they are held to not counted) {launches}",
           flush=True)
-    two_ranks_on_one_card(seed, smi, device)
+    groups = two_ranks_on_one_card(seed, smi, device)
     scaling_line(smi)
     knn_subset_check(dev, seed, smi)
     print(f"phase 15: {time.perf_counter() - t0:.3f} s", flush=True)
-    return launches
+    return launches, groups
 
 
 # ---------------------------------------------------------------------------
@@ -3426,6 +3455,240 @@ def serving_tools_path(dev, root, smi):
           f"generate_results on its model: summary.csv header "
           f"{rows[0]}, {len(rows) - 1} rows", flush=True)
     print(f"phase 16: {time.perf_counter() - t0:.3f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 17: sharded step groups, the graphed scaling harness, the
+# profiling tools
+# ---------------------------------------------------------------------------
+
+def _state_leaves(tr):
+    from reduced3dgs_torch.train.trainer import carried
+
+    pool = tr.state.pool
+    return carried(tr.state) + (pool.degrees, pool.alive)
+
+
+def _same_run(a, b):
+    """Two runs (metrics, state leaves, budgets) equal bit for bit."""
+    import torch
+
+    return (all(sorted(x) == sorted(y)
+                and all(float(x[k]) == float(y[k]) for k in x)
+                for x, y in zip(a[0], b[0])) and len(a[0]) == len(b[0])
+            and all(torch.equal(x, y) for x, y in zip(a[1], b[1])))
+
+
+@contextlib.contextmanager
+def launches_into(acc):
+    """Adds each kernel's launches in the body (graphs.kernel_counters:
+    K1, K2, K3, K5, K6) to acc[name]."""
+    from reduced3dgs_torch.graphs import kernel_counters
+
+    kernels = kernel_counters()
+    before = {n: k.launches for n, k in kernels.items()}
+    try:
+        yield acc
+    finally:
+        for n, k in kernels.items():
+            acc[n] = acc.get(n, 0) + k.launches - before[n]
+
+
+def sharded_group_checks(tr, what, smi, acc):
+    """ShardedTrainer.step_group on `tr` (no host boundary in the
+    iterations it runs): a group of SHARDED['group'] from one state
+    against as many ShardedTrainer.step calls, every metric and leaf bit
+    for bit; the same from budgets small enough to overflow (the group
+    re-runs); graphed and eager ms per step in turns.  The groups'
+    launches (warm-ups and captures) are added to acc, the eager steps'
+    are not."""
+    import torch
+
+    g, rounds = SHARDED["group"], SHARDED["rounds"]
+    last = 1 + g + 2 * rounds * g
+    check(all(tr.fusible(i) for i in range(1, last)),
+          f"phase 17: {what}: the schedule has a host boundary")
+    tr.budgets = {c.uid: BENCH_BUDGET for c in tr.cameras}
+    snap = trainer_snapshot(tr)
+
+    def run(fn, budgets=None):
+        trainer_restore(tr, snap)
+        if budgets is not None:
+            tr.budgets = dict(budgets)
+        ms = fn()
+        torch.cuda.synchronize()
+        return ms, _state_leaves(tr), dict(tr.budgets)
+
+    eager = run(lambda: run_steps_eager(tr, 1, g))
+    before, captures = dict(tr.graph_launches), tr.graph_captures
+    with launches_into(acc):
+        grouped = run(lambda: tr.step_group(range(1, g + 1)))
+    per_replay = {n: (tr.graph_launches[n] - before[n]) // g for n in before}
+    same = _same_run(eager, grouped) and eager[2] == grouped[2]
+    losses = ", ".join(f"{float(m['loss']):.6f}" for m in grouped[0])
+    print(f"phase 17: {what}: a group of {g} replayed from one graph "
+          f"({tr.graph_captures - captures} capture, "
+          f"{tr.capture_s:.3f} s with its warm-up) against {g} "
+          f"ShardedTrainer.step calls from the same state: "
+          f"{'every metric and leaf bit for bit' if same else 'DIFFERENT'}"
+          f"; losses {losses}"
+          f"; launches per replayed step {per_replay}; {smi}", flush=True)
+    check(same, f"phase 17: {what}: the group differs from the steps")
+    want = ({"expand": 1, "tile_fwd": 1, "tile_bwd": 1,
+             "seg_reduce_packed": 1, "seg_reduce_f32": 0}
+            if tr.device.type == "cuda" else {n: 0 for n in per_replay})
+    check(per_replay == want, f"phase 17: {what}: not one K1, K2, K3 and "
+          f"K6 per replayed step: {per_replay}")
+
+    small = {c.uid: SHARDED["overflow_budget"] for c in tr.cameras}
+    captures = tr.graph_captures
+    e_over = run(lambda: run_steps_eager(tr, 1, g), small)
+    with launches_into(acc):
+        g_over = run(lambda: tr.step_group(range(1, g + 1)), small)
+    loss = max(abs(float(a["loss"]) - float(b["loss"]))
+               / abs(float(a["loss"])) for a, b in zip(e_over[0], g_over[0]))
+    close = all(bool(torch.allclose(b, a, rtol=5e-4, atol=1e-3))
+                for a, b in zip(e_over[1], g_over[1]))
+    print(f"phase 17: {what}: from budgets of {SHARDED['overflow_budget']}:"
+          f" the group re-ran ({tr.graph_captures - captures} captures, "
+          f"budgets {sorted(set(g_over[2].values()))}; the steps' "
+          f"{sorted(set(e_over[2].values()))}); against the steps "
+          f"{'bit for bit' if _same_run(e_over, g_over) else 'not bit for bit'}"
+          f", loss {loss:.3e} (rtol 1e-5)", flush=True)
+    check(loss <= 1e-5 and close
+          and max(g_over[2].values()) > SHARDED["overflow_budget"],
+          f"phase 17: {what}: the overflowing group differs")
+
+    first = g + 1
+    times = {"eager": [], "graphed": []}
+    for r in range(rounds):
+        order = ("eager", "graphed") if r % 2 == 0 else ("graphed", "eager")
+        for who in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if who == "eager":
+                run_steps_eager(tr, first, g)
+            else:
+                with launches_into(acc):
+                    tr.step_group(range(first, first + g))
+            torch.cuda.synchronize()
+            times[who].append((time.perf_counter() - t0) * 1e3 / g)
+            first += g
+    print(f"phase 17: {what}: ms per step (host wall, synchronized, groups "
+          f"of {g}, in turns): "
+          + "; ".join(f"{w} {', '.join(f'{v:.3f}' for v in t)} (median "
+                      f"{float(np.median(t)):.3f})" for w, t in times.items())
+          + f"; {smi}", flush=True)
+
+
+def sharded_group_path(dev, seed, smi, gloo_groups):
+    """Phase 17, part 1, inside world_of_one just after phase 15:
+    ShardedTrainer.step_group at world size 1 in that group (NCCL on the
+    card, its collectives captured), replicated and param_shard, at the
+    1080p training geometry (phase 9's scene and student, no
+    densification); then phase 15's two gloo ranks' step_group outcomes
+    (gloo_groups), which must have raised on the card.  The kernels'
+    counts are zeroed first; returns the launches of the groups alone
+    (the eager steps they are held to not counted)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from reduced3dgs_torch.graphs import kernel_counters
+    from reduced3dgs_torch.parallel.sharded import (
+        ShardedTrainer, make_mesh,
+    )
+
+    t0 = time.perf_counter()
+    for k in kernel_counters().values():
+        k.launches = 0
+    acc = {}
+    mesh = make_mesh(1, 1)
+    backend = dist.get_backend(mesh.world)
+    cams, leaves = train_cameras(dev, seed)
+    for shard in (False, True):
+        tr = make_trainer(student_pool(dev, leaves, seed), cams, seed,
+                          cls=ShardedTrainer, mesh=mesh, param_shard=shard)
+        tr.opt_cfg = dataclasses.replace(tr.opt_cfg, densify_until_iter=0)
+        sharded_group_checks(
+            tr, f"{backend} at world size 1, "
+            f"{'param_shard' if shard else 'replicated'}, bf16x2, "
+            f"{MAIN['width']}x{MAIN['height']}", smi, acc)
+        del tr
+    want = "raised" if dev.type == "cuda" else "ran"
+    print(f"phase 17: ShardedTrainer.step_group on phase 15's two gloo "
+          f"ranks ({dev.type}): {gloo_groups}", flush=True)
+    check(all(o == want for o, _ in gloo_groups)
+          and (want == "ran" or all("gloo" in m for _, m in gloo_groups)),
+          f"phase 17: step_group under gloo: {gloo_groups}")
+    print(f"phase 17: part 1 {time.perf_counter() - t0:.3f} s", flush=True)
+    return acc
+
+
+def scaling_pair(dev, smi, acc):
+    """parallel/launch.py:scaling_bench on the (1, 1) mesh, its step
+    replayed as a CUDA graph (its launches added to acc), beside an eager
+    run of the same steps (the same loss after the window)."""
+    from reduced3dgs_torch.parallel.launch import scaling_bench
+
+    lines = {}
+    for eager in (False, True):
+        out = []
+        with launches_into({} if eager else acc):
+            scaling_bench(widths=(SCALING["width"],),
+                          n_prims=SCALING["prims"], iters=SCALING["iters"],
+                          mesh_shapes=[(1, 1)], device=dev,
+                          printer=out.append, eager=eager)
+        lines["eager" if eager else "graphed"] = json.loads(out[0])
+    g, e = lines["graphed"], lines["eager"]
+    print(f"phase 17: scaling_bench graphed {json.dumps(g)}; eager "
+          f"{json.dumps(e)}; {smi}", flush=True)
+    check(g["loss"] == e["loss"] and g["pixels_per_s"] > 0,
+          "phase 17: the graphed scaling step differs from the eager")
+
+
+def tool_lines(name, fn):
+    """fn() with its standard output printed under `name`, line by
+    line."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn()
+    for line in buf.getvalue().splitlines():
+        if line.strip():
+            print(f"phase 17: {name}: {line}", flush=True)
+
+
+def sharded_tools_path(dev, smi, acc):
+    """Phase 17, part 2, after phase 16, outside any process group: the
+    graphed scaling harness, profile_components and profile_trace (their
+    launches added to acc, part 1's counts), then the two
+    microbenchmarks as subprocesses.  K1, K2, K3, K5 and K6 must have
+    been launched on the path (a graph's kernels count where it is warmed
+    up and captured; replays are counted per graph)."""
+    from reduced3dgs_torch import profile_components, profile_trace
+
+    t0 = time.perf_counter()
+    scaling_pair(dev, smi, acc)
+    sizes = [str(v) for v in TOOLS]
+    with launches_into(acc):
+        tool_lines("profile_components", lambda: profile_components.main(
+            sizes + ["--device", dev.type]))
+        tool_lines("profile_trace", lambda: profile_trace.run(
+            *TOOLS, TRACE["iters"], *TRACE["scales"], dev, top=TRACE["top"],
+            grad_reduce="bf16x2"))
+    check(all(v > 0 for v in acc.values()),
+          f"phase 17: the path bypassed a kernel: {acc}")
+    print(f"phase 17: launches of the path (the groups' and the graphed "
+          f"scaling step's warm-ups and captures, the tools' stages; the "
+          f"eager steps they are held to not counted) {acc}", flush=True)
+    for mod, extra in MICRO_ARGS.items():
+        out = _run_module([f"reduced3dgs_torch.{mod}", "--device",
+                           dev.type, *extra], timeout=300)
+        for line in out.splitlines():
+            print(f"phase 17: {mod}: {line}", flush=True)
+    print(f"phase 17: part 2 {time.perf_counter() - t0:.3f} s", flush=True)
 
 
 if __name__ == "__main__":

@@ -66,10 +66,14 @@ class FwdBwd:
     """Root bench.py's step on `device` at one configuration.
 
     ``leaves`` are the five parameter tensors (requires_grad),
-    ``step()`` renders, takes the loss and its gradients and returns
-    (loss, num_rendered, the five gradients), all tensors."""
+    ``step()`` renders with the `grad_reduce` reduction, takes the loss
+    and its gradients and returns (loss, num_rendered, the five
+    gradients), all tensors.  `chained` makes it root profile_trace.py's
+    step: the render reads xyz + 1e-30 * ``carry``, the last step's loss
+    (``carry.zero_()`` starts a new chain), so the steps form one chain."""
 
-    def __init__(self, width, height, n, smin, smax, budget, device):
+    def __init__(self, width, height, n, smin, smax, budget, device,
+                 grad_reduce="bf16x2", chained=False):
         import torch
 
         from reduced3dgs_torch.cameras import Camera
@@ -84,18 +88,27 @@ class FwdBwd:
         self.target = torch.zeros((height, width, 3), device=device)
         self.width, self.height, self.budget = width, height, budget
         self.device = torch.device(device)
+        self.grad_reduce = grad_reduce
+        self.carry = torch.zeros((), device=device) if chained else None
 
     def step(self):
         import torch
 
         from reduced3dgs_torch.renderer import render
 
-        out = render(*self.leaves, self.degrees, self.cam, self.background,
+        leaves = list(self.leaves)
+        if self.carry is not None:
+            leaves[0] = leaves[0] + 1e-30 * self.carry
+        out = render(*leaves, self.degrees, self.cam, self.background,
                      width=self.width, height=self.height,
-                     instance_budget=self.budget, grad_reduce="bf16x2")
+                     instance_budget=self.budget,
+                     grad_reduce=self.grad_reduce)
         loss = (out.color - self.target).abs().mean()
         grads = torch.autograd.grad(loss, self.leaves)
-        return loss.detach(), out.num_rendered, grads
+        loss = loss.detach()
+        if self.carry is not None:
+            self.carry.copy_(loss)
+        return loss, out.num_rendered, grads
 
     def runner(self):
         """The step as a replayable runner (graphs.py): a CUDA graph on

@@ -131,23 +131,35 @@ def default_mesh_shapes(world: int):
 
 
 def scaling_bench(widths=(512,), n_prims=1 << 15, budget=1 << 18, iters=5,
-                  mesh_shapes=None, device=None, printer=print):
+                  mesh_shapes=None, device=None, printer=print, eager=False):
     """Pixels/s of the sharded train step on each mesh shape, and the
     parallel efficiency against the (1, 1) shape of the same width; one
-    JSON line per shape from rank 0.  (1, 1) runs on every rank alone
-    (identity collectives), a larger shape needs a world of its size.
+    JSON line per shape from rank 0.  (1, 1) runs on every rank alone (no
+    collectives), a larger shape needs a world of its size.
+
+    Per shape the step (sharded_fused_step: this rank's data member's
+    camera, Adam's scalars of iteration 1) is captured once as a CUDA
+    graph (its NCCL collectives inside; gloo on the card raises), warmed
+    up by one replay, and `iters` replays are timed in one window with no
+    host read inside (graphs.time_replays); the loss is read after the
+    window.  On the CPU, or with `eager`, the same steps run eagerly in
+    that loop.  The line holds root's keys, the device, ms per step, the
+    capture seconds (warm-up included) and that loss.
     Returns [((n_data, n_tile), pixels_per_s), ...]."""
     import numpy as np
 
     from reduced3dgs_torch.cameras import Camera
     from reduced3dgs_torch.config import OptimizationParams
     from reduced3dgs_torch.device import resolve
+    from reduced3dgs_torch.graphs import time_replays
     from reduced3dgs_torch.models import gaussians as G
     from reduced3dgs_torch.parallel.sharded import (
-        Mesh, sharded_train_step, stack_camera_params,
+        SHARDED_METRICS, Mesh, refuse_uncapturable, sharded_fused_step,
     )
     from reduced3dgs_torch.train import adam
-    from reduced3dgs_torch.train.trainer import TrainState
+    from reduced3dgs_torch.train.trainer import (
+        StepGraph, StepLoop, TrainState, _xyz_lr, camera_vector,
+    )
 
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
@@ -160,10 +172,10 @@ def scaling_bench(widths=(512,), n_prims=1 << 15, budget=1 << 18, iters=5,
     pts = rng.uniform(-1.0, 1.0, (n_prims, 3)).astype(np.float32)
     cols = rng.uniform(0.1, 0.9, (n_prims, 3)).astype(np.float32)
     cfg = OptimizationParams()
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+    c1, c2 = adam.corrections(1)
+    n_leaves = len(G.GaussianParams._fields)
+    scalars = np.float32([_xyz_lr(1, cfg, 1.0)] + [c1] * n_leaves
+                         + [c2] * n_leaves)
 
     results = []
     for w in widths:
@@ -174,27 +186,32 @@ def scaling_bench(widths=(512,), n_prims=1 << 15, budget=1 << 18, iters=5,
                                      device=dev)
             gen = torch.Generator(device=dev).manual_seed(0)
             state = TrainState(pool, adam.init(pool.params), gen)
-            cams = [Camera.look_at(eye=(np.cos(i), 0.2, -3 + 0.1 * i),
-                                   target=(0, 0, 0), width=w, height=h,
-                                   uid=i) for i in range(nd)]
-            cp = stack_camera_params(cams, dev)
-            gts = [torch.zeros((h, w, 3), device=dev) for _ in range(nd)]
             mesh = Mesh(nd, nt, alone=(nd, nt) == (1, 1))
-            bg = torch.zeros(3, device=dev)
-
-            def step(st, it):
-                return sharded_train_step(
-                    st, cp, gts, bg, it, mesh=mesh, width=w, height=h,
-                    budget=budget, opt_cfg=cfg, spatial_lr_scale=1.0)
-
-            st, m = step(state, 0)
-            sync()
-            t0 = time.perf_counter()
-            for i in range(iters):
-                st, m = step(st, i + 1)
-            float(m["loss"])
-            sync()
-            dt = (time.perf_counter() - t0) / iters
+            cam = Camera.look_at(eye=(np.cos(mesh.data_idx), 0.2,
+                                      -3 + 0.1 * mesh.data_idx),
+                                 target=(0, 0, 0), width=w, height=h,
+                                 uid=mesh.data_idx)
+            vec = torch.as_tensor(np.concatenate([
+                camera_vector(cam), np.zeros(3, np.float32), scalars]),
+                device=dev)
+            gt = torch.zeros((h, w, 3), device=dev)
+            step_kw = dict(mesh=mesh, param_shard=False, width=w, height=h,
+                           budget=budget, opt_cfg=cfg, grad_reduce="f32",
+                           active_sh_degree=0)
+            graphed = dev.type == "cuda" and not eager
+            if graphed:
+                refuse_uncapturable(mesh)
+                run = StepGraph(state, vec, gt, step_kw, sharded_fused_step,
+                                SHARDED_METRICS)
+            else:
+                run = StepLoop(state, step_kw, sharded_fused_step,
+                               SHARDED_METRICS)
+            run.buf.load(state)
+            run.buf.vec.copy_(vec)
+            run.buf.gt.copy_(gt)
+            run.replay()  # warm-up
+            dt = time_replays(run, iters, dev) / iters
+            loss = float(run.buf.out_f[0])
             pps = nd * w * h / dt  # pixels/s across the mesh
             if base is None:
                 base = pps / (nd * nt)
@@ -204,7 +221,10 @@ def scaling_bench(widths=(512,), n_prims=1 << 15, budget=1 << 18, iters=5,
                     "mesh": f"{nd}x{nt}", "width": w, "prims": n_prims,
                     "device": str(dev), "ms_per_step": dt * 1e3,
                     "pixels_per_s": pps,
-                    "efficiency_vs_1dev": pps / (base * nd * nt)}))
+                    "efficiency_vs_1dev": pps / (base * nd * nt),
+                    "capture_s": run.capture_s,
+                    "loss": loss}))
+            del run
     return results
 
 

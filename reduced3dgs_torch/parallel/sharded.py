@@ -30,9 +30,18 @@ the caller's (parallel/launch.py: nccl for cuda, gloo for cpu); nothing
 here moves a tensor to the host so that a collective works.  Surgery
 iterations of ``ShardedTrainer`` run the single-card step functions on the
 gathered whole state, then shard it again.
+
+Fused steps (``sharded_fused_step``, ``ShardedTrainer.step_group``): the
+sharded step on the static buffers of train/trainer.py (this rank's rows
+or the whole state, the step vector, the ground truth), captured once as a
+CUDA graph with its NCCL collectives inside and replayed; the CPU runs it
+in a loop under gloo.  Gloo's collectives on CUDA tensors cannot be
+captured: a graph asked for under gloo on the card raises.
 """
 
 from __future__ import annotations
+
+import copy
 
 import torch
 import torch.distributed as dist
@@ -48,7 +57,8 @@ from reduced3dgs_torch.ops.preprocess import TILE_Y, tile_grid
 from reduced3dgs_torch.ops.tile_render import tile_render
 from reduced3dgs_torch.train import adam
 from reduced3dgs_torch.train.trainer import (
-    TrainState, Trainer, _xyz_lr, adam_scalars, make_lr_tree,
+    VEC_ADAM, VEC_BG, TrainState, Trainer, _xyz_lr, adam_scalars,
+    camera_from_vector, make_lr_tree,
 )
 
 # PreprocessOut fields gathered over the tile group: floats (those with a
@@ -57,6 +67,9 @@ _FLOAT_FIELDS = (("means2d", 2), ("depths", 1), ("conic", 3),
                  ("opacity", 1), ("color", 3))
 _INT_FIELDS = (("radii", 1), ("rect_min", 2), ("rect_max", 2),
                ("tiles_touched", 1))
+# a sharded step's metrics as a fused step's buffers hold them: the float
+# ones, then the int32 ones with the budget's demand first
+SHARDED_METRICS = (("loss", "l1"), ("num_rendered_max", "num_alive"))
 
 
 class Mesh:
@@ -95,6 +108,32 @@ class Mesh:
 
 def make_mesh(n_data: int, n_tile: int) -> Mesh:
     return Mesh(n_data, n_tile)
+
+
+def camera_mesh(mesh: Mesh) -> Mesh:
+    """The mesh of a step with one camera for the whole mesh: `mesh`
+    itself when n_data is 1, else this rank's tile group as a (1, n_tile)
+    mesh (its world the tile group, no data group), so that every data
+    group runs the camera on its own tile group and nothing is summed over
+    the data axis."""
+    if mesh.n_data == 1:
+        return mesh
+    sub = copy.copy(mesh)
+    sub.n_data, sub.data_idx = 1, 0
+    sub.world, sub.data = mesh.tile, None
+    return sub
+
+
+def refuse_uncapturable(mesh: Mesh):
+    """Raise unless every collective of `mesh` can be captured in a CUDA
+    graph: NCCL's can, gloo's on CUDA tensors cannot."""
+    groups = [g for g in (mesh.world, mesh.tile, mesh.data) if g is not None]
+    other = sorted({dist.get_backend(g) for g in groups} - {"nccl"})
+    if other:
+        raise RuntimeError(
+            f"a CUDA graph of the sharded step needs NCCL collectives: "
+            f"{'/'.join(other)} collectives on CUDA tensors cannot be "
+            f"captured; run the ranks under nccl, or ShardedTrainer.step")
 
 
 def stack_camera_params(cams, device=None):
@@ -352,6 +391,26 @@ def sharded_train_step(state: TrainState, cams, gts, background, iteration,
     return state, metrics
 
 
+def sharded_fused_step(buf, *, mesh: Mesh, param_shard: bool, width,
+                       height, budget, opt_cfg: OptimizationParams,
+                       grad_reduce: str, active_sh_degree: int):
+    """One sharded non-surgery step on a trainer.FusedBuffers (this rank's
+    rows with param_shard, else the whole state; metrics SHARDED_METRICS):
+    reads the state, the step vector (this rank's camera, the background,
+    the Adam scalars) and the ground truth there, and writes the new
+    state and the metrics back in place.  The step a CUDA graph captures:
+    sharded_train_step with every data member's camera the vector's
+    (only this rank's data member's is read)."""
+    cam = camera_from_vector(buf.vec, width, height)
+    state, metrics = sharded_train_step(
+        buf.state(active_sh_degree), [cam] * mesh.n_data,
+        [buf.gt] * mesh.n_data, buf.vec[VEC_BG], 0, mesh=mesh, width=width,
+        height=height, budget=budget, opt_cfg=opt_cfg, spatial_lr_scale=0.0,
+        param_shard=param_shard, grad_reduce=grad_reduce,
+        adam_scalars=adam_scalars(buf.vec[VEC_ADAM:]))
+    buf.store(state, metrics)
+
+
 def run_sharded_step_with_regrow(state, cams, gts, background, iteration, *,
                                  mesh, width, height, budget, opt_cfg,
                                  spatial_lr_scale, growth=2,
@@ -464,7 +523,7 @@ class ShardedTrainer(Trainer):
     shard it again: the counterpart of GSPMD partitioning the JAX
     package's surgery steps, at the cost of one whole state per rank
     during the surgery.  Every rank must hold the same cameras, seed and
-    initial pool.  Fused step groups are not available under a mesh."""
+    initial pool."""
 
     def __init__(self, pool, opt_cfg, cameras, *, mesh: Mesh,
                  param_shard: bool = True, **kw):
@@ -473,10 +532,27 @@ class ShardedTrainer(Trainer):
         self.param_shard = param_shard
         self.n_data = mesh.n_data
         self.state = shard_state(self.state, mesh, param_shard)
+        self._camera_mesh = camera_mesh(mesh)
 
     def step_group(self, iterations):
-        raise NotImplementedError("fused step groups under a mesh are not "
-                                  "ported; run ShardedTrainer.step")
+        """Trainer.step_group on the mesh, as the JAX package's
+        ShardedTrainer inherits it: one camera per iteration, popped and
+        its random background drawn in step()'s order, a same-resolution
+        prefix, one budget and one host read per group, the whole group
+        re-run on overflow.  Each iteration is sharded_fused_step with
+        that camera on camera_mesh (n_data > 1: every data group runs it
+        on its own tile group, the single-chip step the JAX method
+        computes), replayed from one CUDA graph on the card (it raises
+        under gloo there) and looped on the CPU.  Returns the
+        per-iteration metrics of ShardedTrainer.step."""
+        if self.device.type == "cuda":
+            refuse_uncapturable(self.mesh)
+        return super().step_group(iterations)
+
+    def _fused_step(self):
+        return (sharded_fused_step,
+                dict(mesh=self._camera_mesh, param_shard=self.param_shard),
+                SHARDED_METRICS)
 
     def step(self, iteration: int):
         """One sharded iteration, in the single-card order: backward ->

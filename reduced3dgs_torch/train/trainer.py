@@ -57,8 +57,8 @@ TRAIN_STAGES = ("preprocess", "binning", "composite", "loss", "loss_bwd",
 # A fused step's input vector: the camera (viewmatrix 16, projmatrix 16,
 # campos 3, tan_fovx, tan_fovy), the background 3, then the 13 Adam
 # scalars of Trainer._adam_scalars.
-_VEC_BG = slice(37, 40)
-_VEC_ADAM = 40
+VEC_BG = slice(37, 40)
+VEC_ADAM = 40
 STEP_VEC = 53
 FLOAT_METRICS = ("loss", "l1", "ssim_loss", "alpha_regul",
                  "sh_sparsity_loss")
@@ -224,9 +224,12 @@ def carried(state: TrainState):
 class FusedBuffers:
     """The static tensors a fused step reads and writes in place: what
     carried() lists, the degrees and alive mask, the step vector, the
-    ground-truth image and the metrics of the last step."""
+    ground-truth image and the metrics of the last step (`metrics`: the
+    names of the float and of the int32 ones, the budget's demand first
+    among the latter)."""
 
-    def __init__(self, state: TrainState, width: int, height: int):
+    def __init__(self, state: TrainState, width: int, height: int,
+                 metrics=(FLOAT_METRICS, INT_METRICS)):
         pool = state.pool
         dev = pool.device
         self.carried = tuple(torch.empty_like(t) for t in carried(state))
@@ -235,9 +238,10 @@ class FusedBuffers:
         self.vec = torch.zeros(STEP_VEC, dtype=torch.float32, device=dev)
         self.gt = torch.zeros((height, width, 3), dtype=torch.float32,
                               device=dev)
-        self.out_f = torch.zeros(len(FLOAT_METRICS), dtype=torch.float32,
+        self.float_names, self.int_names = metrics
+        self.out_f = torch.zeros(len(self.float_names), dtype=torch.float32,
                                  device=dev)
-        self.out_i = torch.zeros(len(INT_METRICS), dtype=torch.int32,
+        self.out_i = torch.zeros(len(self.int_names), dtype=torch.int32,
                                  device=dev)
 
     @torch.no_grad()
@@ -246,6 +250,16 @@ class FusedBuffers:
         for dst, src in zip(self.carried + (self.degrees, self.alive),
                             carried(state) + (pool.degrees, pool.alive)):
             dst.copy_(src)
+
+    @torch.no_grad()
+    def store(self, state: TrainState, metrics: dict):
+        """A step's new state and metrics written into the buffers."""
+        for dst, src in zip(self.carried, carried(state)):
+            dst.copy_(src)
+        self.out_f.copy_(torch.stack([metrics[k].to(torch.float32)
+                                      for k in self.float_names]))
+        self.out_i.copy_(torch.stack([metrics[k].to(torch.int32)
+                                      for k in self.int_names]))
 
     def state(self, active_sh_degree: int) -> TrainState:
         """The buffers as a TrainState (views, no copy; step counts 0)."""
@@ -285,53 +299,53 @@ def fused_step(buf: FusedBuffers, *, width, height, budget, backend,
     state, metrics = train_step(
         buf.state(active_sh_degree),
         camera_from_vector(buf.vec, width, height), buf.gt,
-        buf.vec[_VEC_BG], 0, width=width, height=height, budget=budget,
+        buf.vec[VEC_BG], 0, width=width, height=height, budget=budget,
         backend=backend, opt_cfg=opt_cfg, spatial_lr_scale=0.0,
         grad_reduce=grad_reduce,
-        adam_scalars=adam_scalars(buf.vec[_VEC_ADAM:]))
-    with torch.no_grad():
-        for dst, src in zip(buf.carried, carried(state)):
-            dst.copy_(src)
-        buf.out_f.copy_(torch.stack([metrics[k].to(torch.float32)
-                                     for k in FLOAT_METRICS]))
-        buf.out_i.copy_(torch.stack([metrics[k].to(torch.int32)
-                                     for k in INT_METRICS]))
+        adam_scalars=adam_scalars(buf.vec[VEC_ADAM:]))
+    buf.store(state, metrics)
 
 
 class StepLoop:
     """The plain version of a step graph (the CPU's): replay() runs
-    fused_step on the buffers."""
+    `step` (fused_step, or another step of the same form with its
+    `metrics`) on the buffers."""
 
     launches: dict = {}
+    capture_s = 0.0
 
-    def __init__(self, state: TrainState, step_kw: dict):
-        self.buf = FusedBuffers(state, step_kw["width"], step_kw["height"])
+    def __init__(self, state: TrainState, step_kw: dict, step=fused_step,
+                 metrics=(FLOAT_METRICS, INT_METRICS)):
+        self.buf = FusedBuffers(state, step_kw["width"], step_kw["height"],
+                                metrics)
+        self.step = step
         self.step_kw = step_kw
 
     def replay(self):
-        fused_step(self.buf, **self.step_kw)
+        self.step(self.buf, **self.step_kw)
 
 
 class StepGraph:
-    """fused_step captured once as a CUDA graph on its own buffers
-    (graphs.Captured): GRAPH_WARMUP eager steps run first on a side
-    stream, from `state` with the step vector `vec` and the ground truth
-    `gt`.  ``launches`` holds each kernel's launches in one replay and
-    ``capture_s`` the seconds of warm-up and capture."""
+    """`step` (fused_step by default) captured once as a CUDA graph on its
+    own buffers (graphs.Captured): GRAPH_WARMUP eager steps run first on
+    a side stream, from `state` with the step vector `vec` and the ground
+    truth `gt`.  ``launches`` holds each kernel's launches in one replay
+    and ``capture_s`` the seconds of warm-up and capture."""
 
-    def __init__(self, state: TrainState, vec, gt, step_kw: dict):
+    def __init__(self, state: TrainState, vec, gt, step_kw: dict,
+                 step=fused_step, metrics=(FLOAT_METRICS, INT_METRICS)):
         t0 = time.perf_counter()
         self.buf = buf = FusedBuffers(state, step_kw["width"],
-                                      step_kw["height"])
+                                      step_kw["height"], metrics)
         self.step_kw = step_kw
 
         def warm():
             buf.load(state)
             buf.vec.copy_(vec)
             buf.gt.copy_(gt)
-            fused_step(buf, **step_kw)
+            step(buf, **step_kw)
 
-        graph = Captured(lambda: fused_step(buf, **step_kw), warm,
+        graph = Captured(lambda: step(buf, **step_kw), warm,
                          buf.vec.device, GRAPH_WARMUP)
         self.replay = graph.replay
         self.launches = graph.launches
@@ -345,14 +359,15 @@ def train_steps_fused(runner, state: TrainState, vecs, gts):
     device, gts: k ground-truth images there.  Loads `state` into the
     runner's buffers (the state itself is not written), then per step
     copies the inputs in, replays, and copies the metrics out; no host
-    read.  Returns the (k, 5) float and (k, 2) int32 metric rows
-    (FLOAT_METRICS, INT_METRICS); the new state stays in runner.buf."""
+    read.  Returns the (k, n_float) float32 and (k, n_int) int32 metric
+    rows (the buffers' float_names, int_names); the new state stays in
+    runner.buf."""
     buf = runner.buf
     k = vecs.shape[0]
     dev = buf.vec.device
-    hist_f = torch.empty((k, len(FLOAT_METRICS)), dtype=torch.float32,
+    hist_f = torch.empty((k,) + buf.out_f.shape, dtype=torch.float32,
                          device=dev)
-    hist_i = torch.empty((k, len(INT_METRICS)), dtype=torch.int32,
+    hist_i = torch.empty((k,) + buf.out_i.shape, dtype=torch.int32,
                          device=dev)
     buf.load(state)
     for j in range(k):
@@ -589,11 +604,12 @@ class Trainer:
             for c, n in zip(cams, needed):
                 if int(n) > self._budget_for(c.uid):
                     self._budget_for(c.uid, int(n))
-        self.state = runner.buf.advanced(self.state, k)
+        buf = runner.buf
+        self.state = buf.advanced(self.state, k)
         out = []
         for j in range(k):
-            m = {n: hist_f[j, i] for i, n in enumerate(FLOAT_METRICS)}
-            m.update({n: hist_i[j, i] for i, n in enumerate(INT_METRICS)})
+            m = {n: hist_f[j, i] for i, n in enumerate(buf.float_names)}
+            m.update({n: hist_i[j, i] for i, n in enumerate(buf.int_names)})
             out.append(m)
         return out
 
@@ -607,26 +623,32 @@ class Trainer:
                                    self.spatial_lr_scale)]
                           + [b[0] for b in bias] + [b[1] for b in bias])
 
+    def _fused_step(self):
+        """What a group replays: the step function, its keywords beyond
+        the group's shapes and schedule, and its metric names."""
+        return fused_step, dict(backend=self.backend), (FLOAT_METRICS,
+                                                        INT_METRICS)
+
     def _runner(self, width, height, budget, vec, gt):
         """The fused-step runner of this group's shapes: a StepLoop on the
         CPU; on the card the cached StepGraph of the key, or a new
         capture (at most GRAPH_CACHE are kept, the least recently used
         goes first)."""
         pool = self.state.pool
+        step, kw, metrics = self._fused_step()
         step_kw = dict(width=width, height=height, budget=budget,
-                       backend=self.backend, opt_cfg=self.opt_cfg,
-                       grad_reduce=self.grad_reduce,
-                       active_sh_degree=int(pool.active_sh_degree))
+                       opt_cfg=self.opt_cfg, grad_reduce=self.grad_reduce,
+                       active_sh_degree=int(pool.active_sh_degree), **kw)
         if self.device.type != "cuda":
-            return StepLoop(self.state, step_kw)
+            return StepLoop(self.state, step_kw, step, metrics)
         key = (width, height, budget, pool.capacity,
-               step_kw["active_sh_degree"], self.grad_reduce,
-               self.opt_cfg.random_background, self.backend, self.opt_cfg)
+               step_kw["active_sh_degree"], self.grad_reduce, self.opt_cfg,
+               step, *kw.items())
         graph = self._graphs.pop(key, None)
         if graph is None:
             while len(self._graphs) >= GRAPH_CACHE:
                 self._graphs.popitem(last=False)
-            graph = StepGraph(self.state, vec, gt, step_kw)
+            graph = StepGraph(self.state, vec, gt, step_kw, step, metrics)
             self.graph_captures += 1
             self.capture_s += graph.capture_s
         self._graphs[key] = graph

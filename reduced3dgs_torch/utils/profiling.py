@@ -46,12 +46,15 @@ def synced_scope(name: str):
         print(f"[profile] {name}: {(time.perf_counter() - t0) * 1e3:.2f} ms")
 
 
-def start_trace(logdir: str):
-    """Start a torch.profiler trace (CPU, and CUDA where present)."""
+def start_trace(logdir: str, cuda_only: bool = False):
+    """Start a torch.profiler trace (CPU, and CUDA where present;
+    `cuda_only`: the card's activity alone)."""
     global _PROFILER
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
+        if cuda_only:
+            acts = acts[1:]
     os.makedirs(logdir, exist_ok=True)
     _PROFILER = torch.profiler.profile(activities=acts)
     _PROFILER.__enter__()

@@ -75,9 +75,10 @@ def test_phase13_and_14_rehearsal(cpu_card, tmp_path, monkeypatch, capsys):
 def test_phase15_rehearsal(cpu_card, monkeypatch, capsys):
     """Phase 15 at 96x64: the kernels at a tile base against their plain
     versions, the strips against the full frame, the sharded trainers at
-    world size 1 (gloo here, NCCL on the card), the (1, 2) run as two
-    processes, the scaling harness's line and the blocked kNN check (its
-    limit lowered so that 3000 points take the blocked search)."""
+    world size 1 (gloo here, NCCL on the card, in world_of_one's group),
+    the (1, 2) run as two processes (with its step_group), the scaling
+    harness's line and the blocked kNN check (its limit lowered so that
+    3000 points take the blocked search)."""
     from reduced3dgs_torch.ops import knn as tknn
 
     monkeypatch.setattr(cs, "MULTI", dict(steps=3, knn_points=3000))
@@ -86,9 +87,14 @@ def test_phase15_rehearsal(cpu_card, monkeypatch, capsys):
         "1"))
     monkeypatch.setattr(tknn, "EXACT_LIMIT", 1000)
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
-    launches = cs.multi_device_path(cpu_card, 0, "cpu", backend="gloo",
-                                    device="cpu")
+    with cs.world_of_one("gloo"):
+        launches, groups = cs.multi_device_path(cpu_card, 0, "cpu",
+                                                backend="gloo", device="cpu")
     out = capsys.readouterr().out
+    # the two gloo ranks' step_group runs its loop on the CPU (on the card
+    # it raises: phase 17 reads it)
+    assert [o for o, _ in groups] == ["ran", "ran"]
+    assert groups[0] == groups[1] and len(groups[0][1]) == 2
     assert out.count("phase 15: K2 / K3 / K4 at tile base") == 3
     assert "no instances" in out and "past the height" in out
     assert "the main path's last strip, tile rows 3..4 of 96x64" in out

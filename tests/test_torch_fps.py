@@ -13,7 +13,6 @@ TorchDispatchMode over one dense and one variable-SH frame finds any.
 """
 
 import math
-import traceback
 from functools import partial
 
 import jax
@@ -125,30 +124,16 @@ def test_frame_has_no_host_transfer(scene):
     """What the graphed ring cannot capture, caught on the CPU: a dense
     and a variable-SH frame make no tensor from host data and read no
     device value on the host, outside the kernels' plain versions."""
-    from torch.utils._python_dispatch import TorchDispatchMode
+    from host_transfers import HostTransfers
 
-    bad, seen = [], []
-
-    class Watch(TorchDispatchMode):
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            name = str(func)
-            seen.append(name)
-            if any(s in name for s in ("lift_fresh", "_local_scalar_dense",
-                                       "nonzero", "masked_select")):
-                frames = [f for f in traceback.extract_stack()
-                          if "reduced3dgs_torch" in f.filename]
-                if not any(f.name.endswith("_plain") for f in frames):
-                    bad.append((name, frames[-1].filename,
-                                frames[-1].lineno))
-            return func(*args, **(kwargs or {}))
-
+    watch = HostTransfers()
     pool = pool_from_numpy(scene, "cpu")
     cp = Camera.look_at(eye=_eyes(3)[1], target=(0, 0, 0), width=W,
                         height=H).params("cpu")
     bg = torch.zeros(3)
     for variable_sh in (False, True):
         pv = PoolView(pool, variable_sh=variable_sh)
-        with Watch():
+        with watch:
             out = render_once(pv, cp, bg, 1 << 15)
         assert 0 < int(out.num_rendered) <= 1 << 15
-    assert len(seen) > 100 and not bad, bad
+    assert len(watch.seen) > 100 and not watch.bad, watch.bad

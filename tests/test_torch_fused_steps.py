@@ -215,23 +215,9 @@ def test_fused_step_has_no_host_transfer():
     (both reduction modes) makes no tensor from host data and reads no
     device value on the host, outside the plain versions of the kernels
     (the card runs the kernels there)."""
-    import traceback
+    from host_transfers import HostTransfers
 
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    bad = []
-
-    class Watch(TorchDispatchMode):
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            name = str(func)
-            if any(s in name for s in ("lift_fresh", "_local_scalar_dense",
-                                       "nonzero", "masked_select")):
-                frames = [f for f in traceback.extract_stack()
-                          if "reduced3dgs_torch" in f.filename]
-                if not any(f.name.endswith("_plain") for f in frames):
-                    bad.append((name, frames[-1].filename, frames[-1].lineno))
-            return func(*args, **(kwargs or {}))
-
+    watch = HostTransfers()
     for mode in ("bf16x2", "f32"):
         tr = make_trainer(False, densify_from_iter=1000, iterations=60)
         loop = T.StepLoop(tr.state, dict(
@@ -241,10 +227,10 @@ def test_fused_step_has_no_host_transfer():
         loop.buf.vec.copy_(torch.as_tensor(np.concatenate([
             T.camera_vector(tr.cameras[0]), np.zeros(4),
             [0.1 ** i for i in range(1, 13)]]).astype(np.float32)))
-        with Watch():
+        with watch:
             loop.replay()
         assert int(loop.buf.out_i[0]) > 0
-    assert not bad, bad
+    assert not watch.bad, watch.bad
 
 
 def test_tensor_scalars_round_as_python_floats():

@@ -15,7 +15,11 @@ Tolerances:
 * against the port's own single-card step (the JAX tests' comparison):
   tests/test_sharded.py's tolerances, raw gradients at atol 2e-6 + 1e-4
   max|g| (an inflation by the mesh size or a regularizer counted twice
-  fails), parameters atol 5e-6 / rtol 1e-4.
+  fails), parameters atol 5e-6 / rtol 1e-4;
+* step groups (ShardedTrainer.step_group) against sequential
+  ShardedTrainer.step calls bit for bit, and against the JAX package's
+  ShardedTrainer.step_group (run once, on the (2, 2) mesh) at the
+  tolerances above.
 """
 
 import json
@@ -331,6 +335,126 @@ def test_scaling_bench_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch.scaling_bench(widths=(64,), n_prims=256, iters=1)
+
+
+def _jax_group(mesh_shape, cfg=None):
+    """The JAX package's ShardedTrainer.step_group of child.GROUP
+    iterations (param_shard) on the conftest's virtual mesh, from the
+    pool, cameras and seed of the port's group_cases."""
+    cams = target_scene(seed=7)
+    tr = jsh.ShardedTrainer(
+        jax_state().pool, cfg or JOpt(), cams,
+        mesh=jsh.make_mesh(*mesh_shape), param_shard=True,
+        spatial_lr_scale=3.0, background=np.zeros(3), backend="pallas",
+        seed=0, initial_budget=BUDGET)
+    tr.extent = 3.0
+    ms = tr.step_group(range(1, child.GROUP + 1))
+    return tr, ms
+
+
+def _same_runs(a, b, what):
+    assert a["metrics"] == b["metrics"], what
+    for x, y in zip(a["leaves"], b["leaves"]):
+        np.testing.assert_array_equal(x, y, err_msg=what)
+    assert a["steps"] == b["steps"] == [child.GROUP] * 6, what
+    assert a["next_draw"] == b["next_draw"], what
+
+
+def test_sharded_step_group_equals_sequential_steps(ranks_1x4):
+    """Mesh (1, 4), both layouts: ShardedTrainer.step_group over fusible
+    iterations gives ShardedTrainer.step's metrics and every leaf of the
+    state bit for bit (the CPU runs the captured step's code in a loop);
+    with random backgrounds and a budget every view overflows, the group
+    re-runs on the grown budgets and still equals the sequential steps,
+    whose random draws it takes in the same order."""
+    for r in ranks_1x4[0]:
+        for shard, (seq, grp) in r["groups"].items():
+            _same_runs(seq, grp, f"param_shard={shard}")
+            assert sorted(grp["metrics"][0]) == [
+                "l1", "loss", "num_alive", "num_rendered_max"]
+            assert seq["budgets"] == grp["budgets"]
+        seq, grp = r["overflow"]
+        _same_runs(seq, grp, "overflow, random backgrounds")
+        assert min(grp["budgets"].values()) > child.OVERFLOW_BUDGET
+        assert max(m["num_rendered_max"] for m in grp["metrics"]) \
+            > child.OVERFLOW_BUDGET
+
+
+def test_sharded_step_group_matches_jax(setup, ranks_1x4, ranks_2x2):
+    """The port's step_group against the JAX package's ShardedTrainer
+    .step_group, which inherits Trainer.step_group: one camera per
+    iteration, the single-chip step, whatever the mesh.  The JAX method
+    runs once, on the virtual (2, 2) mesh (its data axis is where a
+    camera could be counted more than once); the port's runs on (1, 4),
+    both layouts, and on (2, 2), where every data group runs the camera
+    on its own tile group (no sums over the data axis), match it: loss
+    rtol 1e-5, parameters atol 5e-6 / rtol 1e-4, densification counts
+    exactly."""
+    jtr, jms = _jax_group((2, 2))
+    for shape, runs in (((1, 4), [g for r in ranks_1x4[0]
+                                  for g in (r["groups"][False][1],
+                                            r["groups"][True][1])]),
+                        ((2, 2), [r["groups"][0] for r in ranks_2x2])):
+        for got in runs:
+            for a, b in zip(got["metrics"], jms):
+                np.testing.assert_allclose(a["loss"], float(b["loss"]),
+                                           rtol=1e-5, err_msg=str(shape))
+            for k in LEAVES:
+                np.testing.assert_allclose(
+                    got["params"][k], np.asarray(getattr(
+                        jtr.state.pool.params, k)), atol=5e-6, rtol=1e-4,
+                    err_msg=f"{shape}: param {k}")
+            np.testing.assert_array_equal(  # denom: before degrees, alive
+                got["leaves"][-3], np.asarray(jtr.state.pool.denom))
+            assert got["budgets"] == jtr.budgets
+
+
+def test_sharded_step_has_no_host_transfer(ranks_1x4):
+    """What the captured sharded step cannot hold, caught on the gloo
+    ranks: one sharded_fused_step per layout (its collectives included)
+    makes no tensor from host data and reads no device value on the
+    host, outside the kernels' plain versions."""
+    for r in ranks_1x4[0]:
+        for got in r["host_transfers"]:
+            assert got["ops"] > 500 and got["nr"] > 0
+            assert not got["bad"], got["bad"]
+
+
+def test_scaling_bench_graphed_step_equals_eager_steps(ranks_1x2):
+    """scaling_bench on (1, 1) and (1, 2) gloo ranks: root's keys, the
+    device, ms per step, capture_s (0 on the CPU: no graph) and the loss
+    after the window, which equals that of as many eager
+    sharded_train_step calls from the same scene, camera and Adam
+    scalars."""
+    lines = [json.loads(ln) for ln in ranks_1x2[0]["scaling_lines"]]
+    assert [rec["mesh"] for rec in lines] == ["1x1", "1x2"]
+    for rec, want in zip(lines, ranks_1x2[0]["scaling_eager"]):
+        assert sorted(rec) == sorted([
+            "mesh", "width", "prims", "device", "ms_per_step",
+            "pixels_per_s", "efficiency_vs_1dev", "capture_s", "loss"])
+        assert rec["capture_s"] == 0.0 and rec["pixels_per_s"] > 0
+        assert rec["loss"] == want
+    assert not ranks_1x2[1]["scaling_lines"]  # rank 0 prints
+    assert ranks_1x2[0]["scaling_eager"] == ranks_1x2[1]["scaling_eager"]
+
+
+def test_step_group_refuses_gloo_on_the_card(setup, monkeypatch):
+    """A graph asked for under gloo on the card raises, before any camera
+    is popped or background drawn: gloo's collectives on CUDA tensors
+    cannot be captured.  NCCL groups, or no groups at all, pass."""
+    _, scene, _, leaves = setup
+    tr = child.sharded_trainer(scene, leaves, "cpu", tsh.make_mesh(1, 1),
+                               True)
+    tsh.refuse_uncapturable(tr.mesh)  # no groups at all
+    tr.mesh.world = tr.mesh.tile = tr.mesh.data = object()
+    tr.device = torch.device("cuda")
+    draw = tr.rng.bit_generator.state
+    monkeypatch.setattr(tsh.dist, "get_backend", lambda g: "gloo")
+    with pytest.raises(RuntimeError, match="gloo collectives on CUDA"):
+        tr.step_group([1, 2])
+    assert tr.rng.bit_generator.state == draw and not tr._stack
+    monkeypatch.setattr(tsh.dist, "get_backend", lambda g: "nccl")
+    tsh.refuse_uncapturable(tr.mesh)
 
 
 def test_children_import_no_jax(ranks_1x4, ranks_2x2, ranks_1x2):

@@ -347,6 +347,57 @@ def test_parallel_and_utils_import_no_jax():
     assert r.stdout.strip() == "[]"
 
 
+TOOLS = {
+    "profile_components": ["32", "32", "256", "4096"],
+    "profile_trace": ["32", "32", "256", "4096", "1"],
+    "microbench_gather": ["--rows", "64", "--batch", "128", "--iters", "1"],
+    "microbench_binning": ["--batch", "256", "--prims", "64"],
+}
+
+
+def test_profiling_tools_import_no_jax():
+    """The four profiling tools are among the files the import rule reads,
+    and importing them loads neither jax nor reduced3dgs_tpu."""
+    names = {os.path.relpath(f, REPO) for f in _port_files()}
+    assert {os.path.join("reduced3dgs_torch", f"{t}.py")
+            for t in TOOLS} <= names
+    code = ("import sys; "
+            + "; ".join(f"import reduced3dgs_torch.{t}" for t in TOOLS)
+            + "; print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}))")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("tool", sorted(TOOLS))
+def test_profiling_tool_runs_on_the_cpu_only_when_asked(tool, tmp_path,
+                                                        monkeypatch,
+                                                        capsys):
+    """python -m reduced3dgs_torch.<tool> ... --device cpu runs at a tiny
+    size; without a card and without --device cpu it raises before any
+    work."""
+    import importlib
+
+    mod = importlib.import_module(f"reduced3dgs_torch.{tool}")
+    extra = ["--logdir", str(tmp_path)] if tool == "profile_trace" else []
+    if tool == "profile_components":
+        monkeypatch.setattr(mod, "REPS", 1)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert mod.main(TOOLS[tool] + ["--device", "cpu"] + extra) == 0
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "cpu" and len(out) > 3
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(TOOLS[tool] + extra)
+    assert not capsys.readouterr().out
+
+
 def test_profiling_scope_and_trace(tmp_path, capsys, monkeypatch):
     """synced_scope names a range the torch.profiler trace holds (no NVTX
     on the CPU) and, with record_time, prints its wall time; stop_trace
