@@ -149,13 +149,31 @@ before the final line:
     same state, every metric and every leaf bit for bit, one K1, K2, K3
     and K6 per replayed step; from budgets that overflow, the group
     re-run against the eager steps; graphed and eager ms per step in
-    turns (3 rounds); ShardedTrainer.step_group on phase 15's two gloo
+    turns (3 rounds), with the single-card graphed Trainer.step_group on
+    the same pool in the same turns (replicated layout);
+    ShardedTrainer.step_group on phase 15's two gloo
     ranks on the card raises; scaling_bench at 512x512 with 2^15
     primitives graphed beside an eager run of the same steps (the same
     loss); python -m reduced3dgs_torch.profile_components and
     profile_trace (bf16x2: the top kernels of a replayed step) at bench.py's
     1080p geometry in this process, microbench_gather and
     microbench_binning as subprocesses, their lines printed.
+18. the paper's evaluation through its entry points, after phase 17:
+    python -m reduced3dgs_torch.compression_eval (the JAX script's world
+    at 384x384, 28 train / 4 test views, its ground truth rendered by the
+    port; vanilla and the scaled full_final trained as training CLI
+    subprocesses with --fused_steps 16, the schedule cut to EVAL's 5,000
+    iterations and still crossing densification, mercy, the SH cull at
+    degree 3, a test iteration and the final compression; the four
+    variants of each scored) and python -m reduced3dgs_torch.fps_table
+    (render CLI subprocesses, the graphed ring); the step groups must have
+    been replayed graphs, K1, K2, K3, K4 and K6 launched (this process's
+    and the subprocesses' counts, through R3DGS_LAUNCH_LOG), every PSNR
+    finite and above the untrained pool's, full/quantised_half smaller
+    than vanilla/baseline, six FPS rows; then the native COLMAP reader
+    (native/colmap_io.cpp built into reduced3dgs_torch/_build/) against
+    the Python reader on a binary model of the phase's cameras and world.
+    Its launches go on the kernels line as "launches_phase18".
 
 The last line is {"ok": true, "device": {...}}.  Without a card, or
 without the rest of the repository beside it, it exits non-zero first.
@@ -266,6 +284,11 @@ SCALING = dict(width=512, prims=1 << 15, iters=20)
 TOOLS = (1920, 1080, 1 << 19, 1 << 22)
 TRACE = dict(iters=5, top=30, scales=(0.00432, 0.0189))
 MICRO_ARGS = {"microbench_gather": (), "microbench_binning": ()}
+# phase 18: the evaluation scripts at the JAX script's scene (384x384, 28 /
+# 4 views), the schedule cut to 5,000 of its 10,000 iterations: the cull
+# (at 3,000) still finds SH degree 3 and mercy runs (at 500, 1,000 and
+# 2,000: never in the last 3,000 iterations)
+EVAL = dict(iterations=5000, size=384, n_train=28, n_test=4)
 # phase 14: the offline compression's options
 COMPRESS = ("--pack_xyz", "--prune_frac", "0.17", "--finetune_iters", "32")
 # profiler kernel names of the train step's kernels (K5 and K6 are the
@@ -1248,6 +1271,13 @@ def main(argv=None):
 
     # --- phase 17, part 2: scaling harness, profiling tools ----------------
     sharded_tools_path(dev, smi, launches17)
+
+    # --- phase 18: the paper's evaluation through its entry points -------
+    torch.cuda.empty_cache()
+    launches18 = eval_path(dev, os.path.join(REPO, ".chip_smoke_eval"),
+                           args.seed, smi)
+    for k in kernels:
+        k["launches_phase18"] = launches18[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3494,14 +3524,15 @@ def launches_into(acc):
             acc[n] = acc.get(n, 0) + k.launches - before[n]
 
 
-def sharded_group_checks(tr, what, smi, acc):
+def sharded_group_checks(tr, what, smi, acc, single=None):
     """ShardedTrainer.step_group on `tr` (no host boundary in the
     iterations it runs): a group of SHARDED['group'] from one state
     against as many ShardedTrainer.step calls, every metric and leaf bit
     for bit; the same from budgets small enough to overflow (the group
-    re-runs); graphed and eager ms per step in turns.  The groups'
-    launches (warm-ups and captures) are added to acc, the eager steps'
-    are not."""
+    re-runs); graphed and eager ms per step in turns, and with `single`
+    (a single-card Trainer on the same pool) its graphed step_group in
+    the same turns.  The groups' launches (warm-ups and captures) are
+    added to acc, the eager steps' are not."""
     import torch
 
     g, rounds = SHARDED["group"], SHARDED["rounds"]
@@ -3559,21 +3590,32 @@ def sharded_group_checks(tr, what, smi, acc):
           and max(g_over[2].values()) > SHARDED["overflow_budget"],
           f"phase 17: {what}: the overflowing group differs")
 
-    first = g + 1
+    first, s_first = g + 1, 1
     times = {"eager": [], "graphed": []}
+    if single is not None:
+        times["single-card graphed"] = []
+        single.budgets = {c.uid: BENCH_BUDGET for c in single.cameras}
+        with launches_into(acc):  # its capture, before the turns
+            single.step_group(range(s_first, s_first + g))
+        s_first += g
     for r in range(rounds):
-        order = ("eager", "graphed") if r % 2 == 0 else ("graphed", "eager")
+        order = list(times) if r % 2 == 0 else list(times)[::-1]
         for who in order:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             if who == "eager":
                 run_steps_eager(tr, first, g)
-            else:
+            elif who == "graphed":
                 with launches_into(acc):
                     tr.step_group(range(first, first + g))
+            else:
+                with launches_into(acc):
+                    single.step_group(range(s_first, s_first + g))
+                s_first += g
             torch.cuda.synchronize()
             times[who].append((time.perf_counter() - t0) * 1e3 / g)
-            first += g
+            if who != "single-card graphed":
+                first += g
     print(f"phase 17: {what}: ms per step (host wall, synchronized, groups "
           f"of {g}, in turns): "
           + "; ".join(f"{w} {', '.join(f'{v:.3f}' for v in t)} (median "
@@ -3610,11 +3652,16 @@ def sharded_group_path(dev, seed, smi, gloo_groups):
         tr = make_trainer(student_pool(dev, leaves, seed), cams, seed,
                           cls=ShardedTrainer, mesh=mesh, param_shard=shard)
         tr.opt_cfg = dataclasses.replace(tr.opt_cfg, densify_until_iter=0)
+        single = None
+        if not shard:  # the single-card graphed step on the same pool
+            single = make_trainer(student_pool(dev, leaves, seed), cams,
+                                  seed)
+            single.opt_cfg = tr.opt_cfg
         sharded_group_checks(
             tr, f"{backend} at world size 1, "
             f"{'param_shard' if shard else 'replicated'}, bf16x2, "
-            f"{MAIN['width']}x{MAIN['height']}", smi, acc)
-        del tr
+            f"{MAIN['width']}x{MAIN['height']}", smi, acc, single)
+        del tr, single
     want = "raised" if dev.type == "cuda" else "ran"
     print(f"phase 17: ShardedTrainer.step_group on phase 15's two gloo "
           f"ranks ({dev.type}): {gloo_groups}", flush=True)
@@ -3689,6 +3736,247 @@ def sharded_tools_path(dev, smi, acc):
         for line in out.splitlines():
             print(f"phase 17: {mod}: {line}", flush=True)
     print(f"phase 17: part 2 {time.perf_counter() - t0:.3f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the paper's evaluation, its entry points end to end
+# ---------------------------------------------------------------------------
+
+def write_colmap_binary(root, cams, xyz, rgb, seed):
+    """images.bin (the cameras' poses, 2-D points of random counts) and
+    points3D.bin (xyz, colours, random errors and tracks) under root, as
+    tests/test_colmap_io.py writes them; returns what was written."""
+    import struct
+
+    rng = np.random.default_rng(seed)
+    images = [(c.uid + 1, _rotmat2qvec(np.asarray(c.R).T),
+               np.asarray(c.T, np.float64), 1, f"r_{c.uid}.png",
+               int(rng.integers(0, 50))) for c in cams]
+    err = rng.uniform(0, 2, len(xyz))
+    tracks = rng.integers(0, 9, len(xyz))
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "images.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(images)))
+        for iid, qvec, tvec, cam_id, name, npts in images:
+            f.write(struct.pack("<i4d3di", iid, *qvec, *tvec, cam_id))
+            f.write(name.encode() + b"\x00" + struct.pack("<Q", npts))
+            f.write(b"\x00" * (24 * npts))
+    with open(os.path.join(root, "points3D.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(xyz)))
+        for i in range(len(xyz)):
+            f.write(struct.pack("<Q3d3BdQ", i + 1, *xyz[i], *rgb[i], err[i],
+                                tracks[i]))
+            f.write(b"\x00" * (8 * int(tracks[i])))
+    return images, err
+
+
+def native_reader_check(root, seed):
+    """The port's native COLMAP reader (native/colmap_io.cpp built into
+    reduced3dgs_torch/_build/) against its Python path on a binary model
+    of the phase's cameras and world: ids, names and poses exactly, xyz
+    as float32 (the native path's type), colours and errors exactly."""
+    from reduced3dgs_torch import compression_eval as ce
+    from reduced3dgs_torch.data import colmap
+
+    lib = colmap.native_lib()
+    check(lib is not None, "phase 18: the native COLMAP reader did not "
+                           "build or load")
+    world = ce.make_world(np.random.default_rng(seed))
+    xyz = world[0].astype(np.float64)
+    rgb = np.clip(world[1][:, 0] * ce.SH_C0 + 0.5, 0, 1) * 255
+    cams = ce.scene_cameras(0.0, 28, 384, math.radians(60))
+    images, err = write_colmap_binary(root, cams, xyz,
+                                      rgb.astype(np.uint8), seed)
+    imgs_bin = os.path.join(root, "images.bin")
+    pts_bin = os.path.join(root, "points3D.bin")
+
+    def read_twice():  # the second read timed: both find the files cached
+        for _ in range(2):
+            t0 = time.perf_counter()
+            got = (colmap.read_images_binary(imgs_bin),
+                   colmap.read_points3d_binary(pts_bin))
+        return got, time.perf_counter() - t0
+
+    (got_i, got_p), native_s = read_twice()
+    saved, colmap._NATIVE = colmap._NATIVE, None
+    try:
+        (ref_i, ref_p), python_s = read_twice()
+    finally:
+        colmap._NATIVE = saved
+    check(sorted(got_i) == sorted(ref_i) == [im[0] for im in images],
+          "phase 18: native images.bin ids differ")
+    for iid, a in got_i.items():
+        b = ref_i[iid]
+        check((a.camera_id, a.name) == (b.camera_id, b.name)
+              and np.array_equal(a.qvec, b.qvec)
+              and np.array_equal(a.tvec, b.tvec),
+              f"phase 18: native images.bin differs at image {iid}")
+    check(np.array_equal(got_p[0], ref_p[0].astype(np.float32)
+                         .astype(np.float64))
+          and np.array_equal(got_p[1], ref_p[1])
+          and np.array_equal(got_p[2], ref_p[2])
+          and np.array_equal(ref_p[0], xyz) and np.array_equal(ref_p[2], err),
+          "phase 18: native points3D.bin differs from the Python reader")
+    lib_name = colmap.native_library_path().name
+    print(f"phase 18: native COLMAP reader ({lib_name}) against the "
+          f"Python reader: {len(got_i)} images and "
+          f"{len(got_p[0]):,} points equal (xyz as float32) in "
+          f"{native_s:.3f} s against {python_s:.3f} s", flush=True)
+
+
+@contextlib.contextmanager
+def launch_log(path):
+    """R3DGS_LAUNCH_LOG names `path` in the body: every training and render
+    CLI started as a subprocess appends its kernels' launches there."""
+    from reduced3dgs_torch.graphs import LAUNCH_LOG
+
+    old = os.environ.get(LAUNCH_LOG)
+    os.environ[LAUNCH_LOG] = path
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[LAUNCH_LOG]
+        else:
+            os.environ[LAUNCH_LOG] = old
+
+
+def logged_launches(path):
+    """Each kernel's launches summed over the processes of a launch log,
+    and the processes by what they ran."""
+    from reduced3dgs_torch.graphs import all_kernel_counters
+
+    total = dict.fromkeys(all_kernel_counters(), 0)
+    runs = {}
+    if os.path.exists(path):
+        with open(path) as f:
+            for line in f:
+                rec = json.loads(line)
+                runs[rec["what"]] = runs.get(rec["what"], 0) + 1
+                for n, v in rec["launches"].items():
+                    total[n] += v
+    return total, runs
+
+
+def untrained_psnr(data, device):
+    """Mean test-view PSNR of the pool training starts from (the scene's
+    points3d.ply through create_from_pcd), rendered as evaluate renders."""
+    import torch
+
+    from reduced3dgs_torch import compression_eval as ce
+    from reduced3dgs_torch.config import ModelParams
+    from reduced3dgs_torch.ops.losses import psnr as psnr_of
+    from reduced3dgs_torch.renderer import render
+    from reduced3dgs_torch.scene import Scene
+
+    scene = Scene(ModelParams(source_path=data, eval=True),
+                  load_iteration=None, shuffle=False, device=device)
+    pool = scene.pool
+    ps = []
+    for cam in scene.get_test_cameras():
+        with torch.inference_mode():
+            out = render(pool.params.xyz, pool.features(),
+                         pool.params.scaling, pool.params.rotation,
+                         pool.params.opacity[:, 0], pool.degrees,
+                         cam.params(device), torch.zeros(3, device=device),
+                         width=cam.width, height=cam.height,
+                         instance_budget=ce.EVAL_BUDGET,
+                         alive_mask=pool.alive)
+            gt = torch.as_tensor(cam.image, device=device)
+            ps.append(float(psnr_of(torch.clamp(out.color, 0, 1), gt)))
+    return float(np.mean(ps))
+
+
+def eval_path(dev, root, seed, smi, cfg=None, keep=False):
+    """Phase 18: python -m reduced3dgs_torch.compression_eval (the world at
+    EVAL's size, both configurations trained as training CLI subprocesses
+    with --fused_steps 16 at EVAL's shortened depth, the four variants
+    scored) and python -m reduced3dgs_torch.fps_table (render CLI
+    subprocesses) on `root`, then the native COLMAP reader.  Returns each
+    kernel's launches on the path: this process's (the ground truth and
+    the scoring renders) and its subprocesses' (their launch log).  keep:
+    leave `root` in place."""
+    from reduced3dgs_torch import compression_eval as ce
+    from reduced3dgs_torch import fps_table
+    from reduced3dgs_torch.graphs import all_kernel_counters
+
+    cfg = EVAL if cfg is None else cfg
+    t0 = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    log = os.path.join(root, "launches.jsonl")
+    kernels = all_kernel_counters()
+    before = {n: k.launches for n, k in kernels.items()}
+    with launch_log(log):
+        record = ce.main([
+            "--root", root, "--iterations", str(cfg["iterations"]),
+            "--size", str(cfg["size"]), "--n_train", str(cfg["n_train"]),
+            "--n_test", str(cfg["n_test"]), "--seed", str(seed),
+            "--device", dev.type])
+        t_fps = time.perf_counter()
+        rows = fps_table.main(["--root", root, "--device", dev.type])
+        fps_s = time.perf_counter() - t_fps
+    logged, procs = logged_launches(log)
+    launches = {n: k.launches - before[n] + logged[n]
+                for n, k in kernels.items()}
+    floor = untrained_psnr(os.path.join(root, "scene"), dev)
+
+    res, runs = record["results"], record["runs"]
+    check(procs == {"train": 2, "render": len(fps_table.RUNS)},
+          f"phase 18: subprocesses {procs}")
+    for name, run in runs.items():
+        ev = run["events"]
+        # on the card the groups are replayed graphs (a loop on the CPU)
+        check(run["grouped_steps"] > 0 and (dev.type != "cuda" or (
+            run["graph_captures"] > 0
+            and sum(run["graph_launches"].values()) > 0)),
+              f"phase 18: {name}: no step group ran ({run})")
+        check(ev["densify"] > 0 and run["tests_run"] > 0
+              and len(run["bytes"]) == 4,
+              f"phase 18: {name}: the schedule missed a densify, a test "
+              f"iteration or the final compression ({run})")
+        print(f"phase 18: training {name}: {run['wall_s']:.1f} s wall "
+              f"(the loop {run['train_s']:.1f} s, codebooks "
+              f"{run['fit_s']:.1f} s); {run['grouped_steps']} of "
+              f"{run['iterations']} iterations in step groups, "
+              f"{run['graph_captures']} graphs captured in "
+              f"{run['capture_s']:.1f} s, launches in their replays "
+              f"{run['graph_launches']}; surgeries {ev}", flush=True)
+    ev = runs["full"]["events"]
+    check(ev["mercy"] > 0 and ev["cull"] == 1,
+          f"phase 18: full: the schedule missed a mercy pass or the cull "
+          f"({ev})")
+    for name, models in res.items():
+        for tag, r in models.items():
+            check(math.isfinite(r["psnr"]) and r["psnr"] > floor,
+                  f"phase 18: {name}/{tag} PSNR {r['psnr']} not above the "
+                  f"untrained pool's {floor:.3f} dB")
+    van, fqh = res["vanilla"]["baseline"], res["full"]["quantised_half"]
+    check(fqh["bytes"] < van["bytes"],
+          "phase 18: full/quantised_half is not smaller than vanilla")
+    check(len(rows) == 6 and all(v > 0 and math.isfinite(v)
+                                 for v in rows.values()),
+          f"phase 18: FPS rows {rows}")
+    print(f"phase 18: {cfg['size']}x{cfg['size']}, {cfg['n_train']} / "
+          f"{cfg['n_test']} views, {cfg['iterations']} iterations: "
+          f"full/quantised_half {van['bytes'] / fqh['bytes']:.2f}x smaller "
+          f"than vanilla at {fqh['psnr'] - van['psnr']:+.3f} dB (untrained "
+          f"pool {floor:.3f} dB); stages {record['stages']}, FPS "
+          f"{fps_s:.1f} s; {smi}", flush=True)
+    print(f"phase 18: full/baseline features_rest exactly 0: "
+          f"{record['sparsity']['rest_zero']:.4f} (in the kept bands "
+          f"{record['sparsity']['rest_zero_kept']}), SH degrees 0-3 "
+          f"{record['sparsity']['degrees']}", flush=True)
+    native_reader_check(os.path.join(root, "colmap_bin"), seed)
+    check(all(launches[n] > 0 for n in ("expand", "tile_fwd", "tile_bwd",
+                                        "tile_trans", "seg_reduce_packed")),
+          f"phase 18: the path bypassed a kernel: {launches}")
+    print(f"phase 18: launches of the path (this process and its "
+          f"{sum(procs.values())} subprocesses; replays not counted) "
+          f"{launches}; {time.perf_counter() - t0:.3f} s", flush=True)
+    if not keep:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
 
 
 if __name__ == "__main__":

@@ -15,6 +15,9 @@ runs: the same calls, eagerly.
 
 from __future__ import annotations
 
+import atexit
+import json
+import os
 import time
 
 import torch
@@ -30,6 +33,35 @@ def kernel_counters():
             "tile_bwd": tile_render.TILE_BWD,
             "seg_reduce_f32": tile_render.SEG_REDUCE_F32,
             "seg_reduce_packed": tile_render.SEG_REDUCE_PACKED}
+
+
+def all_kernel_counters():
+    """kernel_counters and K4's (transmittance renders)."""
+    from reduced3dgs_torch.ops import tile_render
+
+    return {**kernel_counters(), "tile_trans": tile_render.TILE_TRANS}
+
+
+LAUNCH_LOG = "R3DGS_LAUNCH_LOG"
+
+
+def log_launches_at_exit(what: str) -> None:
+    """Where the environment variable R3DGS_LAUNCH_LOG names a file, append
+    one JSON line to it when this process exits: `what` and every
+    kernel's launches in the process (what a caller that starts an entry
+    point as a subprocess reads back, since the counters live in the
+    process)."""
+    path = os.environ.get(LAUNCH_LOG)
+    if not path:
+        return
+
+    def write():
+        line = {"what": what, "launches": {
+            n: k.launches for n, k in all_kernel_counters().items()}}
+        with open(path, "a") as f:
+            f.write(json.dumps(line) + "\n")
+
+    atexit.register(write)
 
 
 class Captured:

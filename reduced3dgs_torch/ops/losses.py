@@ -1,6 +1,6 @@
 """Training losses / image metrics (PyTorch).
 
-Counterpart of reduced3dgs_tpu/ops/losses.py: L1, PSNR and the windowed
+Counterpart of reduced3dgs_tpu/ops/losses.py: L1, L2, PSNR and the windowed
 SSIM (11x11 Gaussian window, sigma 1.5, as two separable 11-tap passes).
 Images are (..., H, W, C) channels-last, as in the JAX package.
 
@@ -28,6 +28,18 @@ SIGMA = 1.5
 
 def l1_loss(pred, target):
     return (pred - target).abs().mean()
+
+
+def l2_loss(pred, target):
+    return ((pred - target) ** 2).mean()
+
+
+def abs_jax(x):
+    """|x| with JAX's derivative: sign taken as +1 at x = 0 (jax.grad of
+    jnp.abs gives 1 there, torch's abs 0).  The regularizers of the
+    training loss use it, so a coefficient or opacity at exactly 0 gets
+    the gradient the JAX package gives it."""
+    return x * torch.where(x >= 0, 1.0, -1.0)
 
 
 def psnr(pred, target):

@@ -36,6 +36,10 @@ def rgb_to_sh(rgb):
     return (rgb - 0.5) / SH_C0
 
 
+def sh_to_rgb(sh):
+    return sh * SH_C0 + 0.5
+
+
 def sh_basis(dirs):
     """(..., 3) unit directions -> (..., 16) basis values."""
     x, y, z = dirs[..., 0], dirs[..., 1], dirs[..., 2]

@@ -52,10 +52,11 @@ from reduced3dgs_torch.models.gaussians import (
 )
 from reduced3dgs_torch.ops import binning as binning_ops
 from reduced3dgs_torch.ops import preprocess as prep_ops
-from reduced3dgs_torch.ops.losses import ssim_band_sum
+from reduced3dgs_torch.ops.losses import abs_jax, ssim_band_sum
 from reduced3dgs_torch.ops.preprocess import TILE_Y, tile_grid
 from reduced3dgs_torch.ops.tile_render import tile_render
 from reduced3dgs_torch.train import adam
+from reduced3dgs_torch.train import trainer as trainer_mod
 from reduced3dgs_torch.train.trainer import (
     VEC_ADAM, VEC_BG, TrainState, Trainer, _xyz_lr, adam_scalars,
     camera_from_vector, make_lr_tree,
@@ -327,11 +328,11 @@ def sharded_train_step(state: TrainState, cams, gts, background, iteration,
     if opt_cfg.lambda_alpha_regul > 0:
         op = torch.sigmoid(params.opacity[:, 0])
         reg = reg + opt_cfg.lambda_alpha_regul * (
-            torch.where(vis, op.abs(), 0.0).sum() / nvis)
+            torch.where(vis, abs_jax(op), 0.0).sum() / nvis)
     if opt_cfg.lambda_sh_sparsity > 0:
-        reg = reg + opt_cfg.lambda_sh_sparsity * (
-            torch.where(vis[:, None, None], params.features_rest.abs(),
-                        0.0).sum() / (nvis * 45))
+        rest = torch.where(vis[:, None, None],
+                           abs_jax(params.features_rest), 0.0)
+        reg = reg + opt_cfg.lambda_sh_sparsity * (rest.sum() / (nvis * 45))
     const = lam if t_idx == 0 else 0.0
     loss_local = l1_term + (gated + const + gate_rows * reg) / nd
 
@@ -559,7 +560,7 @@ class ShardedTrainer(Trainer):
         surgery -> deferred optimizer step."""
         cfg = self.opt_cfg
         self.iteration = iteration
-        if iteration % 1000 == 0:
+        if iteration % trainer_mod.SH_DEGREE_INTERVAL == 0:
             self.state = self.state._replace(pool=one_up_sh_degree(
                 self.state.pool, self.max_sh_degree))
         events = self._events(iteration)

@@ -190,6 +190,7 @@ def ring_reps(n_views: int) -> int:
 def main(argv=None):
     from reduced3dgs_torch import config as C
     from reduced3dgs_torch.device import resolve
+    from reduced3dgs_torch.graphs import log_launches_at_exit
     from reduced3dgs_torch.scene import Scene
 
     parser = ArgumentParser(description="Testing script parameters")
@@ -208,6 +209,7 @@ def main(argv=None):
                              "versions of the kernels)")
     args = C.get_combined_args(parser, argv)
     device = resolve(args.device)
+    log_launches_at_exit("render")
     print(f"Rendering {args.model_path} on {device}")
 
     dataset = C.extract_model(args)

@@ -17,8 +17,13 @@ never across a test, checkpoint or save iteration, with K rounded down to
 a power of two so that few group lengths occur; the per-iteration logging
 replays after the group.  --checkpoint_iterations writes
 <model_dir>/chkpntN.npz (train/checkpoint.py, the JAX package's layout)
-and --start_checkpoint resumes from one.  Refused up front:
---variable_sh_bands (a rendering option; see reduced3dgs_torch.render).
+and --start_checkpoint resumes from one.  --variable_sh_bands is
+accepted, recorded in cfg_args and ignored, as train.py does (a rendering
+option; see reduced3dgs_torch.render).
+At the end it writes <model_dir>/train_stats.json: the seconds of
+training and of the codebook fit, the files' bytes, how often each
+surgery ran, the iterations run in step groups, the graphs captured and
+the kernels' launches inside their replays and in the process.
 --ip / --port open the SIBR viewer bridge (network_gui.py), polled at
 the top of every iteration or step group as train.py does; if the port
 cannot be bound it prints "Network GUI disabled" and training goes on.
@@ -27,12 +32,13 @@ No TensorBoard.
 
 from __future__ import annotations
 
+import json
 import os
 import random
 import sys
 import time
 import uuid
-from argparse import ArgumentParser
+from argparse import ArgumentParser, Namespace
 
 import numpy as np
 
@@ -70,16 +76,13 @@ def build_parser():
     return parser
 
 
-def refuse_unported(args):
-    """Raise NotImplementedError for the options training has no use
-    for."""
-    unported = {
-        "--variable_sh_bands": args.variable_sh_bands,
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(
-            f"{', '.join(bad)}: not ported to reduced3dgs_torch yet")
+def cfg_namespace(args):
+    """The Namespace that cfg_args records: root train.py's for the same
+    command line, so without the port's --device (a run option, not a
+    model setting).  --variable_sh_bands is kept and ignored as root keeps
+    and ignores it: it is a rendering option."""
+    return Namespace(**{k: v for k, v in vars(args).items()
+                        if k != "device"})
 
 
 def final_compression(scene, iteration, max_sh_degree=3, stats=None):
@@ -111,10 +114,13 @@ def main(argv=None):
 
     from reduced3dgs_torch import config as C
     from reduced3dgs_torch.device import resolve
+    from reduced3dgs_torch.graphs import (
+        all_kernel_counters, log_launches_at_exit,
+    )
 
     args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
-    refuse_unported(args)
     device = resolve(args.device)
+    log_launches_at_exit("train")
     args.save_iterations.append(args.iterations)
     dataset = C.extract_model(args)
     opt = C.extract_optimization(args)
@@ -126,7 +132,7 @@ def main(argv=None):
                                        "model_path": args.model_path})
     print(f"Optimizing {args.model_path} on {device}")
     os.makedirs(args.model_path, exist_ok=True)
-    C.dump_cfg_args(args.model_path, args)
+    C.dump_cfg_args(args.model_path, cfg_namespace(args))
 
     random.seed(args.seed)
     np.random.seed(args.seed)
@@ -263,6 +269,21 @@ def main(argv=None):
     sizes = ", ".join(f"{k} {v}" for k, v in stats["bytes"].items())
     print(f"\nFinal compression: codebooks fitted in {stats['fit_s']:.1f} s;"
           f" bytes: {sizes}")
+    summary = dict(
+        iterations=opt.iterations, train_s=t_train, fit_s=stats["fit_s"],
+        tests_run=len({i for i in args.test_iterations
+                       if first_iter < i <= opt.iterations}),
+        bytes=stats["bytes"], events=trainer.events,
+        grouped_steps=trainer.grouped_steps,
+        graph_captures=trainer.graph_captures,
+        capture_s=trainer.capture_s, graph_launches=trainer.graph_launches,
+        launches={n: k.launches for n, k in all_kernel_counters().items()})
+    with open(os.path.join(args.model_path, "train_stats.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+    print(f"Surgeries {trainer.events}; {trainer.grouped_steps} of "
+          f"{opt.iterations - first_iter} iterations in step groups "
+          f"({trainer.graph_captures} graphs captured in "
+          f"{trainer.capture_s:.1f} s); summary in train_stats.json")
     print(f"\nTraining complete in {t_train:.1f} s.")
 
 

@@ -44,7 +44,7 @@ from reduced3dgs_torch.models.gaussians import (
     GaussianParams, GaussianPool, grow, one_up_sh_degree, reset_opacity,
     round_capacity,
 )
-from reduced3dgs_torch.ops.losses import l1_loss, ssim
+from reduced3dgs_torch.ops.losses import abs_jax, l1_loss, ssim
 from reduced3dgs_torch.ops.preprocess import CameraParams
 from reduced3dgs_torch.renderer import render
 from reduced3dgs_torch.train import adam, densify
@@ -65,6 +65,10 @@ FLOAT_METRICS = ("loss", "l1", "ssim_loss", "alpha_regul",
 INT_METRICS = ("num_rendered", "num_alive")
 _STAT_LEAVES = ("max_radii2d", "xyz_grad_accum", "denom")
 GRAPH_CACHE = 4  # captured step graphs a Trainer keeps
+SH_DEGREE_INTERVAL = 1000  # iterations between two SH degree steps
+FINE_TUNE_ITERS = 3000  # the last iterations of a compression run: no mercy
+# the surgeries Trainer.events counts (SH-band culls last)
+EVENTS = ("densify", "reset", "prune_dead", "mercy", "cull")
 GRAPH_WARMUP = 2  # eager steps on the side stream before a capture
 
 
@@ -137,10 +141,10 @@ def train_step(state: TrainState, cam: CameraParams, gt_image, background,
     lalpha = lsh = zero
     if opt_cfg.lambda_alpha_regul > 0:
         op = torch.sigmoid(params.opacity[:, 0])
-        lalpha = torch.where(vis, op.abs(), 0.0).sum() / nvis
+        lalpha = torch.where(vis, abs_jax(op), 0.0).sum() / nvis
         loss = loss + opt_cfg.lambda_alpha_regul * lalpha
     if opt_cfg.lambda_sh_sparsity > 0:
-        lsh = torch.where(vis[:, None, None], params.features_rest.abs(),
+        lsh = torch.where(vis[:, None, None], abs_jax(params.features_rest),
                           0.0).sum() / (nvis * 45)
         loss = loss + opt_cfg.lambda_sh_sparsity * lsh
     _mark(marks)
@@ -489,12 +493,15 @@ class Trainer:
         # start of the compression fine-tune phase: no mercy after it
         self.fine_tune_start = opt_cfg.iterations
         if self.cull_sh_iterations or opt_cfg.mercy_points:
-            self.fine_tune_start = opt_cfg.iterations - 3000
+            self.fine_tune_start = opt_cfg.iterations - FINE_TUNE_ITERS
         self._stack: list[int] = []
         self.budgets: dict[int, int] = {}  # camera uid -> instance budget
         self._gt: dict[int, torch.Tensor] = {}  # camera uid -> GT image
         self.extent = None  # set by the caller (scene cameras_extent)
         self.stats = {}
+        # how often each surgery ran, and the iterations step_group ran
+        self.events = dict.fromkeys(EVENTS, 0)
+        self.grouped_steps = 0
         self.iteration = 0
         # step_group on the card: captured step graphs (least recently
         # used first), and what their replays and captures amounted to
@@ -548,7 +555,8 @@ class Trainer:
         degree step, cull, densify / reset / prune / mercy, the final
         iteration): such iterations may run in a step_group with the
         results of sequential step() calls."""
-        if iteration % 1000 == 0 or iteration in self.cull_sh_iterations:
+        if (iteration % SH_DEGREE_INTERVAL == 0
+                or iteration in self.cull_sh_iterations):
             return False
         if iteration >= self.opt_cfg.iterations:  # final never steps
             return False
@@ -606,6 +614,7 @@ class Trainer:
                     self._budget_for(c.uid, int(n))
         buf = runner.buf
         self.state = buf.advanced(self.state, k)
+        self.grouped_steps += k
         out = []
         for j in range(k):
             m = {n: hist_f[j, i] for i, n in enumerate(buf.float_names)}
@@ -693,7 +702,7 @@ class Trainer:
         """
         cfg = self.opt_cfg
         self.iteration = iteration
-        if iteration % 1000 == 0:
+        if iteration % SH_DEGREE_INTERVAL == 0:
             self.state = self.state._replace(pool=one_up_sh_degree(
                 self.state.pool, self.max_sh_degree))
         will_densify, will_reset, will_prune_dead, will_mercy = (
@@ -744,8 +753,11 @@ class Trainer:
         optimizer step with the `pending` gradients (None: none), and the
         SH-band cull of a listed iteration."""
         cfg = self.opt_cfg
-        will_densify, will_reset, will_prune_dead, will_mercy = (
-            self._events(iteration))
+        events = self._events(iteration)
+        will_densify, will_reset, will_prune_dead, will_mercy = events
+        for name, ran in zip(EVENTS, events + (
+                iteration in self.cull_sh_iterations,)):
+            self.events[name] += int(ran)
         if will_densify:
             pending = self.maybe_grow_pool(pending)
             use_size = iteration > cfg.opacity_reset_interval

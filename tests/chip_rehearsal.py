@@ -43,8 +43,40 @@ def _counting(fn, kernel):
     return run
 
 
-@pytest.fixture
-def cpu_card(monkeypatch):
+def plain_counting(setattr):
+    """The kernels' plain versions in place of the CUDA wrappers, each
+    counting a launch as its kernel does, and the FPS ring and the
+    bench's windows shortened; `setattr` applies each replacement
+    (monkeypatch.setattr in a test, the builtin in a child process)."""
+    setattr(trender, "FPS_MIN_FRAMES", 1)
+    setattr(bench, "ITERS", 2)
+    setattr(bench, "WINDOWS", 1)
+    setattr(ttr, "_tile_fwd_cuda", ttr.tile_fwd_plain)
+    setattr(ttr, "_tile_bwd_cuda", ttr.tile_bwd_plain)
+    setattr(ttr, "_seg_reduce_cuda", ttr.seg_reduce_plain)
+    setattr(ttr, "_tile_trans_cuda", ttr.tile_trans_plain)
+    setattr(tbin, "_bin_keys_cuda", tbin.bin_keys_plain)
+    setattr(ttr, "tile_trans_plain", _counting(ttr.tile_trans_plain,
+                                               ttr.TILE_TRANS))
+    setattr(tbin, "bin_keys_plain", _counting(tbin.bin_keys_plain,
+                                              tbin.EXPAND))
+    setattr(ttr, "tile_fwd_plain", _counting(ttr.tile_fwd_plain,
+                                             ttr.TILE_FWD))
+    setattr(ttr, "tile_bwd_plain", _counting(ttr.tile_bwd_plain,
+                                             ttr.TILE_BWD))
+    plain_seg = ttr.seg_reduce_plain
+
+    def seg(rows, order, bounds, packed):
+        k = ttr.SEG_REDUCE_PACKED if packed else ttr.SEG_REDUCE_F32
+        k.launches += 1
+        return plain_seg(rows, order, bounds, packed)
+
+    setattr(ttr, "seg_reduce_plain", seg)
+
+
+def cpu_card_patches(monkeypatch):
+    """What cpu_card replaces, on a pytest MonkeyPatch (a module fixture
+    passes its own)."""
     monkeypatch.setattr(cs, "MAIN", SMALL)
     monkeypatch.setattr(cs, "K2_SCENE", dict(SMALL, budget=1 << 15))
     monkeypatch.setattr(cs, "TRAIN", dict(cs.TRAIN, grad_threshold=1e-6))
@@ -55,30 +87,12 @@ def cpu_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     monkeypatch.setattr(torch.cuda, "Event", _HostEvent)
     monkeypatch.setattr(cs, "profile_step", lambda *a: None)
-    monkeypatch.setattr(trender, "FPS_MIN_FRAMES", 1)
-    monkeypatch.setattr(bench, "ITERS", 2)
-    monkeypatch.setattr(bench, "WINDOWS", 1)
-    monkeypatch.setattr(ttr, "_tile_fwd_cuda", ttr.tile_fwd_plain)
-    monkeypatch.setattr(ttr, "_tile_bwd_cuda", ttr.tile_bwd_plain)
-    monkeypatch.setattr(ttr, "_seg_reduce_cuda", ttr.seg_reduce_plain)
-    monkeypatch.setattr(ttr, "_tile_trans_cuda", ttr.tile_trans_plain)
-    monkeypatch.setattr(tbin, "_bin_keys_cuda", tbin.bin_keys_plain)
-    monkeypatch.setattr(ttr, "tile_trans_plain", _counting(
-        ttr.tile_trans_plain, ttr.TILE_TRANS))
-    monkeypatch.setattr(tbin, "bin_keys_plain", _counting(
-        tbin.bin_keys_plain, tbin.EXPAND))
-    monkeypatch.setattr(ttr, "tile_fwd_plain", _counting(
-        ttr.tile_fwd_plain, ttr.TILE_FWD))
-    monkeypatch.setattr(ttr, "tile_bwd_plain", _counting(
-        ttr.tile_bwd_plain, ttr.TILE_BWD))
-    plain_seg = ttr.seg_reduce_plain
+    plain_counting(monkeypatch.setattr)
 
-    def seg(rows, order, bounds, packed):
-        k = ttr.SEG_REDUCE_PACKED if packed else ttr.SEG_REDUCE_F32
-        k.launches += 1
-        return plain_seg(rows, order, bounds, packed)
 
-    monkeypatch.setattr(ttr, "seg_reduce_plain", seg)
+@pytest.fixture
+def cpu_card(monkeypatch):
+    cpu_card_patches(monkeypatch)
     return torch.device("cpu")
 
 

@@ -11,6 +11,7 @@ import torch
 
 import chip_smoke as cs
 from chip_rehearsal import SMALL, cpu_card  # noqa: F401 (a fixture)
+from one_thread import one_intra_op_thread  # noqa: F401 (a fixture)
 from reduced3dgs_torch.ops import binning as tbin
 from reduced3dgs_torch.ops import tile_render as ttr
 

@@ -12,6 +12,7 @@ import numpy as np
 
 import chip_smoke as cs
 from chip_rehearsal import SMALL, counted, cpu_card  # noqa: F401
+from one_thread import one_intra_op_thread  # noqa: F401 (a fixture)
 
 
 def test_phase9_and_12_rehearsal(cpu_card, tmp_path):

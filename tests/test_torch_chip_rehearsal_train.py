@@ -7,6 +7,7 @@ import numpy as np
 
 import chip_smoke as cs
 from chip_rehearsal import cpu_card  # noqa: F401 (a fixture)
+from one_thread import one_intra_op_thread  # noqa: F401 (a fixture)
 from reduced3dgs_torch.train import trainer as ttrainer
 
 

@@ -20,6 +20,7 @@ from test_cli_e2e import REPO, make_blender_dataset
 from test_tile_render import make_scene
 
 from chip_smoke import quantile_codebooks
+from one_thread import one_intra_op_thread  # noqa: F401 (a fixture)
 from reduced3dgs_torch.models import ply_io as tply
 from reduced3dgs_tpu import config as jconfig
 from reduced3dgs_tpu.models import ply_io as jply
@@ -90,7 +91,7 @@ def test_port_loader_bit_identical(model_dir, variant):
 
 def test_render_cli_matches_jax(model_dir):
     models = ["baseline", "quantised_half"]
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     r = subprocess.run(
         [sys.executable, "-m", "reduced3dgs_torch.render", "-m", model_dir,
          "--device", "cpu", "--models", *models],

@@ -31,6 +31,7 @@ from PIL import Image
 from test_cli_e2e import REPO, make_blender_dataset
 from test_lpips import _random_weights
 
+from one_thread import one_intra_op_thread  # noqa: F401 (a fixture)
 from reduced3dgs_torch import compress as tcompress
 from reduced3dgs_torch import metrics as tmetrics
 from reduced3dgs_torch.data import png

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from chip_smoke import make_arrays
+from one_thread import one_intra_op_thread  # noqa: F401 (a fixture)
 from reduced3dgs_torch.cameras import Camera
 from reduced3dgs_torch.models.gaussians import padded_leaves, pool_from_numpy
 from reduced3dgs_torch.render import (

@@ -23,6 +23,7 @@ from test_torch_trainer import make_trainer
 from test_training import BUDGET
 from test_training import target_scene as jax_scene
 
+from one_thread import one_intra_op_thread  # noqa: F401 (a fixture)
 from reduced3dgs_torch.cameras import Camera
 from reduced3dgs_torch.config import OptimizationParams
 from reduced3dgs_torch.models import gaussians as G

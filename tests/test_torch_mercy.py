@@ -30,6 +30,7 @@ import torch
 from test_redundancy import make_cams, np_min_pixel_size
 from test_torch_sh_culling import pool_leaves, to_torch_pool, torch_cams
 
+from one_thread import one_intra_op_thread  # noqa: F401 (a fixture)
 from reduced3dgs_torch.config import OptimizationParams as TOpt
 from reduced3dgs_torch.models import gaussians as TG
 from reduced3dgs_torch.ops import knn as tknn

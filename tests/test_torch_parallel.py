@@ -199,20 +199,21 @@ def test_raw_gradients_pinned_both_layouts(setup, ranks_1x4):
                 np.testing.assert_allclose(
                     b, a, atol=2e-6 + 1e-4 * scale, rtol=0,
                     err_msg=f"grad {name}, param_shard={param_shard}")
-                if name != "features_rest":  # see below
-                    _render_close(b, getattr(g_j, name),
-                                  f"grad {name} vs JAX, {param_shard}")
-        # the pool starts with features_rest = 0, where the JAX package
-        # differentiates the sparsity term's |x| as +1 and torch (the
-        # reference's framework) as 0: there the JAX gradient is exactly
-        # lambda_sh_sparsity / (45 nvis) on every visible row, the port's 0
+                _render_close(b, getattr(g_j, name),
+                              f"grad {name} vs JAX, {param_shard}")
+        # the pool starts with features_rest = 0, where JAX differentiates
+        # the sparsity term's |x| as +1 (and so does the port's abs_jax):
+        # the gradient is exactly lambda_sh_sparsity / (45 nvis) on every
+        # visible row, in both packages
         g = np.asarray(g_j.features_rest)
         vis = np.abs(g).reshape(g.shape[0], -1).max(1) > 0
         assert vis.sum() > 10
-        np.testing.assert_allclose(g[vis], child.REG["lambda_sh_sparsity"]
-                                   / (45 * vis.sum()), rtol=1e-5)
+        want = child.REG["lambda_sh_sparsity"] / (45 * vis.sum())
+        np.testing.assert_allclose(g[vis], want, rtol=1e-5)
         for r in res:
-            assert not r[f"grads_{param_shard}"]["features_rest"].any()
+            b = r[f"grads_{param_shard}"]["features_rest"]
+            np.testing.assert_allclose(b[vis], want, rtol=1e-5)
+            assert not b[~vis].any()
 
 
 def test_param_sharded_matches_single_chip(setup, ranks_1x4):

@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+from one_thread import one_intra_op_thread  # noqa: F401 (a fixture)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "reduced3dgs_tpu")
 
@@ -416,3 +418,38 @@ def test_profiling_scope_and_trace(tmp_path, capsys, monkeypatch):
     assert "[profile] scope_under_test:" in capsys.readouterr().out
     with pytest.raises(RuntimeError):
         profiling.stop_trace()
+
+
+EVAL_SCRIPTS = ("compression_eval", "fps_table")
+
+
+def test_evaluation_scripts_import_no_jax():
+    """The two evaluation scripts are among the files the import rule
+    reads, and importing them loads neither jax nor reduced3dgs_tpu."""
+    names = {os.path.relpath(f, REPO) for f in _port_files()}
+    assert {os.path.join("reduced3dgs_torch", f"{d}.py")
+            for d in EVAL_SCRIPTS} <= names
+    code = ("import sys; "
+            + "; ".join(f"import reduced3dgs_torch.{d}"
+                        for d in EVAL_SCRIPTS)
+            + "; print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}))")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("script", EVAL_SCRIPTS)
+def test_evaluation_script_needs_card_or_explicit_cpu(script, tmp_path,
+                                                      monkeypatch, capsys):
+    """Without a card and without --device cpu a script raises before it
+    writes or starts anything."""
+    import importlib
+
+    mod = importlib.import_module(f"reduced3dgs_torch.{script}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(["--root", str(tmp_path / "eval")])
+    assert not capsys.readouterr().out
+    assert not (tmp_path / "eval").exists()

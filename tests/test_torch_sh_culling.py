@@ -25,6 +25,7 @@ import pytest
 import torch
 from test_sh_culling import make_pool_and_cams
 
+from one_thread import one_intra_op_thread  # noqa: F401 (a fixture)
 from reduced3dgs_torch.cameras import Camera as TCamera
 from reduced3dgs_torch.config import OptimizationParams as TOpt
 from reduced3dgs_torch.models import gaussians as TG

@@ -226,15 +226,14 @@ def step_inputs():
     return leaves, np.clip(gt.numpy(), 0, 1)
 
 
-def test_train_step_matches_jax(step_inputs):
-    """One f32-mode train step from the same state: the JAX train_step
-    (pallas backend, Pallas in interpret mode) against the port's
-    train_step (tile backend, plain kernel versions)."""
-    leaves, gt = step_inputs
+def _both_steps(leaves, gt, reg):
+    """One f32-mode train step from the same state with the regularizer
+    weights `reg`: the JAX train_step (pallas backend, Pallas in interpret
+    mode) and its Adam update, and the port's train_step (tile backend,
+    plain kernel versions), skip_update and whole."""
     it, slr = 7, 2.5
-    cfg = dataclasses.replace(JOpt(), lambda_alpha_regul=0.01,
-                              lambda_sh_sparsity=0.01)
-    tcfg = TOpt(lambda_alpha_regul=0.01, lambda_sh_sparsity=0.01)
+    cfg = dataclasses.replace(JOpt(), **reg)
+    tcfg = TOpt(**reg)
     bg = np.array([0.1, 0.3, 0.2], np.float32)
     jpool = _jax_pool(leaves)
     jcam = JCamera.look_at(eye=EYE, target=(0, 0, 0), width=W, height=H)
@@ -259,7 +258,13 @@ def test_train_step_matches_jax(step_inputs):
             torch.as_tensor(bg), it)
     _, tm, tg = ttrainer.train_step(*args, skip_update=True, **kw)
     tst2, tm2 = ttrainer.train_step(*args, **kw)
+    return (jst2, jm, jg, jparams, jopt), (tst2, tm, tm2, tg)
 
+
+def _steps_close(jax_out, port_out):
+    """The two steps' loss, statistics, gradients, parameters and Adam
+    moments at the tolerances of the module docstring."""
+    (jst2, jm, jg, jparams, jopt), (tst2, tm, tm2, tg) = jax_out, port_out
     np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
                                rtol=1e-6)
     assert float(tm2["loss"]) == float(tm["loss"])
@@ -286,3 +291,41 @@ def test_train_step_matches_jax(step_inputs):
                 b.numpy()[rows], a, rtol=0, atol=1e-5 * np.abs(a).max(),
                 err_msg=f"{name} {k}")
     assert list(tst2.opt.step) == [int(s) for s in jopt.step]
+
+
+def test_train_step_matches_jax(step_inputs):
+    """One f32-mode train step from the same state: the JAX train_step
+    (pallas backend, Pallas in interpret mode) against the port's
+    train_step (tile backend, plain kernel versions)."""
+    leaves, gt = step_inputs
+    _steps_close(*_both_steps(leaves, gt, dict(lambda_alpha_regul=0.01,
+                                                lambda_sh_sparsity=0.01)))
+
+
+def test_sparsity_gradient_at_zero_matches_jax(step_inputs):
+    """A pool with every features_rest at 0 (as create_from_pcd starts
+    it) at SH degree 0 and lambda_sh_sparsity 0.1: JAX differentiates
+    |x| as +1 at 0, so the features_rest gradient is lambda / (45 nvis)
+    on every visible row, and the port's equals it (rtol 1e-5); the
+    other leaves, the parameters after the Adam step and its moments as
+    in test_train_step_matches_jax, features_rest on every row."""
+    leaves, gt = step_inputs
+    leaves = dict(leaves, features_rest=np.zeros_like(
+        leaves["features_rest"]), degrees=np.zeros_like(leaves["degrees"]))
+    jax_out, port_out = _both_steps(leaves, gt, dict(
+        lambda_alpha_regul=0.001, lambda_sh_sparsity=0.1))
+    _steps_close(jax_out, port_out)
+    (_, _, jg, jparams, jopt), (tst2, _, _, tg) = jax_out, port_out
+    ga, gb = np.asarray(jg.features_rest), tg.features_rest.numpy()
+    vis = (ga != 0).reshape(ga.shape[0], -1).any(axis=1)
+    assert 10 < vis.sum() < leaves["alive"].sum()
+    want = 0.1 / (45 * vis.sum())
+    np.testing.assert_allclose(ga[vis], want, rtol=1e-5)
+    np.testing.assert_allclose(gb[vis], want, rtol=1e-5)
+    assert not gb[~vis].any()
+    for a, b in ((jparams.features_rest, tst2.pool.params.features_rest),
+                 (jopt.mu.features_rest, tst2.opt.mu.features_rest),
+                 (jopt.nu.features_rest, tst2.opt.nu.features_rest)):
+        a = np.asarray(a)
+        assert np.abs(a[vis]).min() > 0
+        np.testing.assert_allclose(b.numpy(), a, rtol=1e-5, atol=0)

@@ -7,9 +7,9 @@
   scene of tests/test_cli_e2e.py with the paper's compression flags
   (--cull_SH, --std_threshold 0.04, --cdist_threshold 6, --mercy_points):
   it ends with the final compression's four PLYs, which
-  ``python -m reduced3dgs_torch.render --variable_sh_bands`` renders; the
-  options the port does not have are refused up front, and without
-  --device both need a card.
+  ``python -m reduced3dgs_torch.render --variable_sh_bands`` renders; its
+  cfg_args are root train.py's for the same command line (parse only),
+  and without --device both need a card.
 
 The CLI runs in subprocesses with one OpenMP thread each: under several
 test workers, each with its own full thread pools, a subprocess with a
@@ -27,6 +27,7 @@ import pytest
 import torch
 from test_cli_e2e import REPO, make_blender_dataset
 
+from one_thread import one_intra_op_thread  # noqa: F401 (a fixture)
 from reduced3dgs_torch.cameras import Camera
 from reduced3dgs_torch.config import OptimizationParams
 from reduced3dgs_torch.models import gaussians as G
@@ -208,25 +209,76 @@ def test_trainer_cull_demotes_flat_primitives():
                                    ["--variable_sh_bands"],
                                    ["--fused_steps", "4"]])
 def test_cli_refuses_unported_flags(flags, tmp_path):
-    """--variable_sh_bands (a rendering option) is refused before anything
-    runs; the checkpoint flags and --fused_steps are ported and pass."""
-    if flags == ["--variable_sh_bands"]:
-        with pytest.raises(NotImplementedError):
-            train_cli.main(["-s", str(tmp_path), "--device", "cpu", *flags])
-        return
+    """The CLI refuses none of root train.py's flags: the checkpoint
+    flags and --fused_steps are ported, --variable_sh_bands (a rendering
+    option) is accepted, recorded and ignored as root does."""
     args = train_cli.build_parser().parse_args(
         ["-s", str(tmp_path), "--device", "cpu", *flags])
-    train_cli.refuse_unported(args)  # does not raise
+    cfg = vars(train_cli.cfg_namespace(args))
+    assert "device" not in cfg
     assert (args.start_checkpoint == "x.npz" or args.checkpoint_iterations
-            == [5] or args.fused_steps == 4)
+            == [5] or args.fused_steps == 4 or cfg["variable_sh_bands"])
 
 
 @pytest.mark.parametrize("flags", [["--mercy_points"], ["--cull_SH", "9"]])
 def test_cli_accepts_compression_flags(flags, tmp_path):
     args = train_cli.build_parser().parse_args(
         ["-s", str(tmp_path), "--device", "cpu", *flags])
-    train_cli.refuse_unported(args)  # does not raise
     assert args.mercy_points or args.cull_SH == [9]
+
+
+class _Dumped(Exception):
+    """Raised by the cfg_args capture: nothing after the dump runs."""
+
+
+def _cfg_args_of(main, config_module, argv, monkeypatch):
+    """The cfg_args text that a training CLI's main writes for argv; the
+    run stops at the dump (parse only)."""
+    seen = []
+
+    def capture(model_path, args):
+        seen.append(str(args))
+        raise _Dumped
+
+    monkeypatch.setattr(config_module, "dump_cfg_args", capture)
+    with pytest.raises(_Dumped):
+        main(argv)
+    return seen[0]
+
+
+def test_cli_cfg_args_equal_root(tmp_path, monkeypatch):
+    """For a root command line that carries --variable_sh_bands, the
+    port's training CLI writes root train.py's cfg_args, the compositor's
+    name apart."""
+    import importlib.util
+
+    from reduced3dgs_torch import config as TC
+    from reduced3dgs_tpu import config as JC
+    from reduced3dgs_tpu import platform as jplatform
+
+    spec = importlib.util.spec_from_file_location(
+        "root_train", os.path.join(REPO, "train.py"))
+    root_train = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(root_train)
+    monkeypatch.setattr(jplatform, "setup", lambda *a, **k: None)
+    argv = ["-s", str(tmp_path / "scene"), "-m", str(tmp_path / "m"),
+            "--eval", "--iterations", "300", "--variable_sh_bands",
+            "--lambda_sh_sparsity", "0.1", "--cull_SH", "200",
+            "--mercy_points", "--fused_steps", "16",
+            "--test_iterations", "100", "300"]
+
+    def root_main(a):
+        monkeypatch.setattr(sys, "argv", ["train.py"] + a)
+        root_train.main()
+
+    want = _cfg_args_of(root_main, JC, argv, monkeypatch)
+    got = _cfg_args_of(train_cli.main, TC, argv + ["--device", "cpu"],
+                       monkeypatch)
+    assert "variable_sh_bands=True" in want
+    # the compositor's default keeps each package's own name: the JAX
+    # package's "pallas" is the port's "tile" (and "xla" its "ref")
+    assert "backend='pallas'" in want and "backend='tile'" in got
+    assert got.replace("backend='tile'", "backend='pallas'") == want
 
 
 def test_cli_needs_card_or_explicit_cpu(tmp_path):

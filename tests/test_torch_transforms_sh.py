@@ -1,4 +1,5 @@
-"""Port parity: ops/transforms.py and ops/sh.py, torch vs JAX.
+"""Port parity: ops/transforms.py, ops/sh.py and ops/losses.py's l2_loss,
+torch vs JAX.
 
 The same seeded numpy inputs go through the JAX function and its
 counterpart in reduced3dgs_torch (on the CPU); float outputs must agree to
@@ -13,8 +14,10 @@ import numpy as np
 import pytest
 import torch
 
+from reduced3dgs_torch.ops import losses as tlosses
 from reduced3dgs_torch.ops import sh as tsh
 from reduced3dgs_torch.ops import transforms as ttf
+from reduced3dgs_tpu.ops import losses as jlosses
 from reduced3dgs_tpu.ops import sh as jsh
 from reduced3dgs_tpu.ops import transforms as jtf
 
@@ -77,6 +80,7 @@ SH_CASES = {
     "eval_sh_color_clamped": lambda m, x, T: m.eval_sh_color_clamped(
         T(x["sh"]), T(x["dirs"]), T(x["degrees"])),
     "rgb_to_sh": lambda m, x, T: m.rgb_to_sh(T(x["rgb"])),
+    "sh_to_rgb": lambda m, x, T: m.sh_to_rgb(T(x["sh"])),
 }
 
 
@@ -108,6 +112,23 @@ def test_transforms_match_jax(name):
 @pytest.mark.parametrize("name", sorted(SH_CASES))
 def test_sh_matches_jax(name):
     _compare(SH_CASES[name], jsh, tsh)
+
+
+def test_rgb_sh_roundtrip():
+    """tests/test_sh.py's round trip through the port's helpers."""
+    rgb = torch.tensor([[0.2, 0.5, 0.9]])
+    np.testing.assert_allclose(tsh.sh_to_rgb(tsh.rgb_to_sh(rgb)).numpy(),
+                               rgb.numpy(), atol=1e-6)
+
+
+def test_l2_loss_matches_jax():
+    rng = np.random.default_rng(4)
+    a, b = (rng.uniform(0, 1, (2, 37, 29, 3)).astype(np.float32)
+            for _ in range(2))
+    want = np.asarray(jlosses.l2_loss(jnp.asarray(a), jnp.asarray(b)))
+    got = tlosses.l2_loss(torch.as_tensor(a), torch.as_tensor(b)).numpy()
+    assert got.shape == want.shape == () and got.dtype == want.dtype
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
 def test_host_camera_matrices_bit_identical():
