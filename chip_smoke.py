@@ -142,7 +142,8 @@ before the final line:
     python -m reduced3dgs_torch.generate_results on its model (with the
     ring's FPS as fps_results.json).
 17. sharded step groups and the profiling tools, in phase 15's process
-    group (world size 1, NCCL; phases 15-17 run inside it):
+    group (world size 1, NCCL; phases 15, 17's part 1 and 19 run inside
+    it):
     ShardedTrainer.step_group at the 1080p training geometry, replicated
     and param_shard: a group of 8 replayed from one CUDA graph (its NCCL
     collectives captured) against 8 ShardedTrainer.step calls from the
@@ -174,6 +175,26 @@ before the final line:
     (native/colmap_io.cpp built into reduced3dgs_torch/_build/) against
     the Python reader on a binary model of the phase's cameras and world.
     Its launches go on the kernels line as "launches_phase18".
+19. the surgery on row shards (parallel/sharded.py:ShardRows), in phase
+    15's process group after phase 17's part 1, at the 1080p training
+    geometry on phase 9's student: each event on the row shard of the
+    (1, 1) NCCL mesh against the single-card event on the same whole
+    state and generator, bit for bit in every leaf, the pending
+    gradients, the statistics and the next draw (growth to 2^20 slots;
+    on the grown pool densify with store_grads, opacity reset, dead
+    prune, the redundancy metric and mercy of every type; densify on the
+    full pool, every new row dropped), each timed; the SH cull over the
+    8 views through ShardRows.transmittance (K1 and K4 per strip) against
+    the whole cull (equal degrees, coefficients equal where they are but
+    the DC of demoted rows within 1e-4, one view's transmittance sums
+    within 1e-3); the largest collective in bytes per capacity row;
+    a param_shard ShardedTrainer and the single-card Trainer through a
+    plain, a growth + densify + mercy and a cull iteration, seconds and
+    torch.cuda.max_memory_allocated per iteration less the bytes held
+    before it; then the same on a (1, 2) mesh of two gloo processes on
+    the one card (or the reason gloo refused).  Its launches (the
+    sharded runs', not the references') go on the kernels line as
+    "launches_phase19".
 
 The last line is {"ok": true, "device": {...}}.  Without a card, or
 without the rest of the repository beside it, it exits non-zero first.
@@ -289,6 +310,14 @@ MICRO_ARGS = {"microbench_gather": (), "microbench_binning": ()}
 # (at 3,000) still finds SH degree 3 and mercy runs (at 500, 1,000 and
 # 2,000: never in the last 3,000 iterations)
 EVAL = dict(iterations=5000, size=384, n_train=28, n_test=4)
+# phase 19: the surgery on row shards on phase 9's student at the training
+# geometry: the share of rows above the densify threshold, the instance
+# budget of every render (bench.py's 1080p), the most bytes per global
+# capacity row of a collective that moves no row to a new owner, and how
+# far the DC of a row the cull demotes may move (its mean colour weighs
+# the views by transmittance sums added in another order)
+SURGERY = dict(grad_share=0.02, budget=BENCH_BUDGET, dc_atol=1e-4)
+MAX_SURGERY_BYTES_PER_ROW = 64
 # phase 14: the offline compression's options
 COMPRESS = ("--pack_xyz", "--prune_frac", "0.17", "--finetune_iters", "32")
 # profiler kernel names of the train step's kernels (K5 and K6 are the
@@ -1265,6 +1294,9 @@ def main(argv=None):
         # --- phase 17, part 1: sharded step groups in phase 15's group -----
         launches17 = sharded_group_path(dev, args.seed, smi, gloo_groups)
 
+        # --- phase 19: the surgery on row shards in phase 15's group -------
+        launches19 = sharded_surgery_path(dev, args.seed, smi)
+
     # --- phase 16: graphed ring and bench, viewer bridge, CLIs -------------
     serving_tools_path(dev, root, smi)
     shutil.rmtree(root, ignore_errors=True)
@@ -1278,6 +1310,7 @@ def main(argv=None):
                            args.seed, smi)
     for k in kernels:
         k["launches_phase18"] = launches18[k["name"]]
+        k["launches_phase19"] = launches19.get(k["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2922,8 +2955,8 @@ def strips_against_full(dev, seed, smi):
 @contextlib.contextmanager
 def world_of_one(backend):
     """torch.distributed at world size 1 (a file:// rendezvous in a
-    temporary directory) for the body: phase 15 and phase 17's sharded
-    step groups run inside it."""
+    temporary directory) for the body: phase 15, phase 17's sharded
+    step groups and phase 19 run inside it."""
     import tempfile
 
     import torch.distributed as dist
@@ -3510,12 +3543,12 @@ def _same_run(a, b):
 
 
 @contextlib.contextmanager
-def launches_into(acc):
+def launches_into(acc, all_kernels=False):
     """Adds each kernel's launches in the body (graphs.kernel_counters:
-    K1, K2, K3, K5, K6) to acc[name]."""
-    from reduced3dgs_torch.graphs import kernel_counters
+    K1, K2, K3, K5, K6; with all_kernels K4 too) to acc[name]."""
+    from reduced3dgs_torch.graphs import all_kernel_counters, kernel_counters
 
-    kernels = kernel_counters()
+    kernels = all_kernel_counters() if all_kernels else kernel_counters()
     before = {n: k.launches for n, k in kernels.items()}
     try:
         yield acc
@@ -3736,6 +3769,529 @@ def sharded_tools_path(dev, smi, acc):
         for line in out.splitlines():
             print(f"phase 17: {mod}: {line}", flush=True)
     print(f"phase 17: part 2 {time.perf_counter() - t0:.3f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the surgery on row shards (parallel/sharded.py:ShardRows)
+# ---------------------------------------------------------------------------
+
+class RingScene:
+    """The part of Scene the mercy pass reads: the training cameras."""
+
+    def __init__(self, cams):
+        self.cams, self.pool = cams, None
+
+    def get_train_cameras(self, scale=1.0):
+        return self.cams
+
+    def calculate_redundancy_metric(self, **kw):
+        from reduced3dgs_torch.scene import Scene
+
+        return Scene.calculate_redundancy_metric(self, **kw)
+
+
+def sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def peak_start(dev):
+    """Reset the card's peak memory statistic; the bytes allocated now
+    (None off the card)."""
+    import torch
+
+    if dev.type != "cuda":
+        return None
+    torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.memory_allocated(dev)
+
+
+def peak_since(dev, held):
+    """torch.cuda.max_memory_allocated since peak_start less `held` (None
+    off the card)."""
+    import torch
+
+    if dev.type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated(dev) - held
+
+
+def surgery_cfg():
+    """make_trainer's configuration (phase 9's densify threshold and
+    percent_dense) with mercy on and the paper's cull thresholds."""
+    import dataclasses
+
+    from reduced3dgs_torch.config import OptimizationParams
+
+    return dataclasses.replace(
+        OptimizationParams(), percent_dense=TRAIN["percent_dense"],
+        densify_grad_threshold=TRAIN["grad_threshold"], mercy_points=True,
+        mercy_interval=1, std_threshold=0.04, cdist_threshold=6.0)
+
+
+def surgery_state(dev, leaves, seed):
+    """Phase 9's student (every slot alive) as a whole TrainState with the
+    densification statistics, Adam moments and pending gradients a
+    training holds, drawn from `seed`: SURGERY['grad_share'] of the rows
+    above the densify threshold, screen radii across the size prune.
+    Returns (state without a generator, pending gradients)."""
+    import torch
+
+    from reduced3dgs_torch.models.gaussians import GaussianParams
+    from reduced3dgs_torch.train import adam
+    from reduced3dgs_torch.train.trainer import TrainState
+
+    pool = student_pool(dev, leaves, seed)
+    cap = pool.capacity
+    g = torch.Generator(device=dev).manual_seed(seed + 19)
+
+    def normal(x, scale):
+        return torch.randn(x.shape, generator=g, device=dev) * scale
+
+    denom = torch.randint(1, 9, (cap,), generator=g,
+                          device=dev).to(torch.float32)
+    avg = torch.rand(cap, generator=g, device=dev) * (
+        TRAIN["grad_threshold"] / (1.0 - SURGERY["grad_share"]))
+    pool = pool.replace(xyz_grad_accum=avg * denom, denom=denom,
+                        max_radii2d=torch.rand(cap, generator=g,
+                                               device=dev) * 24.0)
+    opt = adam.init(pool.params)._replace(
+        mu=GaussianParams(*(normal(p, 1e-3) for p in pool.params)),
+        nu=GaussianParams(*(normal(p, 1e-3).abs() for p in pool.params)),
+        step=GaussianParams(*([10] * 6)))
+    pending = GaussianParams(*(normal(p, 1e-3) for p in pool.params))
+    return TrainState(pool, opt, None), pending
+
+
+def _whole(state, pending, mesh, rows):
+    """A row-shard result as the whole state (gather_state), and its
+    pending gradients gathered; `rows` None: already whole."""
+    from reduced3dgs_torch.models.gaussians import GaussianParams
+    from reduced3dgs_torch.parallel.sharded import (
+        all_gather_rows, gather_state,
+    )
+
+    if rows is None:
+        return state, pending
+    if pending is not None:
+        pending = GaussianParams(*(all_gather_rows(p, mesh.tile)
+                                   for p in pending))
+    return gather_state(state, mesh), pending
+
+
+def same_result(a, b):
+    """Two whole (state, pending, stats) results equal bit for bit: every
+    carried leaf, degrees, alive, pending gradients, statistics and the
+    generator's next draw."""
+    import torch
+
+    from reduced3dgs_torch.train.trainer import carried
+
+    (sa, pa, ka), (sb, pb, kb) = a, b
+    leaves = [carried(s) + (s.pool.degrees, s.pool.alive) for s in (sa, sb)]
+    same = all(torch.equal(x, y) for x, y in zip(*leaves))
+    same &= (pa is None) == (pb is None)
+    if pa is not None and pb is not None:
+        same &= all(torch.equal(x, y) for x, y in zip(pa, pb))
+    same &= sorted(ka) == sorted(kb) and all(
+        float(ka[k]) == float(kb[k]) for k in ka)
+    draws = [torch.rand(4, generator=s.generator, device=s.pool.device)
+             for s in (sa, sb)]
+    return same and torch.equal(*draws)
+
+
+def surgery_events(dev, seed, mesh, cams, leaves, acc, budget):
+    """Phase 19, part 1, on this rank: each surgery event on the rank's
+    row shard (ShardRows of `mesh`, its collectives logged) against the
+    single-card event on the same whole state with the same generator,
+    each run twice in turns and timed (host wall, synchronized, with the
+    peak bytes above those held): growth to 2^20 slots, then on
+    the grown state densify (store_grads), opacity reset, dead prune, the
+    redundancy metric and mercy of every type; densify on the full pool
+    (every new row dropped); the SH cull over the views and one view's
+    per-primitive transmittance; every render at instance budget
+    `budget`.  The sharded runs' launches (every kernel, K4 too) are
+    added to acc, the references' are not.  Returns
+    (rows (event, sharded [(s, peak)] x 2, single [(s, peak)] x 2, bit
+    for bit, stats), the collectives' log, the cull's comparison)."""
+    import torch
+
+    from reduced3dgs_torch.models.gaussians import round_capacity
+    from reduced3dgs_torch.ops.sh_culling import (
+        cull_sh_bands, render_transmittance,
+    )
+    from reduced3dgs_torch.parallel.sharded import (
+        ShardRows, all_gather_rows, all_reduce, gather_state, shard_state,
+    )
+    from reduced3dgs_torch.train import trainer as T
+    from reduced3dgs_torch.train.densify import MERCY_TYPES, WholeRows
+
+    # the groups' communicators exist before the timed events
+    all_reduce(torch.zeros((), device=dev), mesh.tile)
+    log = []
+    rows, whole = ShardRows(mesh, log), WholeRows()
+    cfg = surgery_cfg()
+    extent = 1.1 * RING_RADIUS
+    scene = RingScene(cams)
+    base, base_pending = surgery_state(dev, leaves, seed)
+    out = []
+
+    def timed(fn, *a):
+        """fn(*a), its seconds and (on the card) its peak bytes above
+        those held before it."""
+        sync(dev)
+        held = peak_start(dev)
+        t0 = time.perf_counter()
+        res = fn(*a)
+        sync(dev)
+        return res, (time.perf_counter() - t0, peak_since(dev, held))
+
+    def fresh(state, pending, r):
+        """A copy of the whole state (its rows with a ShardRows) with a
+        new generator from the seed."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        state = state._replace(generator=gen)
+        if r is whole:
+            return state, pending
+        return shard_state(state, mesh), type(pending)(*(
+            r.mine(p) for p in pending))
+
+    def turns(fn, inputs=lambda r: ()):
+        """fn(*inputs(r), r) for the shard and for the whole state in
+        turns (sharded, single, single, sharded: the allocator's cache
+        warm for the second of each), the inputs made before the clock
+        starts; returns ({rows: first result}, {rows: [(s, peak)] x
+        2})."""
+        res, times = {}, {rows: [], whole: []}
+        for r in (rows, whole, whole, rows):
+            a = inputs(r)
+            with launches_into(acc if r is rows else {}, all_kernels=True):
+                got, t = timed(fn, *a, r)
+            res.setdefault(r, got)
+            times[r].append(t)
+            del a
+        return res, times
+
+    def pair(name, fn, state, pending):
+        """fn(state, pending, rows) -> (state, pending, stats) on the
+        shard and on the whole state; returns the single-card result."""
+        res, times = turns(fn, lambda r: fresh(state, pending, r))
+        sh, one = res[rows], res[whole]
+        got = _whole(sh[0], sh[1], mesh, rows) + (sh[2],)
+        same = same_result(got, one)
+        out.append((name, times[rows], times[whole], same,
+                    {k: float(v) for k, v in one[2].items()}))
+        return one
+
+    def grow(st, pend, r):
+        pool, opt, pend = r.grow(st.pool, st.opt, pend,
+                                 round_capacity(2 * r.capacity(st.pool)))
+        return st._replace(pool=pool, opt=opt), pend, {}
+
+    def densify(st, pend, r):
+        st, stats, pend = T.densify_step(
+            st, extent, pend, opt_cfg=cfg, use_size_threshold=True,
+            with_grads=True, rows=r)
+        return st, pend, stats
+
+    grown, grown_pending, _ = pair("growth to 2^20 slots" if
+                                   base.pool.capacity == 1 << 19
+                                   else "growth", grow, base, base_pending)
+    pair("densify (store_grads) on the grown pool", densify, grown,
+         grown_pending)
+    pair("densify on the full pool (no free slot)", densify, base,
+         base_pending)
+    pair("opacity reset", lambda st, pend, r: (
+        T.opacity_reset_step(st), pend, {}), grown, grown_pending)
+
+    def prune_dead(st, pend, r):
+        st, n = T.prune_dead_step(st, extent, r)
+        return st, pend, {"n_points_pruned": n}
+
+    pair("dead prune", prune_dead, grown, grown_pending)
+
+    # the redundancy metric once per layout (it does not depend on the
+    # mercy type); each type's mercy on its counts
+    counts, times = turns(
+        lambda st, r: T.mercy_counts(st, scene, pixel_scale=cfg.box_size,
+                                     rows=r),
+        lambda r: fresh(grown, grown_pending, r)[:1])
+    same = torch.equal(counts[rows], counts[whole])
+    out.append(("redundancy metric (mercy's kNN and counts)", times[rows],
+                times[whole], same,
+                {"rows_counted": float((counts[whole] > 0).sum())}))
+    for kind in MERCY_TYPES:
+        def mercy(st, pend, r, kind=kind):
+            st, stats = T.mercy_step(
+                st, counts[r], lambda_mercy=cfg.lambda_mercy,
+                mercy_minimum=cfg.mercy_minimum, mercy_type=kind, rows=r)
+            return st, pend, stats
+
+        pair(f"mercy {kind}", mercy, grown, grown_pending)
+
+    # the cull on the full pool over the views
+    kw = dict(threshold=cfg.cdist_threshold * math.sqrt(3) / 255.0,
+              std_threshold=cfg.std_threshold, budget=budget,
+              backend="tile", max_sh_degree=3, active_sh_degree=3)
+    sharded = shard_state(base, mesh)
+    shard = sharded.pool
+    res, times = turns(lambda r: cull_sh_bands(
+        shard, cams, transmittance=r.transmittance, **kw) if r is rows
+        else cull_sh_bands(base.pool, cams, **kw))
+    culled, ref = res[rows], res[whole]
+    got = gather_state(sharded._replace(pool=culled), mesh).pool
+    deg = torch.equal(got.degrees, ref.degrees)
+    kept = (got.degrees == ref.degrees) & (ref.degrees > 0)
+    demoted = (got.degrees == ref.degrees) & (ref.degrees == 0)
+    rest_same = torch.equal(got.params.features_rest[kept | demoted],
+                            ref.params.features_rest[kept | demoted])
+    dc_kept = torch.equal(got.params.features_dc[kept],
+                          ref.params.features_dc[kept])
+    dc_err = float((got.params.features_dc[demoted]
+                    - ref.params.features_dc[demoted]).abs().max()) \
+        if bool(demoted.any()) else 0.0
+    cp = cams[0].params(dev)
+    feats = shard.features()
+    with launches_into(acc, all_kernels=True):
+        radii, t_sum, touched = (
+            all_gather_rows(x, mesh.tile) for x in rows.transmittance(
+                shard, feats, cp, budget=budget, backend="tile"))
+    w_radii, w_sum, w_touched = render_transmittance(
+        base.pool, base.pool.features(), cp, budget=budget,
+        backend="tile")
+    t_err = float(((t_sum - w_sum).abs() - 1e-3 * w_sum.abs()).max())
+    cull = dict(seconds=(times[rows], times[whole]), degrees=deg,
+                rest=rest_same,
+                dc_kept=dc_kept, dc_demoted_err=dc_err, t_err=t_err,
+                t_abs=float((t_sum - w_sum).abs().max()),
+                touched=torch.equal(touched, w_touched),
+                radii=torch.equal(radii, w_radii),
+                histogram=degree_histogram(ref), views=len(cams))
+    return out, log, cull
+
+
+def surgery_iterations(dev, seed, mesh, cams, leaves, acc, budget):
+    """Phase 19, part 2: a param_shard ShardedTrainer on `mesh` (its
+    launches added to acc) and the single-card Trainer, each from phase
+    9's student (every view's budget `budget`), through iteration 1
+    (plain), 2 (densify with
+    store_grads, the pool grown to twice its slots first, and a mercy
+    pass) and 3 (the SH cull over the views) at the training geometry.
+    Per iteration: seconds (host wall, synchronized) and, on the card,
+    torch.cuda.max_memory_allocated over it less the bytes held before
+    it, those bytes, and the peaks of its step and of its surgery apart.
+    Returns ({who: ([(s, peak, before, step peak, surgery peak)],
+    losses)}, whether the two runs end on the same alive rows, degrees,
+    statistics and events, the events, the rows this rank holds at the
+    end)."""
+    import dataclasses
+
+    import torch
+
+    from reduced3dgs_torch.parallel.sharded import (
+        ShardedTrainer, gather_state,
+    )
+
+    cfg = dataclasses.replace(surgery_cfg(), densify_from_iter=1,
+                              densification_interval=2, store_grads=True)
+    runs, ends = {}, {}
+    for who in ("sharded", "single"):
+        kw = (dict(cls=ShardedTrainer, mesh=mesh, param_shard=True)
+              if who == "sharded" else {})
+        tr = make_trainer(student_pool(dev, leaves, seed), cams, seed,
+                          scene=RingScene(cams), cull_sh_iterations=(3,),
+                          **kw)
+        tr.opt_cfg = cfg
+        tr.budgets = {c.uid: budget for c in cams}
+        rec, losses = [], []
+        held, split = [], []  # bytes held at the start; the two peaks
+        surgery = tr._surgery
+
+        def measured(*a, surgery=surgery, held=held, split=split):
+            step_peak = peak_since(dev, held[-1])
+            peak_start(dev)
+            surgery(*a)
+            split.append((step_peak, peak_since(dev, held[-1])))
+
+        tr._surgery = measured
+        for it in (1, 2, 3):
+            sync(dev)
+            split.clear()
+            held.append(peak_start(dev))
+            t0 = time.perf_counter()
+            with launches_into(acc if who == "sharded" else {},
+                               all_kernels=True):
+                m = tr.step(it)
+                sync(dev)
+            dt = time.perf_counter() - t0
+            parts = split[0] if split else (peak_since(dev, held[-1]),
+                                            None)
+            whole = None if parts[0] is None else max(
+                p for p in parts if p is not None)
+            rec.append((dt, whole, held[-1]) + parts)
+            losses.append(float(m["loss"]))
+        st = gather_state(tr.state, mesh) if who == "sharded" else tr.state
+        ends[who] = (st.pool.alive, st.pool.degrees, dict(tr.stats),
+                     dict(tr.events), tr.state.pool.capacity)
+        runs[who] = (rec, losses)
+        del tr
+    a, b = ends["sharded"], ends["single"]
+    same = (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            and a[2] == b[2] and a[3] == b[3])
+    return runs, same, a[3], a[4]
+
+
+def surgery_rank(rank, world, device, seed, scene, budget):
+    """Phase 19 on one rank of a (1, 2) mesh of gloo processes on the one
+    card: whether gloo carries the collectives the surgery runs on this
+    device's tensors, then parts 1 and 2 on its own ring views of `scene`
+    (MAIN's keys) and student.  Returns what surgery_report prints and
+    the launches."""
+    import torch
+    import torch.distributed as dist
+
+    from reduced3dgs_torch.parallel.sharded import make_mesh
+
+    mesh = make_mesh(1, world)
+    probe = torch.arange(4, dtype=torch.int32, device=device)
+    try:
+        dist.all_reduce(probe.to(torch.int64), group=mesh.tile)
+        dist.all_gather([torch.empty_like(probe) for _ in range(world)],
+                        probe, group=mesh.tile)
+        dist.broadcast(probe.to(torch.uint8), 0, group=mesh.tile)
+    except RuntimeError as e:
+        return {"refused": str(e).strip().splitlines()[0]}
+    cams, leaves = train_cameras(device, seed, scene=scene)
+    acc = {}
+    events = surgery_events(device, seed, mesh, cams, leaves, acc, budget)
+    iterations = surgery_iterations(device, seed, mesh, cams, leaves, acc,
+                                    budget)
+    return {"events": events, "iterations": iterations, "launches": acc}
+
+
+def timing_text(runs):
+    """[(seconds, peak bytes or None)] of the runs in turns as text."""
+    text = " / ".join(f"{s:.4f}" for s, _ in runs) + " s"
+    if runs[0][1] is None:
+        return text
+    return text + " (peak +" + " / +".join(str(p) for _, p in runs) + " B)"
+
+
+def surgery_report(res, what, smi):
+    """Phase 19's lines for one rank's results, and its checks."""
+    (rows, log, cull), (runs, same_end, events, held) = (res["events"],
+                                                        res["iterations"])
+    for name, sh, one, same, stats in rows:
+        print(f"phase 19: {what}: {name}: sharded {timing_text(sh)}, "
+              f"single-card {timing_text(one)}, "
+              f"{'bit for bit' if same else 'DIFFERENT'}; {stats}; {smi}",
+              flush=True)
+        check(same, f"phase 19: {what}: {name}: the sharded event differs "
+              f"from the single-card one")
+    print(f"phase 19: {what}: SH cull over {cull['views']} views: sharded "
+          f"{timing_text(cull['seconds'][0])}, single-card "
+          f"{timing_text(cull['seconds'][1])}; degrees "
+          f"{'equal' if cull['degrees'] else 'DIFFERENT'} "
+          f"({cull['histogram']}), features_rest "
+          f"{'equal' if cull['rest'] else 'DIFFERENT'} where they are, "
+          f"features_dc of kept rows {'equal' if cull['dc_kept'] else 'DIFFERENT'}"
+          f", of demoted rows at most {cull['dc_demoted_err']:.3e} apart; one "
+          f"view's transmittance sums at most {cull['t_abs']:.3e} apart, "
+          f"{cull['t_err']:.3e} past rtol 1e-3 (atol 1e-3), touched "
+          f"{'equal' if cull['touched'] else 'DIFFERENT'}, radii "
+          f"{'equal' if cull['radii'] else 'DIFFERENT'}; {smi}", flush=True)
+    check(cull["degrees"] and cull["rest"] and cull["dc_kept"]
+          and cull["dc_demoted_err"] <= SURGERY["dc_atol"]
+          and cull["t_err"] <= 1e-3 and cull["touched"] and cull["radii"],
+          f"phase 19: {what}: the sharded cull differs")
+    moves = [e for e in log if e["move"]]
+    rest = [e for e in log if not e["move"]]
+    per_row = max(e["bytes"] / e["capacity"] for e in rest)
+    move_row = max((e["bytes"] / e["capacity"] for e in moves), default=0)
+    ops = sorted({e["op"] for e in log})
+    print(f"phase 19: {what}: {len(log)} collectives in the events ({ops}):"
+          f" the largest {per_row:.2f} B per capacity row (moves aside; "
+          f"limit {MAX_SURGERY_BYTES_PER_ROW}), the largest move "
+          f"{move_row:.2f} B per capacity row", flush=True)
+    check(per_row <= MAX_SURGERY_BYTES_PER_ROW,
+          f"phase 19: {what}: a collective carries {per_row} B a row")
+    for who, (rec, losses) in runs.items():
+        text = "; ".join(
+            f"iteration {i}: {s:.4f} s" + (
+                "" if peak is None else
+                f", peak {peak} B over {before} B held (the step "
+                f"{step}, the surgery {'none' if cut is None else cut})")
+            for i, (s, peak, before, step, cut) in enumerate(rec, 1))
+        print(f"phase 19: {what}: {who} trainer, iterations 1 (plain), 2 "
+              f"(growth, densify, mercy), 3 (cull): {text}; losses "
+              f"{', '.join(f'{v:.6f}' for v in losses)}; {smi}", flush=True)
+    print(f"phase 19: {what}: this rank holds {held} rows at the end (725 B "
+          f"x {held} = {725 * held} B of state); events {events}; the "
+          f"sharded and single-card runs end on "
+          f"{'the same' if same_end else 'DIFFERENT'} alive rows, degrees "
+          f"and statistics", flush=True)
+    check(same_end, f"phase 19: {what}: the trainers end apart")
+    losses = [r[1] for r in runs.values()]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+    check(rel <= 1e-5, f"phase 19: {what}: losses off by {rel:.3e}")
+
+
+def sharded_surgery_path(dev, seed, smi):
+    """Phase 19, inside world_of_one just after phase 17's part 1: the
+    surgery on row shards at the 1080p training geometry on phase 9's
+    student, on the (1, 1) mesh of this process group (NCCL on the card)
+    and on a (1, 2) mesh of two gloo processes on the one card (or the
+    reason gloo refused).  The kernels' counts are zeroed first; returns
+    the path's launches (the sharded events' and trainers' in this
+    process and the gloo ranks', the single-card references not
+    counted)."""
+    import torch.distributed as dist
+
+    from reduced3dgs_torch.graphs import all_kernel_counters
+    from reduced3dgs_torch.parallel.launch import spawn_local
+    from reduced3dgs_torch.parallel.sharded import make_mesh
+
+    t0 = time.perf_counter()
+    for k in all_kernel_counters().values():
+        k.launches = 0
+    mesh = make_mesh(1, 1)
+    backend = dist.get_backend(mesh.world)
+    cams, leaves = train_cameras(dev, seed)
+    acc, budget = {}, SURGERY["budget"]
+    events = surgery_events(dev, seed, mesh, cams, leaves, acc, budget)
+    iterations = surgery_iterations(dev, seed, mesh, cams, leaves, acc,
+                                    budget)
+    surgery_report({"events": events, "iterations": iterations},
+                   f"{backend} at world size 1", smi)
+    del events, iterations
+    own = dict(acc)
+    t1 = time.perf_counter()
+    res = spawn_local(surgery_rank, 2, "gloo", dev.type, seed, dict(MAIN),
+                      budget)
+    refused = [r["refused"] for r in res if "refused" in r]
+    if refused:
+        print(f"phase 19: the two-rank (1, 2) run on one card is left out: "
+              f"gloo refused ({refused[0]}); "
+              f"tests/test_torch_sharded_surgery.py runs such ranks on the "
+              f"CPU", flush=True)
+    else:
+        for rank, r in enumerate(res):
+            surgery_report(r, f"mesh (1, 2), gloo rank {rank}", smi)
+            for n, v in r["launches"].items():
+                acc[n] = acc.get(n, 0) + v
+        print(f"phase 19: two-rank run {time.perf_counter() - t1:.3f} s "
+              f"(both processes' start included)", flush=True)
+    want = ("expand", "tile_fwd", "tile_bwd", "tile_trans",
+            "seg_reduce_packed")
+    check(all(acc.get(n, 0) > 0 for n in want),
+          f"phase 19: the path bypassed a kernel: {acc}")
+    print(f"phase 19: launches of the path (this process {own}, with the "
+          f"gloo ranks' {acc}; the single-card references not counted)",
+          flush=True)
+    print(f"phase 19: {time.perf_counter() - t0:.3f} s", flush=True)
+    return acc
 
 
 # ---------------------------------------------------------------------------

@@ -36,18 +36,26 @@ from reduced3dgs_torch.renderer import render
 _REST_BAND = (1,) * 3 + (2,) * 5 + (3,) * 7
 
 
-def _accumulate_camera(acc, xyz, features, scaling, rotation, opacity,
-                       degrees, alive, cam: CameraParams, *, width, height,
-                       budget, backend, max_sh_degree):
-    wsum, dist_accum, mean, var = acc
+def render_transmittance(pool: GaussianPool, features, cam: CameraParams, *,
+                         budget, backend):
+    """One transmittance render of the whole pool (features: its (C, 16,
+    3) coefficients): (radii, trans_sum, touched) per primitive."""
     out = render(
-        xyz, features, scaling, rotation, opacity, degrees, cam,
-        torch.zeros(3, device=xyz.device), width=width, height=height,
-        instance_budget=budget, alive_mask=alive, backend=backend,
-        want_transmittance=True)
-    present = out.radii > 0
-    touched = torch.clamp(out.pixels_touched, min=1).to(torch.float32)
-    w = (out.transmittance_sum / touched)[:, None]  # (P,1)
+        pool.params.xyz, features, pool.params.scaling, pool.params.rotation,
+        pool.params.opacity[:, 0], pool.degrees, cam,
+        torch.zeros(3, device=features.device), width=cam.width,
+        height=cam.height, instance_budget=budget, alive_mask=pool.alive,
+        backend=backend, want_transmittance=True)
+    return out.radii, out.transmittance_sum, out.pixels_touched
+
+
+def _accumulate_camera(acc, xyz, features, degrees, cam: CameraParams,
+                       radii, trans_sum, touched, *, max_sh_degree):
+    """One camera's statistics added to acc, row by row."""
+    wsum, dist_accum, mean, var = acc
+    present = radii > 0
+    touched = torch.clamp(touched, min=1).to(torch.float32)
+    w = (trans_sum / touched)[:, None]  # (P,1)
 
     dirs = tf.normalize(xyz - cam.campos[None, :], eps=1e-12)
     colours = sh_ops.eval_sh_color_per_degree(
@@ -72,11 +80,17 @@ def _accumulate_camera(acc, xyz, features, scaling, rotation, opacity,
 @torch.inference_mode()
 def calculate_colours_variance(pool: GaussianPool, cameras, *,
                                budget=1 << 17, backend="tile",
-                               max_sh_degree=3):
+                               max_sh_degree=3,
+                               transmittance=render_transmittance):
     """One transmittance render per camera (Camera objects or
     CameraParams on the pool's device).  Returns (avg_distances,
     weighted_variance, weighted_mean); NaN where a primitive was never
-    blended (handled by the callers)."""
+    blended (handled by the callers).
+
+    transmittance(pool, features, cam, budget=, backend=) -> (radii,
+    trans_sum, touched) of the pool's rows: the whole render by default,
+    parallel/sharded.py:ShardRows.transmittance on a row shard (the
+    statistics are row by row)."""
     p, dev = pool.capacity, pool.device
     acc = (torch.zeros((p, 1), device=dev),
            torch.zeros((p, max_sh_degree), device=dev),
@@ -85,11 +99,9 @@ def calculate_colours_variance(pool: GaussianPool, cameras, *,
     feats = pool.features()
     for cam in cameras:
         cp = cam.params(dev) if hasattr(cam, "params") else cam
-        acc = _accumulate_camera(
-            acc, pool.params.xyz, feats, pool.params.scaling,
-            pool.params.rotation, pool.params.opacity[:, 0], pool.degrees,
-            pool.alive, cp, width=cp.width, height=cp.height, budget=budget,
-            backend=backend, max_sh_degree=max_sh_degree)
+        seen = transmittance(pool, feats, cp, budget=budget, backend=backend)
+        acc = _accumulate_camera(acc, pool.params.xyz, feats, pool.degrees,
+                                 cp, *seen, max_sh_degree=max_sh_degree)
     wsum, dist_accum, mean, var = acc
     return dist_accum / wsum, var / wsum[:, :, None], mean
 
@@ -132,14 +144,14 @@ def low_distance_colour_culling(pool: GaussianPool, threshold,
 
 def cull_sh_bands(pool: GaussianPool, cameras, threshold=0.0,
                   std_threshold=0.0, *, budget=1 << 17, backend="tile",
-                  max_sh_degree=3, active_sh_degree=3):
-    """Variance pass, recompute, distance pass (two renders per camera)."""
-    _, var, mean = calculate_colours_variance(
-        pool, cameras, budget=budget, backend=backend,
-        max_sh_degree=max_sh_degree)
+                  max_sh_degree=3, active_sh_degree=3,
+                  transmittance=render_transmittance):
+    """Variance pass, recompute, distance pass (two renders per camera;
+    `transmittance` as calculate_colours_variance's)."""
+    kw = dict(budget=budget, backend=backend, max_sh_degree=max_sh_degree,
+              transmittance=transmittance)
+    _, var, mean = calculate_colours_variance(pool, cameras, **kw)
     pool, _ = low_variance_colour_culling(pool, std_threshold, var, mean)
-    dists, _, _ = calculate_colours_variance(
-        pool, cameras, budget=budget, backend=backend,
-        max_sh_degree=max_sh_degree)
+    dists, _, _ = calculate_colours_variance(pool, cameras, **kw)
     return low_distance_colour_culling(pool, threshold, dists,
                                        active_sh_degree)

@@ -27,9 +27,20 @@ gradients, as in the JAX package (sharded.py:225-248).
 Rank r sits at (r // n_tile, r % n_tile).  Without torch.distributed
 initialised, a (1, 1) mesh runs with identity collectives.  The backend is
 the caller's (parallel/launch.py: nccl for cuda, gloo for cpu); nothing
-here moves a tensor to the host so that a collective works.  Surgery
-iterations of ``ShardedTrainer`` run the single-card step functions on the
-gathered whole state, then shard it again.
+here moves a tensor to the host so that a collective works.
+
+Surgery on row shards (``ShardRows``, ``ShardedTrainer`` with
+param_shard): every event of Trainer._surgery runs on each rank's rows,
+and no rank holds the whole state.  A decision that needs the whole pool
+(free slots, thresholds, the redundancy metric) runs on every rank on
+single columns all_gathered over the tile group (1-41 B a row), so every
+rank computes the single-card decision bit for bit; its application is
+row-local.  Rows that a densify or a capacity growth sends to another
+rank move there (one padded all_gather, or one broadcast per leaf and
+source rank); counts are all_reduced as integers; the SH cull renders
+each rank's strip of tile rows and reduce-scatters the per-primitive
+transmittance sums to their owners.  The layout stays the contiguous one
+of shard_state, so every row lies where the single-card surgery puts it.
 
 Fused steps (``sharded_fused_step``, ``ShardedTrainer.step_group``): the
 sharded step on the static buffers of train/trainer.py (this rank's rows
@@ -42,6 +53,7 @@ captured: a graph asked for under gloo on the card raises.
 from __future__ import annotations
 
 import copy
+import math
 
 import torch
 import torch.distributed as dist
@@ -54,7 +66,9 @@ from reduced3dgs_torch.ops import binning as binning_ops
 from reduced3dgs_torch.ops import preprocess as prep_ops
 from reduced3dgs_torch.ops.losses import abs_jax, ssim_band_sum
 from reduced3dgs_torch.ops.preprocess import TILE_Y, tile_grid
-from reduced3dgs_torch.ops.tile_render import tile_render
+from reduced3dgs_torch.ops.tile_render import (
+    tile_render, transmittance_by_primitive,
+)
 from reduced3dgs_torch.train import adam
 from reduced3dgs_torch.train import trainer as trainer_mod
 from reduced3dgs_torch.train.trainer import (
@@ -212,14 +226,18 @@ def gather_rows(x, group):
     return _GatherRows.apply(x, group)
 
 
-def _gather_prep(prep, group):
-    """A PreprocessOut of this rank's rows -> the tile group's whole one."""
+def _gather_prep(prep, group, note=None):
+    """A PreprocessOut of this rank's rows -> the tile group's whole one
+    (64 B a row).  note: called with each gathered tensor."""
     fl = gather_rows(torch.cat(
         [getattr(prep, f).reshape(-1, n) for f, n in _FLOAT_FIELDS], 1),
         group)
     it = all_gather_rows(torch.cat(
         [getattr(prep, f).reshape(-1, n) for f, n in _INT_FIELDS], 1),
         group)
+    if note is not None:
+        note(fl)
+        note(it)
     out = {}
     for src, fields in ((fl, _FLOAT_FIELDS), (it, _INT_FIELDS)):
         c = 0
@@ -512,19 +530,219 @@ def sync_state(state: TrainState, mesh: Mesh) -> TrainState:
     return _map_rows(state, state.pool.capacity, _as_words(bcast))
 
 
+def broadcast(x, src: int, group):
+    """x as member `src` of the group holds it (in place; x contiguous)."""
+    if group is not None:
+        dist.broadcast(x, dist.get_global_rank(group, src), group=group)
+    return x
+
+
+def _words(x):
+    """A (n, ...) tensor of 4-byte elements as (n, w) int32 words."""
+    if x.element_size() != 4:
+        raise ValueError(f"rows of {x.dtype} do not travel as words")
+    return x.reshape(x.shape[0], math.prod(x.shape[1:])).contiguous().view(
+        torch.int32)
+
+
+# the most bytes per global capacity row of one broadcast piece
+_PIECE_BYTES_PER_ROW = 64
+
+
+class ShardRows:
+    """This rank's contiguous row shard of the pool (shard_state's layout)
+    as the surgery's row layout: the methods of train/densify.py:WholeRows
+    over the tile group.  Decisions read whole single columns
+    all_gathered over it; rows a decision sends to another member move
+    there; counts are all_reduced as integers.
+
+    log: None, or a list that receives one dict per collective run here:
+    "op", "bytes" (its output on this rank), "capacity" (the pool's
+    global capacity then) and "move" (it carries rows to a new owner)."""
+
+    def __init__(self, mesh: Mesh, log=None):
+        self.mesh, self.log = mesh, log
+        self.group, self.n, self.t = mesh.tile, mesh.n_tile, mesh.tile_idx
+
+    def _note(self, op, out, capacity, move=False):
+        if self.log is not None:
+            self.log.append(dict(op=op, move=move, capacity=capacity,
+                                 bytes=out.numel() * out.element_size()))
+        return out
+
+    def capacity(self, pool):
+        return pool.capacity * self.n
+
+    def column(self, x):
+        """The tile group's whole column of a per-row tensor."""
+        whole = _as_words(lambda v: all_gather_rows(v, self.group))(x)
+        return self._note("all_gather", whole, x.shape[0] * self.n)
+
+    def mine(self, x, dim=0):
+        cs = x.shape[dim] // self.n
+        return x.narrow(dim, self.t * cs, cs)
+
+    def total(self, mask):
+        return self._note("all_reduce", all_reduce(mask.sum(), self.group),
+                          mask.shape[0] * self.n)
+
+    def put(self, leaves, src_leaves, src, dst):
+        """WholeRows.put on shards (src, dst: global rows, the same on
+        every member).  A row whose source and destination have one owner
+        is copied there; the others travel in one all_gather of every
+        member's outgoing rows (4-byte words, padded to the largest
+        count).  Returns (new leaves, local positions of the dst rows held
+        here)."""
+        cs = leaves[0].shape[0]
+        lo, n = self.t * cs, self.n
+        s_own, d_own = src // cs, dst // cs
+        away = s_own != d_own
+        here = d_own == self.t
+        out = [x.clone() for x in leaves]
+        stay = here & ~away
+        for x, v in zip(out, src_leaves):
+            x[dst[stay] - lo] = v[src[stay] - lo]
+        counts = torch.bincount(s_own[away], minlength=n)
+        n_max = int(counts.max())
+        if n_max:
+            send = away & (s_own == self.t)
+            words = torch.cat([_words(v[src[send] - lo])
+                               for v in src_leaves], 1)
+            words = torch.cat([words, words.new_zeros(
+                (n_max - words.shape[0], words.shape[1]))])
+            got = self._note("all_gather",
+                             all_gather_rows(words, self.group), cs * n,
+                             move=True)
+            # a sender's outgoing rows in source order (src increases)
+            first = torch.cumsum(counts, 0) - counts
+            pos = (s_own * n_max + torch.cumsum(away.to(torch.int64), 0)
+                   - 1 - first[s_own])
+            take = away & here
+            got = got[pos[take]]
+            c = 0
+            for x, v in zip(out, src_leaves):
+                w = math.prod(v.shape[1:])
+                x[dst[take] - lo] = got[:, c:c + w].contiguous().view(
+                    x.dtype).reshape((-1,) + x.shape[1:])
+                c += w
+        return out, dst[here] - lo
+
+    def grow(self, pool, opt, pending, new_cap):
+        """WholeRows.grow on shards: the new layout's shard of every
+        capacity-sized leaf (new_cap / n_tile rows, global row g on member
+        g // (new_cap / n_tile)).  Member r's old rows go to their new
+        owners by one broadcast per leaf, so that a member holds its old
+        shard, its new one and one leaf of one other member's shard at a
+        time; after a doubling, the members above the old rows hold dead
+        slots only until densify fills them."""
+        n, cs = self.n, pool.capacity
+        if new_cap % n:
+            raise ValueError("the pool capacity must divide the tile axis")
+        ncs = new_cap // n
+
+        def move(x, identity=False):
+            if x.dtype == torch.bool:  # not every backend carries bool
+                return move(x.to(torch.uint8)).bool()
+            new = x.new_zeros((ncs,) + x.shape[1:])
+            if identity:
+                new[:, 0] = 1
+            for r in range(n):
+                a, b = r * cs, (r + 1) * cs
+                owners = range(a // ncs, (b - 1) // ncs + 1)
+                buf = x if r == self.t else None
+                if any(o != r for o in owners):
+                    buf = broadcast(x.contiguous() if r == self.t
+                                    else torch.empty_like(x), r, self.group)
+                    self._note("broadcast", buf, new_cap, move=True)
+                if buf is not None and self.t in owners:
+                    lo = max(a, self.t * ncs)
+                    hi = min(b, (self.t + 1) * ncs)
+                    new[lo - self.t * ncs:hi - self.t * ncs] = buf[lo - a:
+                                                                  hi - a]
+            return new
+
+        def params(leaves, identity=False):
+            return type(leaves)(*(
+                move(x, identity and name == "rotation")
+                for name, x in zip(leaves._fields, leaves)))
+
+        pool = pool.replace(
+            params=params(pool.params, identity=True),
+            **{k: move(getattr(pool, k)) for k in (
+                "degrees", "alive", "max_radii2d", "xyz_grad_accum",
+                "denom")})
+        opt = opt._replace(mu=params(opt.mu), nu=params(opt.nu))
+        if pending is not None:
+            pending = params(pending)
+        return pool, opt, pending
+
+    @torch.inference_mode()
+    def transmittance(self, pool, features, cam, *, budget, backend):
+        """sh_culling.render_transmittance over the tile group: preprocess
+        on this member's rows, its outputs all_gathered (64 B a row), this
+        member's strip of tile rows binned and walked by K4 at its tile
+        base, the per-primitive sums reduce-scattered to their owners.
+        Returns (radii, trans_sum, touched) of this member's rows; the
+        sums run in another order than the whole frame's.  backend: the
+        strips are the tile renderer's."""
+        if backend != "tile":
+            raise NotImplementedError("strips are the tile backend's")
+        cap = self.capacity(pool)
+        p = pool.params
+        prep_local = prep_ops.preprocess(
+            p.xyz, p.scaling, p.rotation, p.opacity[:, 0], features,
+            pool.degrees, cam, alive_mask=pool.alive)
+        prep = _gather_prep(prep_local, self.group,
+                            lambda out: self._note("all_gather", out, cap))
+        width, height = cam.width, cam.height
+        grid_x, grid_y = tile_grid(width, height)
+        rows_per = -(-grid_y // self.n)
+        r0 = self.t * rows_per
+        b = binning_ops.bin_gaussians(prep, width, height, budget,
+                                      tile_rows=(r0, rows_per))
+        t_sum, touched = transmittance_by_primitive(b, width, height,
+                                                    r0 * grid_x)
+        sums = self._note("reduce_scatter", reduce_scatter_rows(
+            torch.stack([t_sum, touched.to(torch.float32)], 1), self.group),
+            cap)
+        return prep_local.radii, sums[:, 0], sums[:, 1].to(torch.int32)
+
+    def agree(self, state: TrainState) -> TrainState:
+        """Every capacity-sized leaf of this member's shard as data member
+        0 of its tile index holds it: a broadcast over the data group,
+        leaf by leaf, in pieces of at most 64 B a global capacity row (the
+        data groups ran the same surgery; float atomics may differ)."""
+        data = self.mesh.data
+        cs = state.pool.capacity
+        cap = cs * self.n
+
+        def bcast(x):
+            x = x.contiguous()
+            flat = x.view(-1)
+            for piece in flat.split(_PIECE_BYTES_PER_ROW * cap
+                                    // x.element_size()):
+                self._note("broadcast", broadcast(piece, 0, data), cap)
+            return x
+
+        return _map_rows(state, cs, _as_words(bcast))
+
+
 class ShardedTrainer(Trainer):
     """The single-card Trainer's event cadence (SH schedule, densify /
     prune / mercy / opacity reset, the store_grads deferred step, SH
     culls) on an (n_data, n_tile) mesh.
 
     Plain iterations run run_sharded_step_with_regrow (one camera per
-    data member).  Surgery iterations gather the whole state (and the
-    pending gradients) on every rank, run the single-card surgery of
-    Trainer._surgery on it, make every rank hold rank 0's result and
-    shard it again: the counterpart of GSPMD partitioning the JAX
-    package's surgery steps, at the cost of one whole state per rank
-    during the surgery.  Every rank must hold the same cameras, seed and
-    initial pool."""
+    data member).  Surgery iterations run Trainer._surgery's one sequence
+    of events on the state's row layout ``self.rows``: with param_shard a
+    ShardRows (every event on this rank's rows, the pending gradients
+    sharded, no whole state on any rank; the counterpart of GSPMD
+    partitioning the JAX package's surgery steps), after which, with
+    n_data > 1, each rank's shard is broadcast from data member 0 over its
+    data group; replicated, the whole state, then rank 0's result
+    broadcast over the world.  Every rank must hold the same cameras,
+    seed and initial pool.  Set ``rows.log`` to a list to record the
+    surgery's collectives (ShardRows)."""
 
     def __init__(self, pool, opt_cfg, cameras, *, mesh: Mesh,
                  param_shard: bool = True, **kw):
@@ -534,6 +752,8 @@ class ShardedTrainer(Trainer):
         self.n_data = mesh.n_data
         self.state = shard_state(self.state, mesh, param_shard)
         self._camera_mesh = camera_mesh(mesh)
+        if param_shard:
+            self.rows = ShardRows(mesh)
 
     def step_group(self, iterations):
         """Trainer.step_group on the mesh, as the JAX package's
@@ -596,12 +816,9 @@ class ShardedTrainer(Trainer):
                 self._budget_for(c.uid, new_budget)
 
         if surgery or iteration in self.cull_sh_iterations:
-            self.state = gather_state(self.state, self.mesh,
-                                      self.param_shard)
-            if pending is not None and self.param_shard:
-                pending = GaussianParams(*(
-                    all_gather_rows(g, self.mesh.tile) for g in pending))
             self._surgery(iteration, pending, final)
-            self.state = shard_state(sync_state(self.state, self.mesh),
-                                     self.mesh, self.param_shard)
+            if not self.param_shard:
+                self.state = sync_state(self.state, self.mesh)
+            elif self.n_data > 1:
+                self.state = self.rows.agree(self.state)
         return metrics

@@ -160,23 +160,27 @@ class Scene:
         return self.test_cameras[scale]
 
     def calculate_redundancy_metric(self, pixel_scale=1.0,
-                                    num_neighbours=30):
+                                    num_neighbours=30, columns=None):
         """(min_redundancy (C,) int32, cube_size (C,)) of ``self.pool``
-        over the training cameras (ops/redundancy.py)."""
+        over the training cameras (ops/redundancy.py).  columns: the
+        (xyz, activated scales, normalised rotations, alive) to read in
+        place of ``self.pool``'s (a sharded trainer's gathered ones)."""
         import torch
 
         from reduced3dgs_torch.ops.redundancy import redundancy_metric
 
         cams = self.get_train_cameras()
-        pool = self.pool
+        if columns is None:
+            pool = self.pool
+            columns = (pool.params.xyz, pool.get_scaling(),
+                       pool.get_rotation(), pool.alive)
+        dev = columns[0].device
 
         def t(arrs, dtype):
-            return torch.as_tensor(np.stack(arrs), dtype=dtype,
-                                   device=pool.device)
+            return torch.as_tensor(np.stack(arrs), dtype=dtype, device=dev)
 
         return redundancy_metric(
-            pool.params.xyz, pool.get_scaling(), pool.get_rotation(),
-            pool.alive,
+            *columns,
             t([c.full_proj_transform for c in cams], torch.float32),
             t([c.inverse_full_proj_transform for c in cams], torch.float32),
             t([c.height for c in cams], torch.int32),

@@ -41,7 +41,7 @@ import torch
 from reduced3dgs_torch.config import OptimizationParams
 from reduced3dgs_torch.graphs import Captured, kernel_counters
 from reduced3dgs_torch.models.gaussians import (
-    GaussianParams, GaussianPool, grow, one_up_sh_degree, reset_opacity,
+    GaussianParams, GaussianPool, one_up_sh_degree, reset_opacity,
     round_capacity,
 )
 from reduced3dgs_torch.ops.losses import abs_jax, l1_loss, ssim
@@ -49,6 +49,7 @@ from reduced3dgs_torch.ops.preprocess import CameraParams
 from reduced3dgs_torch.renderer import render
 from reduced3dgs_torch.train import adam, densify
 from reduced3dgs_torch.train.adam import AdamState
+from reduced3dgs_torch.train.densify import WholeRows
 
 # stage names of the events a marked train step records (see train_step)
 TRAIN_STAGES = ("preprocess", "binning", "composite", "loss", "loss_bwd",
@@ -405,16 +406,17 @@ def apply_update_step(state: TrainState, grads, iteration: int, *,
 @torch.no_grad()
 def densify_step(state: TrainState, extent, grads=None, *,
                  opt_cfg: OptimizationParams, use_size_threshold: bool,
-                 with_grads: bool = False, normals=None):
+                 with_grads: bool = False, normals=None, rows=densify.WHOLE):
     """densify_and_prune; with_grads threads the pending gradients through
-    the surgery (new rows zero, pruned rows dropped)."""
+    the surgery (new rows zero, pruned rows dropped).  rows: the state's
+    row layout (densify.WholeRows, parallel/sharded.py:ShardRows)."""
     pool, opt, gen = state
     max_screen = 20.0 if use_size_threshold else 0.0
     pool, opt, grads, stats = densify.densify_and_prune(
         pool, opt, opt_cfg.densify_grad_threshold, 0.005, extent,
         max_screen, opt_cfg.percent_dense,
         grads_tree=grads if with_grads else None, normals=normals,
-        generator=gen)
+        generator=gen, rows=rows)
     if with_grads:
         return TrainState(pool, opt, gen), stats, grads
     return TrainState(pool, opt, gen), stats
@@ -422,23 +424,40 @@ def densify_step(state: TrainState, extent, grads=None, *,
 
 @torch.no_grad()
 def mercy_step(state: TrainState, splat_counts, *, lambda_mercy,
-               mercy_minimum, mercy_type, uniform=None):
-    """mercy_points on the redundancy metric's per-primitive values; the
-    coin flips of "redundancy_random" come from the state's generator
-    (or `uniform`, see densify.mercy_points)."""
+               mercy_minimum, mercy_type, uniform=None, rows=densify.WHOLE):
+    """mercy_points on the redundancy metric's per-primitive values (the
+    whole capacity's, mercy_counts); the coin flips of
+    "redundancy_random" come from the state's generator (or `uniform`,
+    see densify.mercy_points)."""
     pool, opt, gen = state
     pool, opt, stats = densify.mercy_points(
         pool, opt, splat_counts, lambda_mercy=lambda_mercy,
         mercy_minimum=mercy_minimum, mercy_type=mercy_type, generator=gen,
-        uniform=uniform)
+        uniform=uniform, rows=rows)
     return TrainState(pool, opt, gen), stats
 
 
 @torch.no_grad()
-def prune_dead_step(state: TrainState, extent):
+def mercy_counts(state: TrainState, scene, *, pixel_scale,
+                 rows=densify.WHOLE):
+    """The redundancy metric of the whole pool over the scene's training
+    cameras (Scene.calculate_redundancy_metric) on the whole columns it
+    reads: xyz, activated scale, normalised rotation and alive (41 B a
+    row; on a row shard gathered, and every tile member computes the
+    whole (C,) result)."""
+    pool = state.pool
+    cols = tuple(rows.column(x) for x in (
+        pool.params.xyz, pool.get_scaling(), pool.get_rotation(),
+        pool.alive))
+    return scene.calculate_redundancy_metric(pixel_scale=pixel_scale,
+                                             columns=cols)[0]
+
+
+@torch.no_grad()
+def prune_dead_step(state: TrainState, extent, rows=densify.WHOLE):
     """prune(1/255) of dead points."""
     pool, opt, gen = state
-    pool, opt, n = densify.prune(pool, opt, 1.0 / 255.0, extent, 0.0)
+    pool, opt, n = densify.prune(pool, opt, 1.0 / 255.0, extent, 0.0, rows)
     return TrainState(pool, opt, gen), n
 
 
@@ -450,18 +469,6 @@ def opacity_reset_step(state: TrainState):
         mu=opt.mu._replace(opacity=torch.zeros_like(opt.mu.opacity)),
         nu=opt.nu._replace(opacity=torch.zeros_like(opt.nu.opacity)))
     return TrainState(reset_opacity(pool), opt, gen)
-
-
-def grow_leaf(x, old_cap, new_cap):
-    """Pad a per-slot tensor with zero rows (other values pass)."""
-    if isinstance(x, torch.Tensor) and x.ndim >= 1 and x.shape[0] == old_cap:
-        return torch.cat([x, x.new_zeros((new_cap - old_cap,)
-                                         + x.shape[1:])])
-    return x
-
-
-def _grow_params(leaves, old_cap, new_cap):
-    return type(leaves)(*(grow_leaf(x, old_cap, new_cap) for x in leaves))
 
 
 class Trainer:
@@ -490,6 +497,8 @@ class Trainer:
         self.initial_budget = initial_budget
         self.cull_sh_iterations = tuple(cull_sh_iterations)
         self.scene = scene  # the redundancy metric (mercy) needs it
+        # the state's row layout, which the surgery's events run on
+        self.rows = WholeRows()
         # start of the compression fine-tune phase: no mercy after it
         self.fine_tune_start = opt_cfg.iterations
         if self.cull_sh_iterations or opt_cfg.mercy_points:
@@ -672,17 +681,16 @@ class Trainer:
         return b
 
     def maybe_grow_pool(self, pending=None):
-        n = int(self.state.pool.num_alive)
-        cap = self.state.pool.capacity
+        """Double the capacity (a power-of-two bucket) when more than 90 %
+        of the slots are alive; returns the pending gradients, grown with
+        the state."""
+        pool, opt, gen = self.state
+        n = int(self.rows.total(pool.alive))
+        cap = self.rows.capacity(pool)
         if n > 0.9 * cap:
-            new_cap = round_capacity(cap * 2)
-            pool = grow(self.state.pool, new_cap)
-            opt = self.state.opt
-            opt = opt._replace(mu=_grow_params(opt.mu, cap, new_cap),
-                               nu=_grow_params(opt.nu, cap, new_cap))
-            self.state = TrainState(pool, opt, self.state.generator)
-            if pending is not None:
-                pending = _grow_params(pending, cap, new_cap)
+            pool, opt, pending = self.rows.grow(pool, opt, pending,
+                                                round_capacity(cap * 2))
+            self.state = TrainState(pool, opt, gen)
         return pending
 
     def step(self, iteration: int, marks=None):
@@ -751,8 +759,11 @@ class Trainer:
         """What step() does after the backward: the densify / reset /
         prune / mercy surgery of `iteration`'s events, the deferred
         optimizer step with the `pending` gradients (None: none), and the
-        SH-band cull of a listed iteration."""
+        SH-band cull of a listed iteration.  Every event runs on the
+        state's row layout `self.rows` (the whole pool here, a row shard
+        in parallel/sharded.py:ShardedTrainer)."""
         cfg = self.opt_cfg
+        rows = self.rows
         events = self._events(iteration)
         will_densify, will_reset, will_prune_dead, will_mercy = events
         for name, ran in zip(EVENTS, events + (
@@ -764,27 +775,28 @@ class Trainer:
             if cfg.store_grads and pending is not None:
                 self.state, dstats, pending = densify_step(
                     self.state, float(self.extent), pending, opt_cfg=cfg,
-                    use_size_threshold=use_size, with_grads=True)
+                    use_size_threshold=use_size, with_grads=True, rows=rows)
             else:
                 self.state, dstats = densify_step(
                     self.state, float(self.extent), opt_cfg=cfg,
-                    use_size_threshold=use_size)
+                    use_size_threshold=use_size, rows=rows)
                 pending = None  # params rebuilt without store_grads
             self.stats.update({k: int(v) for k, v in dstats.items()})
         if will_reset:
             self.state = opacity_reset_step(self.state)
         if will_prune_dead:
-            self.state, n = prune_dead_step(self.state, float(self.extent))
+            self.state, n = prune_dead_step(self.state, float(self.extent),
+                                            rows)
             self.stats["n_points_pruned"] = int(n)
             pending = None  # prune() is called without store_grads
 
         if will_mercy:
-            self.scene.pool = self.state.pool
-            red, _ = self.scene.calculate_redundancy_metric(
-                pixel_scale=cfg.box_size)
+            red = mercy_counts(self.state, self.scene,
+                               pixel_scale=cfg.box_size, rows=rows)
             self.state, mstats = mercy_step(
                 self.state, red, lambda_mercy=cfg.lambda_mercy,
-                mercy_minimum=cfg.mercy_minimum, mercy_type=cfg.mercy_type)
+                mercy_minimum=cfg.mercy_minimum, mercy_type=cfg.mercy_type,
+                rows=rows)
             self.stats["n_points_mercied"] = int(mstats["n_points_mercied"])
             self.stats["redundancy_threshold"] = float(
                 mstats["redundancy_threshold"])
@@ -810,5 +822,6 @@ class Trainer:
                 budget=max(self.budgets.values(),
                            default=self.initial_budget),
                 backend=self.backend, max_sh_degree=self.max_sh_degree,
-                active_sh_degree=int(self.state.pool.active_sh_degree))
+                active_sh_degree=int(self.state.pool.active_sh_degree),
+                transmittance=rows.transmittance)
             self.state = self.state._replace(pool=pool)

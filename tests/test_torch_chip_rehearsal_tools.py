@@ -125,6 +125,42 @@ def test_phase17_rehearsal(cpu_card, monkeypatch, capsys):
     assert "phase 17: launches of the path" in out
 
 
+def test_phase19_rehearsal(cpu_card, monkeypatch, capsys):
+    """Phase 19 at 48x32 with 600 primitives (growth to 2048 slots) and a
+    budget of 2^13, in a gloo world of one and on two gloo ranks on the
+    CPU: every event bit for bit, the cull within its tolerances, the
+    collectives small, both trainers' iterations, and the path's launch
+    counts without the references' (the ranks run the plain versions
+    uncounted)."""
+    monkeypatch.setattr(cs, "MAIN", dict(SMALL, width=48, height=32,
+                                         n=600))
+    monkeypatch.setattr(cs, "SURGERY", dict(cs.SURGERY, budget=1 << 13))
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    kernels = all_kernel_counters()
+    with cs.world_of_one("gloo"):
+        acc = cs.sharded_surgery_path(cpu_card, 0, "cpu")
+    out = capsys.readouterr().out
+    printed = ast.literal_eval(out.split(
+        "phase 19: launches of the path (this process ")[1].split(
+        ", with")[0])
+    total = {n: k.launches for n, k in kernels.items()}
+    assert printed == acc  # the ranks' plain versions count nothing
+    assert all(0 < acc[n] < total[n] for n in (
+        "expand", "tile_fwd", "tile_bwd", "tile_trans",
+        "seg_reduce_packed"))
+    for what in ("gloo at world size 1", "mesh (1, 2), gloo rank 0",
+                 "mesh (1, 2), gloo rank 1"):
+        # ten events, the cull, the collectives, two trainers, the rows
+        assert out.count(f"phase 19: {what}: ") == 15
+        assert f"phase 19: {what}: growth: sharded " in out
+        assert f"phase 19: {what}: SH cull over 8 views: " in out
+        assert (f"phase 19: {what}: sharded trainer, iterations 1 (plain)"
+                in out)
+        assert f"phase 19: {what}: this rank holds " in out
+    assert out.count("bit for bit") == 30 and "DIFFERENT" not in out
+    assert "phase 19: two-rank run " in out
+
+
 # phase 18 at toy size: the schedule scaled to 15 iterations (densify
 # from 1 to 8, opacity reset and a test at 4, the cull at 9, the end at
 # 15) with a densification interval of 4 (every iteration at the scaled

@@ -365,12 +365,9 @@ def test_step_group_recaptures_on_capacity_growth(cuda):
     m_eager = [eager.step(i) for i in range(1, 5)]
     m_graphed = graphed.step_group(range(1, 5))
     for tr in (eager, graphed):
-        cap = tr.state.pool.capacity
-        new_cap = round_capacity(cap * 2)
-        pool = T.grow(tr.state.pool, new_cap)
-        opt = tr.state.opt._replace(
-            mu=T._grow_params(tr.state.opt.mu, cap, new_cap),
-            nu=T._grow_params(tr.state.opt.nu, cap, new_cap))
+        pool, opt, _ = tr.rows.grow(tr.state.pool, tr.state.opt, None,
+                                    round_capacity(tr.state.pool.capacity
+                                                   * 2))
         tr.state = T.TrainState(pool, opt, tr.state.generator)
     m_eager += [eager.step(i) for i in range(5, 9)]
     m_graphed += graphed.step_group(range(5, 9))
