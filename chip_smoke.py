@@ -195,6 +195,19 @@ before the final line:
     the one card (or the reason gloo refused).  Its launches (the
     sharded runs', not the references') go on the kernels line as
     "launches_phase19".
+20. the JAX package's quality experiments on phase 18's models, each as
+    a subprocess (python -m reduced3dgs_torch.<name> --device cuda):
+    half_float_ablation (the eight rows: f32_all, each of the six
+    attribute groups rounded alone through float16, f16_all; f16_all may
+    not beat f32_all by more than F16_MARGIN_DB), prune_finetune at one
+    fraction (0.15) with a 200-iteration fine-tune in replayed step
+    groups (its pack file must be smaller than phase 18's
+    full/quantised_pack) and grad_reduce_ab with its part 1 (every leaf's
+    one-step relative L2 of bf16x2 against f32 below MAX_GRAD_REL_L2) and
+    two 200-iteration arms (f32, bf16x2: eager steps, K5 in the first);
+    K1, K2, K3, K5 and K6 must have launched in the three processes
+    (their launch logs).  Its launches go on the kernels line as
+    "launches_phase20".
 
 The last line is {"ok": true, "device": {...}}.  Without a card, or
 without the rest of the repository beside it, it exits non-zero first.
@@ -318,6 +331,15 @@ EVAL = dict(iterations=5000, size=384, n_train=28, n_test=4)
 # the views by transmittance sums added in another order)
 SURGERY = dict(grad_share=0.02, budget=BENCH_BUDGET, dc_atol=1e-4)
 MAX_SURGERY_BYTES_PER_ROW = 64
+# phase 20: the JAX package's quality experiments on phase 18's models:
+# the prune / fine-tune ladder at one fraction with a short fine-tune, the
+# bf16x2 A/B with two arms of a few iterations; f16_all may beat f32_all
+# by no more than F16_MARGIN_DB, and bf16x2 moves no gradient leaf by a
+# relative L2 of MAX_GRAD_REL_L2 or more
+QUALITY = dict(fracs=("0.15",), ft_iters=200, ab_iters=200,
+               ab_arms=("f32", "bf16x2"))
+F16_MARGIN_DB = 0.05
+MAX_GRAD_REL_L2 = 1e-2
 # phase 14: the offline compression's options
 COMPRESS = ("--pack_xyz", "--prune_frac", "0.17", "--finetune_iters", "32")
 # profiler kernel names of the train step's kernels (K5 and K6 are the
@@ -1306,11 +1328,16 @@ def main(argv=None):
 
     # --- phase 18: the paper's evaluation through its entry points -------
     torch.cuda.empty_cache()
-    launches18 = eval_path(dev, os.path.join(REPO, ".chip_smoke_eval"),
-                           args.seed, smi)
+    eval_root = os.path.join(REPO, ".chip_smoke_eval")
+    launches18 = eval_path(dev, eval_root, args.seed, smi, keep=True)
+
+    # --- phase 20: the quality experiments on phase 18's models ---------
+    launches20 = quality_path(dev, eval_root, EVAL["iterations"], smi)
+    shutil.rmtree(eval_root, ignore_errors=True)
     for k in kernels:
         k["launches_phase18"] = launches18[k["name"]]
         k["launches_phase19"] = launches19.get(k["name"], 0)
+        k["launches_phase20"] = launches20[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4416,31 +4443,14 @@ def logged_launches(path):
 
 def untrained_psnr(data, device):
     """Mean test-view PSNR of the pool training starts from (the scene's
-    points3d.ply through create_from_pcd), rendered as evaluate renders."""
-    import torch
-
+    points3d.ply through create_from_pcd), scored as evaluate scores."""
     from reduced3dgs_torch import compression_eval as ce
     from reduced3dgs_torch.config import ModelParams
-    from reduced3dgs_torch.ops.losses import psnr as psnr_of
-    from reduced3dgs_torch.renderer import render
     from reduced3dgs_torch.scene import Scene
 
     scene = Scene(ModelParams(source_path=data, eval=True),
                   load_iteration=None, shuffle=False, device=device)
-    pool = scene.pool
-    ps = []
-    for cam in scene.get_test_cameras():
-        with torch.inference_mode():
-            out = render(pool.params.xyz, pool.features(),
-                         pool.params.scaling, pool.params.rotation,
-                         pool.params.opacity[:, 0], pool.degrees,
-                         cam.params(device), torch.zeros(3, device=device),
-                         width=cam.width, height=cam.height,
-                         instance_budget=ce.EVAL_BUDGET,
-                         alive_mask=pool.alive)
-            gt = torch.as_tensor(cam.image, device=device)
-            ps.append(float(psnr_of(torch.clamp(out.color, 0, 1), gt)))
-    return float(np.mean(ps))
+    return ce.mean_psnr(scene.pool, scene.get_test_cameras(), device)
 
 
 def eval_path(dev, root, seed, smi, cfg=None, keep=False):
@@ -4532,6 +4542,89 @@ def eval_path(dev, root, seed, smi, cfg=None, keep=False):
           f"{launches}; {time.perf_counter() - t0:.3f} s", flush=True)
     if not keep:
         shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def quality_path(dev, root, iterations, smi, cfg=None):
+    """Phase 20: python -m reduced3dgs_torch.half_float_ablation,
+    prune_finetune and grad_reduce_ab as subprocesses on phase 18's
+    models in `root` (trained to `iterations`; QUALITY's fraction, fine-
+    tune and A/B lengths, or `cfg`'s), each logging its launches
+    (R3DGS_LAUNCH_LOG).  Checks the eight ablation rows (f16_all not above
+    f32_all by more than F16_MARGIN_DB), the pruned pack file smaller than
+    phase 18's full/quantised_pack, every one-step relative L2 of part 1
+    below MAX_GRAD_REL_L2, and that K1, K2, K3, K5 and K6 launched.
+    Returns each kernel's launches over the three processes."""
+    from reduced3dgs_torch import compression_eval as ce
+
+    cfg = QUALITY if cfg is None else cfg
+    t0 = time.perf_counter()
+    log = os.path.join(root, "launches20.jsonl")
+    runs = {
+        "half_float_ablation": ["--iterations", str(iterations)],
+        "prune_finetune": ["--fracs", *cfg["fracs"], "--ft_iters",
+                           str(cfg["ft_iters"]), "--iterations",
+                           str(iterations)],
+        "grad_reduce_ab": [str(cfg["ab_iters"]), "--arms",
+                           *cfg["ab_arms"]]}
+    secs = {}
+    with launch_log(log):
+        for name, args in runs.items():
+            t = time.perf_counter()
+            r = subprocess.run(
+                ce.module_command(f"reduced3dgs_torch.{name}") + args
+                + ["--root", root, "--device", dev.type], cwd=REPO,
+                capture_output=True, text=True, timeout=900)
+            check(r.returncode == 0, f"phase 20: {name} failed:\n"
+                  f"{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+            secs[name] = time.perf_counter() - t
+    record = {}
+    for name in runs:
+        with open(os.path.join(root, f"{name}.json")) as f:
+            record[name] = json.load(f)
+    with open(os.path.join(root, "results.json")) as f:
+        pack = json.load(f)["results"]["full"]["quantised_pack"]
+
+    rows = record["half_float_ablation"]["psnr"]
+    for k, v in rows.items():
+        print(f"phase 20: half_float_ablation {k}: {v:.3f} dB (delta "
+              f"{v - rows['f32_all']:+.3f})", flush=True)
+    check(len(rows) == 8 and all(math.isfinite(v) for v in rows.values()),
+          f"phase 20: ablation rows {rows}")
+    check(rows["f16_all"] - rows["f32_all"] <= F16_MARGIN_DB,
+          f"phase 20: f16_all beats f32_all by more than {F16_MARGIN_DB} dB")
+    pf = record["prune_finetune"]
+    for frac in cfg["fracs"]:
+        r = pf[f"frac_{float(frac)}"]
+        print(f"phase 20: prune_finetune {frac}: {pf['base']['n']} -> "
+              f"{r['n']} primitives, PSNR {pf['base']['psnr']:.3f} -> "
+              f"fine-tuned {r['ft_psnr']:.3f} -> pack {r['pack_psnr']:.3f} "
+              f"dB, {r['bytes']} bytes against phase 18's quantised_pack "
+              f"{pack['bytes']} ({pack['psnr']:.3f} dB); fine-tune "
+              f"{r['finetune_s']:.2f} s ({cfg['ft_iters']} iterations), "
+              f"codebooks {r['fit_s']:.2f} s", flush=True)
+        check(math.isfinite(r["pack_psnr"]) and r["bytes"] < pack["bytes"],
+              f"phase 20: the pruned pack file is not smaller ({r})")
+    ab = record["grad_reduce_ab"]
+    errs = ab["one_step_grad_rel_l2"]
+    print(f"phase 20: grad_reduce_ab part 1, relative L2 of bf16x2 against "
+          f"f32 per leaf: {errs}; part 2, {ab['iters']} iterations: held-"
+          f"out PSNR {ab['test_psnr']}, delta "
+          f"{ab.get('psnr_delta_db', float('nan')):+.3f} dB", flush=True)
+    check(all(v < MAX_GRAD_REL_L2 for v in errs.values()),
+          f"phase 20: a one-step relative L2 is {MAX_GRAD_REL_L2} or more")
+    check(all(math.isfinite(v) for v in ab["test_psnr"].values()),
+          f"phase 20: A/B PSNR {ab['test_psnr']}")
+    launches, procs = logged_launches(log)
+    check(procs == dict.fromkeys(runs, 1), f"phase 20: processes {procs}")
+    check(all(launches[n] > 0 for n in ("expand", "tile_fwd", "tile_bwd",
+                                        "seg_reduce_f32",
+                                        "seg_reduce_packed")),
+          f"phase 20: the path bypassed a kernel: {launches}")
+    took = ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+    print(f"phase 20: seconds {took}; launches of the path (its "
+          f"{len(runs)} processes; replays not counted) {launches}; "
+          f"{time.perf_counter() - t0:.3f} s; {smi}", flush=True)
     return launches
 
 

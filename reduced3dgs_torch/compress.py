@@ -45,6 +45,17 @@ def prune_lowest_opacity(alive, opacity_logits, frac):
     return mask, k
 
 
+def prune_pool(pool, frac):
+    """`pool` without the `frac` lowest-opacity fraction of its alive rows
+    (prune_lowest_opacity); returns (pool, number pruned)."""
+    import torch
+
+    mask, k = prune_lowest_opacity(pool.alive.cpu().numpy(),
+                                   pool.params.opacity[:, 0].cpu().numpy(),
+                                   frac)
+    return pool.replace(alive=torch.as_tensor(mask, device=pool.device)), k
+
+
 def finetune(pool, scene, start, iters, stats=None):
     """`iters` plain training iterations after `start` on the scene's
     training cameras; returns the trained pool.  stats: a dict that
@@ -84,8 +95,6 @@ def finetune(pool, scene, start, iters, stats=None):
 
 
 def main(argv=None):
-    import torch
-
     from reduced3dgs_torch import config as C
     from reduced3dgs_torch.device import resolve
     from reduced3dgs_torch.models.ply_io import (
@@ -118,12 +127,9 @@ def main(argv=None):
         load_gaussian_ply(os.path.join(base, "point_cloud.ply")), device)
 
     if args.prune_frac > 0.0:
-        alive = pool.alive.cpu().numpy()
-        mask, k = prune_lowest_opacity(
-            alive, pool.params.opacity[:, 0].cpu().numpy(), args.prune_frac)
-        pool = pool.replace(alive=torch.as_tensor(mask, device=device))
-        print(f"Pruned {k} lowest-opacity primitives "
-              f"({int(alive.sum())} -> {int(mask.sum())})")
+        n = int(pool.alive.sum())
+        pool, k = prune_pool(pool, args.prune_frac)
+        print(f"Pruned {k} lowest-opacity primitives ({n} -> {n - k})")
         if args.finetune_iters > 0:
             scene = Scene(C.extract_model(args), load_iteration=iteration,
                           shuffle=False)

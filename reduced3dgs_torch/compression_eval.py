@@ -3,7 +3,7 @@ experiments/compression_eval.py.
 
     python -m reduced3dgs_torch.compression_eval [--root DIR] \\
         [--iterations N] [--size S] [--n_train N] [--n_test N] [--seed S] \\
-        [--skip_scene] [--skip_train] [--device cpu]
+        [--train_seed S] [--skip_scene] [--skip_train] [--device cpu]
 
 Builds the JAX script's procedural Blender-format world from --seed (a
 checkerboard ground plane, three striped spheres, one sphere with
@@ -20,7 +20,10 @@ the repository's RESULTS.md is not touched.  For the `full` model it also
 prints the share of features_rest that is exactly 0 and the SH-degree
 histogram after the cull.
 
---iterations N scales every iteration number of the schedule (the
+--train_seed S is the training CLIs' --seed (their default 0): the
+world stays --seed's, the trainings' random draws (camera order, split
+noise, mercy's coin flips) change with it.  --iterations N scales every
+iteration number of the schedule (the
 iterations, densify window and interval, opacity reset, learning-rate
 steps, test and save iterations, the SH cull) by N / 10,000; --size,
 --n_train and --n_test shrink the scene.  The defaults are the JAX
@@ -266,17 +269,20 @@ def module_command(module):
     return [sys.executable, "-m", module]
 
 
-def train_command(data, model, extra, iterations, device):
+def train_command(data, model, extra, iterations, device, seed=0):
     return (module_command("reduced3dgs_torch.train")
             + ["-s", data, "-m", model] + scaled(_COMMON + extra, iterations)
-            + ["--device", str(device)])
+            + ["--seed", str(seed), "--device", str(device)])
 
 
-def train(data, model, extra, iterations=ITER, device="cuda", env=None):
-    """One training run as a subprocess of the port's training CLI;
-    returns its train_stats.json with the run's wall seconds."""
+def train(data, model, extra, iterations=ITER, device="cuda", env=None,
+          seed=0):
+    """One training run (training seed `seed`) as a subprocess of the
+    port's training CLI; returns its train_stats.json with the run's wall
+    seconds."""
     t0 = time.perf_counter()
-    r = subprocess.run(train_command(data, model, extra, iterations, device),
+    r = subprocess.run(train_command(data, model, extra, iterations, device,
+                                     seed),
                        cwd=REPO, text=True, capture_output=True,
                        timeout=10800, env=env)
     wall = time.perf_counter() - t0
@@ -295,15 +301,56 @@ def ply_path(model, iteration, tag):
                         ply_name(q, h, p))
 
 
+def view_images(pool, cams, device, budget=EVAL_BUDGET):
+    """Each camera's render of `pool` on a black background, clamped to
+    [0, 1] as the JAX scripts score it, beside the camera's ground truth
+    (tensors on `device`).  An overflow of `budget` raises."""
+    import torch
+
+    from reduced3dgs_torch.renderer import render
+
+    for cam in cams:
+        with torch.inference_mode():
+            out = render(
+                pool.params.xyz, pool.features(), pool.params.scaling,
+                pool.params.rotation, pool.params.opacity[:, 0],
+                pool.degrees, cam.params(device),
+                torch.zeros(3, device=device), width=cam.width,
+                height=cam.height, instance_budget=budget,
+                alive_mask=pool.alive)
+        if int(out.num_rendered) > budget:
+            raise RuntimeError(f"budget overflow: {int(out.num_rendered)} "
+                               f"instances for a budget of {budget}")
+        yield (torch.clamp(out.color, 0, 1),
+               torch.as_tensor(cam.image, device=device))
+
+
+def mean_psnr(pool, cams, device, budget=EVAL_BUDGET):
+    """The mean PSNR of `pool` over the cameras (view_images)."""
+    from reduced3dgs_torch.ops.losses import psnr
+
+    return float(np.mean([float(psnr(img, gt)) for img, gt in
+                          view_images(pool, cams, device, budget)]))
+
+
+def stored_model(root, model, iteration, device):
+    """The Scene of <root>/scene with <root>/<model>'s stored full-precision
+    PLY of `iteration` loaded on `device`: (scene, pool)."""
+    from reduced3dgs_torch.config import ModelParams
+    from reduced3dgs_torch.scene import Scene
+
+    ds = ModelParams(source_path=os.path.join(root, "scene"),
+                     model_path=os.path.join(root, model), eval=True)
+    scene = Scene(ds, load_iteration=iteration, shuffle=False)
+    return scene, scene.load_model(device=device)
+
+
 def evaluate(data, model, iteration=ITER, device="cuda"):
     """PSNR and SSIM on the test views, bytes and primitives of each
     stored variant (experiments/compression_eval.py's evaluate, through
     the port's Scene and renderer)."""
-    import torch
-
     from reduced3dgs_torch.config import ModelParams
     from reduced3dgs_torch.ops.losses import psnr, ssim
-    from reduced3dgs_torch.renderer import render
     from reduced3dgs_torch.scene import Scene
 
     ds = ModelParams(source_path=data, model_path=model, eval=True)
@@ -313,21 +360,9 @@ def evaluate(data, model, iteration=ITER, device="cuda"):
         pool = scene.load_model(quantised=q, half_float=h, pack_xyz=pack,
                                 device=device)
         ps, ss = [], []
-        for cam in scene.get_test_cameras():
-            with torch.inference_mode():
-                out = render(
-                    pool.params.xyz, pool.features(), pool.params.scaling,
-                    pool.params.rotation, pool.params.opacity[:, 0],
-                    pool.degrees, cam.params(device),
-                    torch.zeros(3, device=device), width=cam.width,
-                    height=cam.height, instance_budget=EVAL_BUDGET,
-                    alive_mask=pool.alive)
-                assert int(out.num_rendered) <= EVAL_BUDGET, \
-                    "budget overflow"
-                img = torch.clamp(out.color, 0, 1)
-                gt = torch.as_tensor(cam.image, device=device)
-                ps.append(float(psnr(img, gt)))
-                ss.append(float(ssim(img, gt)))
+        for img, gt in view_images(pool, scene.get_test_cameras(), device):
+            ps.append(float(psnr(img, gt)))
+            ss.append(float(ssim(img, gt)))
         results[tag] = {
             "psnr": float(np.mean(ps)),
             "ssim": float(np.mean(ss)),
@@ -395,6 +430,7 @@ def main(argv=None):
     ap.add_argument("--n_train", type=int, default=28)
     ap.add_argument("--n_test", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--train_seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain PyTorch versions "
                          "of the kernels)")
@@ -422,7 +458,8 @@ def main(argv=None):
                       flush=True)  # resumable across partial runs
                 continue
             print(f"== training ({cfg})", flush=True)
-            runs[cfg] = train(data, model, extra, it, device)
+            runs[cfg] = train(data, model, extra, it, device,
+                              seed=args.train_seed)
             stages[f"train_{cfg}_s"] = runs[cfg]["wall_s"]
             stages[f"fit_{cfg}_s"] = runs[cfg]["fit_s"]
     res = {}
@@ -445,7 +482,8 @@ def main(argv=None):
     with open(os.path.join(args.root, "RESULTS.md"), "w") as f:
         f.write(out)
     record = {"results": res, "sparsity": sparsity, "stages": stages,
-              "runs": runs, "iterations": it, "device": str(device)}
+              "runs": runs, "iterations": it, "train_seed": args.train_seed,
+              "device": str(device)}
     with open(os.path.join(args.root, "results.json"), "w") as f:
         json.dump(record, f, indent=1)
     print(out)

@@ -39,6 +39,7 @@ _CODEBOOK_KEYS = (
 # framework extension — the reference loader (gaussian_model.py:318-396)
 # reads only the f16 layout.
 _XYZ_CHUNK = 256
+MAX_SH_DEGREE = 3  # the format's top degree: a loaded pool's active one
 
 
 def _morton_order(p, bits=16):
@@ -323,9 +324,14 @@ def load_gaussian_ply(path, quantised=False, half_float=False,
 
 def pool_from_arrays(arrs, device=None, capacity=None):
     """Build the torch GaussianPool from load_gaussian_ply output, padded
-    to the same power-of-two capacity the JAX pool uses."""
+    to the same power-of-two capacity the JAX pool uses, at the top SH
+    degree as the JAX package loads it: a stored model has finished its
+    degree steps, so training it on (compress.py's fine-tune) never raises
+    the primitives' own degrees again."""
     from reduced3dgs_torch.models.gaussians import (
         padded_leaves, pool_from_numpy,
     )
 
-    return pool_from_numpy(padded_leaves(arrs, capacity), device)
+    leaves = padded_leaves(arrs, capacity)
+    leaves["active_sh_degree"] = MAX_SH_DEGREE
+    return pool_from_numpy(leaves, device)

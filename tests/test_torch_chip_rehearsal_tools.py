@@ -366,3 +366,58 @@ def test_fps_table_rows_and_files(phase18):
     for cfg in ("vanilla", "full"):
         assert os.path.exists(os.path.join(root, f"model_{cfg}",
                                            "fps_results.json"))
+
+
+# phase 20 on phase 18's toy models: one fraction with a 3-iteration
+# fine-tune, two A/B arms of 4 iterations, grad_reduce_ab's world at 32x32
+QUALITY_TOY = dict(fracs=("0.15",), ft_iters=3, ab_iters=4,
+                   ab_arms=("f32", "bf16x2"))
+AB_TOY = {"SIZE": 32, "N_GT": 400, "N_PART1": 2000, "N_ARM": 400,
+          "CAPACITY": 4096}
+
+
+def test_phase20_rehearsal(phase18, tmp_path, capsys):
+    """Phase 20 on a copy of phase 18's root: the three experiments as
+    subprocesses (tests/plain_child.py, grad_reduce_ab's sizes cut by
+    AB_TOY), their JSON keys the JAX scripts', the phase's checks passed
+    and its counts the three processes' logged launches, K4 none."""
+    import shutil
+
+    root = str(tmp_path / "run")
+    shutil.copytree(phase18["root"], root)
+    child = CHILD + [a for k, v in AB_TOY.items() for a in (
+        "--set", f"reduced3dgs_torch.grad_reduce_ab.{k}={v}")]
+    with pytest.MonkeyPatch.context() as mp:
+        cpu_card_patches(mp)
+        mp.setenv("OMP_NUM_THREADS", "1")
+        mp.setattr(ce, "module_command", lambda module: child + [module])
+        launches = cs.quality_path(torch.device("cpu"), root,
+                                   TOY["iterations"], "cpu", cfg=QUALITY_TOY)
+    out = capsys.readouterr().out
+    rows = [line for line in out.splitlines()
+            if line.startswith("phase 20: half_float_ablation ")]
+    assert [r.split()[3].rstrip(":") for r in rows] == [
+        "f32_all", "f16_xyz", "f16_features_dc", "f16_features_rest",
+        "f16_opacity", "f16_scaling", "f16_rotation", "f16_all"]
+    assert "phase 20: prune_finetune 0.15: " in out
+    assert "phase 20: grad_reduce_ab part 1, " in out
+    logged, procs = cs.logged_launches(os.path.join(root,
+                                                    "launches20.jsonl"))
+    assert procs == {"half_float_ablation": 1, "prune_finetune": 1,
+                     "grad_reduce_ab": 1}
+    assert launches == logged and launches["tile_trans"] == 0
+    with open(os.path.join(root, "half_float_ablation.json")) as f:
+        assert sorted(json.load(f)) == ["device", "psnr", "ranges",
+                                        "seconds"]
+    with open(os.path.join(root, "prune_finetune.json")) as f:
+        pf = json.load(f)
+    assert sorted(pf) == ["base", "device", "frac_0.15"]
+    assert {"n", "ft_psnr", "pack_psnr", "bytes"} <= set(pf["frac_0.15"])
+    assert pf["frac_0.15"]["n"] == pf["base"]["n"] - int(
+        pf["base"]["n"] * 0.15)
+    assert os.path.exists(os.path.join(root, "prune_finetune", "pf_15.ply"))
+    with open(os.path.join(root, "grad_reduce_ab.json")) as f:
+        ab = json.load(f)
+    assert sorted(ab["test_psnr"]) == ["bf16x2", "f32"]
+    assert ab["iters"] == 4 and "psnr_delta_db" in ab
+    assert "seed_noise_db" not in ab  # f32_s2 did not run

@@ -400,6 +400,43 @@ def test_profiling_tool_runs_on_the_cpu_only_when_asked(tool, tmp_path,
     assert not capsys.readouterr().out
 
 
+QUALITY_EXPERIMENTS = ("half_float_ablation", "prune_finetune",
+                       "grad_reduce_ab")
+
+
+def test_quality_experiments_import_no_jax():
+    """The three quality experiments are among the files the import rule
+    reads, and importing them loads neither jax nor reduced3dgs_tpu."""
+    names = {os.path.relpath(f, REPO) for f in _port_files()}
+    assert {os.path.join("reduced3dgs_torch", f"{m}.py")
+            for m in QUALITY_EXPERIMENTS} <= names
+    code = ("import sys; "
+            + "; ".join(f"import reduced3dgs_torch.{m}"
+                        for m in QUALITY_EXPERIMENTS)
+            + "; print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}))")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("name", QUALITY_EXPERIMENTS)
+def test_quality_experiment_needs_a_card_unless_asked(name, tmp_path,
+                                                      monkeypatch, capsys):
+    """Without a card, python -m reduced3dgs_torch.<name> raises before
+    any work or output unless --device cpu is given (the CPU runs are in
+    tests/test_torch_chip_rehearsal_tools.py's phase 20)."""
+    import importlib
+
+    mod = importlib.import_module(f"reduced3dgs_torch.{name}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(["--root", str(tmp_path)])
+    assert not capsys.readouterr().out
+    assert os.listdir(tmp_path) == []
+
+
 def test_profiling_scope_and_trace(tmp_path, capsys, monkeypatch):
     """synced_scope names a range the torch.profiler trace holds (no NVTX
     on the CPU) and, with record_time, prints its wall time; stop_trace
