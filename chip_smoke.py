@@ -208,6 +208,25 @@ before the final line:
     K1, K2, K3, K5 and K6 must have launched in the three processes
     (their launch logs).  Its launches go on the kernels line as
     "launches_phase20".
+21. the JAX package's timing experiments, each as a subprocess (python
+    -m reduced3dgs_torch.<name> --device cuda), their lines printed:
+    multicam_step at root's 1080p geometry (2^19 primitives, budget 2^22)
+    with a few iterations (a k = 1 and a k = 2 camera step, each a CUDA
+    graph whose first replay must equal an eager step bit for bit, K1,
+    K2, K3 and K6 once per view per replayed step; ms per step, the
+    per-camera amortization, each view's num_rendered and the peak
+    memory), microbench_sort, microbench_reduce, microbench_sortscale
+    (root's rows and the port's key sort + K5 beside them, K5 once per
+    port_current row) and microbench_scatter_pack (int32 and complex64
+    index_add_) at root's sizes; K1, K2, K3, K5 and K6 must have launched
+    in the five processes (their launch logs).  Then every port_current
+    row at its own sizes (microbench_sort's, microbench_reduce's, whose
+    bounds start past slot 0, and each of microbench_sortscale's),
+    captured and replayed as the entry point times it, holds K5's output
+    to the plain version (bit for bit on segments of at most two
+    instances) and to the float64 sums (phase 7's tolerance).  Its
+    launches go on the kernels line as "launches_phase21" (the checks'
+    launches not counted).
 
 The last line is {"ok": true, "device": {...}}.  Without a card, or
 without the rest of the repository beside it, it exits non-zero first.
@@ -340,6 +359,13 @@ QUALITY = dict(fracs=("0.15",), ft_iters=200, ab_iters=200,
                ab_arms=("f32", "bf16x2"))
 F16_MARGIN_DB = 0.05
 MAX_GRAD_REL_L2 = 1e-2
+# phase 21: the timing experiments' arguments (multicam_step at root's
+# 1080p geometry with a few iterations; the microbenchmarks at root's
+# sizes)
+TIMING_ARGS = {
+    "multicam_step": ("1920", "1080", str(1 << 19), str(1 << 22), "3"),
+    "microbench_sort": (), "microbench_reduce": (),
+    "microbench_sortscale": (), "microbench_scatter_pack": ()}
 # phase 14: the offline compression's options
 COMPRESS = ("--pack_xyz", "--prune_frac", "0.17", "--finetune_iters", "32")
 # profiler kernel names of the train step's kernels (K5 and K6 are the
@@ -913,7 +939,7 @@ def seg_values(rows, order, bounds, packed):
     to bf16 through the bf16x2 packing)."""
     from reduced3dgs_torch.ops import tile_render as ttr
 
-    vals = rows[:9, order[:int(bounds[-1])]]
+    vals = rows[:9, order[int(bounds[0]):int(bounds[-1])]]
     return ttr.through_bf16x2(vals) if packed else vals
 
 
@@ -1333,11 +1359,15 @@ def main(argv=None):
 
     # --- phase 20: the quality experiments on phase 18's models ---------
     launches20 = quality_path(dev, eval_root, EVAL["iterations"], smi)
+
+    # --- phase 21: the timing experiments --------------------------------
+    launches21 = timing_path(dev, eval_root, smi)
     shutil.rmtree(eval_root, ignore_errors=True)
     for k in kernels:
         k["launches_phase18"] = launches18[k["name"]]
         k["launches_phase19"] = launches19.get(k["name"], 0)
         k["launches_phase20"] = launches20[k["name"]]
+        k["launches_phase21"] = launches21[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4626,6 +4656,157 @@ def quality_path(dev, root, iterations, smi, cfg=None):
           f"{len(runs)} processes; replays not counted) {launches}; "
           f"{time.perf_counter() - t0:.3f} s; {smi}", flush=True)
     return launches
+
+
+def timing_path(dev, root, smi, args=None):
+    """Phase 21: python -m reduced3dgs_torch.multicam_step and the four
+    microbenchmarks as subprocesses with TIMING_ARGS (or `args`), each
+    logging its launches (R3DGS_LAUNCH_LOG) into `root`; their lines
+    printed.  Checks that multicam_step's graphed steps equalled its eager
+    ones bit for bit with K1, K2, K3 and K6 once per view per replayed
+    step, that the port_current rows of microbench_sort and
+    microbench_reduce launched K5 once per replay, that every port_current
+    row's K5 output agrees with the plain version and the float64 sums at
+    the row's own sizes (k5_row_check), and that K1, K2, K3, K5 and K6
+    launched.  Returns each kernel's launches over the five processes."""
+    import ast
+
+    from reduced3dgs_torch import compression_eval as ce
+
+    args = TIMING_ARGS if args is None else args
+    t0 = time.perf_counter()
+    log = os.path.join(root, "launches21.jsonl")
+    outs, secs = {}, {}
+    with launch_log(log):
+        for name, extra in args.items():
+            t = time.perf_counter()
+            r = subprocess.run(
+                ce.module_command(f"reduced3dgs_torch.{name}")
+                + [*extra, "--device", dev.type], cwd=REPO,
+                capture_output=True, text=True, timeout=600)
+            check(r.returncode == 0, f"phase 21: {name} failed:\n"
+                  f"{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+            secs[name] = time.perf_counter() - t
+            outs[name] = r.stdout.splitlines()
+            for line in outs[name]:
+                print(f"phase 21: {name}: {line}", flush=True)
+    for k in (1, 2):
+        line = [ln for ln in outs["multicam_step"]
+                if ln.startswith(f"k={k}: num_rendered per view ")]
+        check(len(line) == 1 and "graphed step bit for bit the eager step"
+              in line[0], f"phase 21: multicam_step k={k}: {line}")
+        per_replay = ast.literal_eval(line[0].split(
+            "launches per replayed step ")[1].split("; ")[0])
+        want = {"expand": k, "tile_fwd": k, "tile_bwd": k,
+                "seg_reduce_f32": 0, "seg_reduce_packed": k}
+        check(per_replay == want, f"phase 21: multicam_step k={k}: "
+              f"launches per replayed step {per_replay}, not {want}")
+    for name, row in (("microbench_sort", "port_current_key_sort+K5"),
+                      ("microbench_reduce", "port_current_K5")):
+        line = [ln for ln in outs[name] if ln.startswith(row)]
+        check(len(line) == 1 and line[0].endswith(
+            "launches per replay {'seg_reduce_f32': 1})"),
+              f"phase 21: {name}: {row}: {line}")
+    for what, fn, rows, order, bounds in k5_row_cases(dev, args):
+        k5_row_check(dev, what, fn, rows, order, bounds)
+    launches, procs = logged_launches(log)
+    check(procs == dict.fromkeys(args, 1), f"phase 21: processes {procs}")
+    check(all(launches[n] > 0 for n in ("expand", "tile_fwd", "tile_bwd",
+                                        "seg_reduce_f32",
+                                        "seg_reduce_packed")),
+          f"phase 21: the path bypassed a kernel: {launches}")
+    took = ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+    print(f"phase 21: seconds {took}; launches of the path (its "
+          f"{len(args)} processes; replays not counted) {launches}; "
+          f"{time.perf_counter() - t0:.3f} s; {smi}", flush=True)
+    return launches
+
+
+def k5_row_cases(dev, args):
+    """Yields (what, the row's function, rows, order, bounds) for every
+    port_current row that `args` (TIMING_ARGS's form) times: the entry
+    point's draws at the row's own sizes on `dev`, the row's body on
+    them, and K5's inputs (microbench_sort's and microbench_sortscale's
+    order and bounds from the same stable sort and search as the row;
+    microbench_reduce's the identity and root's bounds, which start past
+    slot 0)."""
+    import torch
+
+    from reduced3dgs_torch import microbench_reduce as mred
+    from reduced3dgs_torch import microbench_sort as msort
+    from reduced3dgs_torch import microbench_sortscale as mscale
+    from reduced3dgs_torch.microbench_binning import on_device
+    from reduced3dgs_torch.ops import tile_render as ttr
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--batch", type=int)
+    ap.add_argument("--prims", type=int)
+    ap.add_argument("--sizes", type=int, nargs="+")
+
+    def opts(name):
+        return ap.parse_known_args(list(args[name]))[0]
+
+    def key_case(what, key, records, p):
+        order, bounds = msort.key_sort_bounds(key, p)
+        return (what, lambda: msort.key_sort_k5(key, records, p), records,
+                order, bounds)
+
+    if "microbench_sort" in args:
+        o = opts("microbench_sort")
+        b, p = o.batch or msort.B, o.prims or msort.P
+        d = on_device(msort.draws(b, p), dev)
+        yield key_case(f"microbench_sort port_current_key_sort+K5 B={b} "
+                       f"P={p}", d["key"],
+                       ttr.as_records(d["cols"][:, :msort.NCOLS].T), p)
+    if "microbench_reduce" in args:
+        o = opts("microbench_reduce")
+        b, p = o.batch or mred.B, o.prims or mred.P
+        d = on_device(mred.draws(b, p), dev)
+        records = ttr.as_records(d["cols"])
+        identity = torch.arange(b, device=dev)
+        yield (f"microbench_reduce port_current_K5 B={b} P={p}",
+               lambda: ttr.seg_reduce(records, identity, d["zb"],
+                                      packed=False),
+               records, identity, d["zb"])
+    if "microbench_sortscale" in args:
+        o = opts("microbench_sortscale")
+        p = o.prims or mscale.P
+        for b in o.sizes or mscale.SIZES:
+            d = on_device(mscale.draws(b, p), dev)
+            yield key_case(f"microbench_sortscale port_current B={b} P={p}",
+                           d["key"], ttr.as_records(d["cols"]), p)
+
+
+def k5_row_check(dev, what, fn, rows, order, bounds):
+    """A port_current row's K5 output, captured and replayed as the entry
+    point times it (graphs.runner), against the plain version on the same
+    tensors (bit for bit on segments of at most two instances, where no
+    order of summation is open) and, with the plain version, against the
+    float64 sums (check_seg); fails the phase on any mismatch."""
+    import torch
+
+    from reduced3dgs_torch import graphs
+    from reduced3dgs_torch.ops import tile_render as ttr
+
+    run = graphs.runner(fn, dev)
+    run.replay()
+    got = run.out
+    want = ttr.seg_reduce_plain(rows, order, bounds, False)
+    ref, mag = seg_reference(rows, order, bounds, False)
+    lens = bounds[1:] - bounds[:-1]
+    short = lens <= 2
+    check(torch.equal(got[:, short], want[:, short]),
+          f"phase 21: {what}: segments of <= 2 instances differ from the "
+          "plain version")
+    e_ref = check_seg(got, ref, mag, f"phase 21: {what}")
+    check_seg(want, ref, mag, f"phase 21: plain {what}")
+    err = float((got - want).abs().max())
+    print(f"phase 21: K5 in {what}: first bound {int(bounds[0])}, last "
+          f"{int(bounds[-1])}, longest segment {int(lens.max())}: max abs "
+          f"err {err:.3e} against the plain version ({int(short.sum())} "
+          f"segments of <= 2 instances bit-identical), {e_ref:.3e} against "
+          "the float64 sums", flush=True)
+    del run
 
 
 if __name__ == "__main__":

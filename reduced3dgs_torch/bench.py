@@ -66,14 +66,17 @@ class FwdBwd:
     """Root bench.py's step on `device` at one configuration.
 
     ``leaves`` are the five parameter tensors (requires_grad),
-    ``step()`` renders with the `grad_reduce` reduction, takes the loss
-    and its gradients and returns (loss, num_rendered, the five
-    gradients), all tensors.  `chained` makes it root profile_trace.py's
+    ``step()`` renders a view from each camera eye of `eyes` (root's
+    one, by default) with the `grad_reduce` reduction, takes the L1 loss
+    averaged over the views and its gradients and returns (loss, each
+    view's num_rendered, the five gradients), all tensors.  `chained`
+    makes it root profile_trace.py's
     step: the render reads xyz + 1e-30 * ``carry``, the last step's loss
     (``carry.zero_()`` starts a new chain), so the steps form one chain."""
 
     def __init__(self, width, height, n, smin, smax, budget, device,
-                 grad_reduce="bf16x2", chained=False):
+                 grad_reduce="bf16x2", chained=False,
+                 eyes=((0, 0, -3.6),)):
         import torch
 
         from reduced3dgs_torch.cameras import Camera
@@ -82,8 +85,9 @@ class FwdBwd:
         self.leaves = [torch.as_tensor(a, device=device).requires_grad_(True)
                        for a in arrs[:5]]
         self.degrees = torch.as_tensor(arrs[5], device=device)
-        self.cam = Camera.look_at(eye=(0, 0, -3.6), target=(0, 0, 0),
-                                  width=width, height=height).params(device)
+        self.cams = [Camera.look_at(eye=eye, target=(0, 0, 0), width=width,
+                                    height=height).params(device)
+                     for eye in eyes]
         self.background = torch.zeros(3, device=device)
         self.target = torch.zeros((height, width, 3), device=device)
         self.width, self.height, self.budget = width, height, budget
@@ -99,16 +103,20 @@ class FwdBwd:
         leaves = list(self.leaves)
         if self.carry is not None:
             leaves[0] = leaves[0] + 1e-30 * self.carry
-        out = render(*leaves, self.degrees, self.cam, self.background,
-                     width=self.width, height=self.height,
-                     instance_budget=self.budget,
-                     grad_reduce=self.grad_reduce)
-        loss = (out.color - self.target).abs().mean()
+        losses, rendered = [], []
+        for cam in self.cams:
+            out = render(*leaves, self.degrees, cam, self.background,
+                         width=self.width, height=self.height,
+                         instance_budget=self.budget,
+                         grad_reduce=self.grad_reduce)
+            losses.append((out.color - self.target).abs().mean())
+            rendered.append(out.num_rendered)
+        loss = sum(losses) / len(losses)
         grads = torch.autograd.grad(loss, self.leaves)
         loss = loss.detach()
         if self.carry is not None:
             self.carry.copy_(loss)
-        return loss, out.num_rendered, grads
+        return loss, torch.stack(rendered), grads
 
     def runner(self):
         """The step as a replayable runner (graphs.py): a CUDA graph on

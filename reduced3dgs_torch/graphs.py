@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import atexit
 import json
+import math
 import os
 import time
 
@@ -121,6 +122,38 @@ def runner(fn, device, warmup: int = 1):
     if torch.device(device).type == "cuda":
         return Captured(fn, fn, device, warmup)
     return Looped(fn)
+
+
+def best_window(run, device, windows: int = 3, min_s: float = 0.02):
+    """(seconds per replay in the best of `windows` timed windows, the
+    replays per window).  Each window replays `run` back to back as many
+    times as fill `min_s` by one timed replay, so that a short body's
+    window stays far above the CUDA events' resolution."""
+    run.replay()
+    one = time_replays(run, 1, device)
+    reps = max(1, math.ceil(min_s / max(one, 1e-9)))
+    best = min(time_replays(run, reps, device) for _ in range(windows))
+    return best / reps, reps
+
+
+def time_rows(row_fns, device):
+    """Yields (name, ms per call, replays a window, the launches per
+    replay of the kernels that ran) for each of {name: a function of no
+    argument}, as soon as it is timed: each a runner timed by
+    best_window."""
+    for name, fn in row_fns.items():
+        run = runner(fn, device)
+        sec, reps = best_window(run, device)
+        yield (name, sec * 1e3, reps,
+               {k: v for k, v in run.launches.items() if v})
+        del run
+
+
+def row_note(ms, reps, launched) -> str:
+    """What follows a timed row's line: its unrounded ms, the replays a
+    window and, where a kernel ran, its launches per replay."""
+    extra = f"; launches per replay {launched}" if launched else ""
+    return f"  ({ms:.5f} ms; {reps} replays a window{extra})"
 
 
 def time_replays(run, reps: int, device) -> float:

@@ -534,13 +534,13 @@ def seg_reduce_plain(rows, order, bounds, packed: bool):
     0) and unpacked again, i.e. each value rounded to bf16 to nearest
     even (through_bf16x2)."""
     num_p = bounds.shape[0] - 1
-    n = int(bounds[-1])
-    vals = rows[:TABLE_ROWS, order[:n]]
+    s0, n = int(bounds[0]), int(bounds[-1])
+    vals = rows[:TABLE_ROWS, order[s0:n]]
     if packed:
         vals = through_bf16x2(vals)
     lens = (bounds[1:] - bounds[:-1]).long()
     seg = torch.repeat_interleave(
-        torch.arange(num_p, device=rows.device), lens, output_size=n)
+        torch.arange(num_p, device=rows.device), lens, output_size=n - s0)
     out = torch.zeros((TABLE_ROWS, num_p), dtype=torch.float32,
                       device=rows.device)
     return out.index_add_(1, seg, vals)

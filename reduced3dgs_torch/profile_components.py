@@ -43,7 +43,7 @@ class Components(FwdBwd):
 
         xyz, feats, scales, rots, opac = self.leaves
         return preprocess(xyz, scales, rots, opac, feats, self.degrees,
-                          self.cam)
+                          self.cams[0])
 
     def preprocess(self):
         import torch
@@ -66,7 +66,7 @@ class Components(FwdBwd):
         from reduced3dgs_torch.renderer import render
 
         with torch.no_grad():
-            out = render(*self.leaves, self.degrees, self.cam,
+            out = render(*self.leaves, self.degrees, self.cams[0],
                          self.background, width=self.width,
                          height=self.height, instance_budget=self.budget)
         return out.color, out.num_rendered

@@ -1,4 +1,4 @@
-"""chip_smoke.py's phases 17 and 18 rehearsed on the CPU at a tiny size
+"""chip_smoke.py's phases 17-21 rehearsed on the CPU at a tiny size
 (tests/chip_rehearsal.py).
 
 Phase 17: part 1, ShardedTrainer.step_group at world size 1 in a gloo
@@ -18,6 +18,10 @@ compression_eval.py): its ground-truth PNGs against the JAX make_scene's
 evaluate on the same model directories (PSNR within 0.01 dB, SSIM within
 1e-4, bytes and primitives equal), its flags, columns and row tags equal
 to the JAX script's, and nothing written outside its root.
+
+Phase 21: the five timing experiments as subprocesses (tests/
+plain_child.py) at toy sizes, their lines and the launch counts the
+phase checks.
 """
 
 import ast
@@ -421,3 +425,87 @@ def test_phase20_rehearsal(phase18, tmp_path, capsys):
     assert sorted(ab["test_psnr"]) == ["bf16x2", "f32"]
     assert ab["iters"] == 4 and "psnr_delta_db" in ab
     assert "seed_noise_db" not in ab  # f32_s2 did not run
+
+
+# phase 21 at toy sizes: the k-view step at 48x32 with 128 primitives and
+# one iteration, the microbenchmarks at a few thousand rows
+TIMING_TOY = {
+    "multicam_step": ("48", "32", "128", "4096", "1"),
+    "microbench_sort": ("--batch", "2048", "--prims", "256"),
+    "microbench_reduce": ("--batch", "2048", "--prims", "256"),
+    "microbench_sortscale": ("--sizes", "1088", "2176", "--prims", "256"),
+    "microbench_scatter_pack": ("--batch", "2048", "--prims", "512")}
+
+
+def test_phase21_rehearsal(tmp_path, capsys):
+    """Phase 21 with its five entry points as subprocesses
+    (tests/plain_child.py) at toy sizes: their lines printed under the
+    phase, its checks passed (the k-view steps' eager check and launches
+    per step, K5 once per port_current row, every port_current row's K5
+    output at its own sizes against the plain version and the float64
+    sums) and its counts the five processes' logged launches, K4
+    none."""
+    with pytest.MonkeyPatch.context() as mp:
+        cpu_card_patches(mp)
+        mp.setenv("OMP_NUM_THREADS", "1")
+        mp.setattr(ce, "module_command", lambda module: CHILD + [module])
+        launches = cs.timing_path(torch.device("cpu"), str(tmp_path), "cpu",
+                                  args=TIMING_TOY)
+    out = capsys.readouterr().out
+    logged, procs = cs.logged_launches(str(tmp_path / "launches21.jsonl"))
+    assert procs == dict.fromkeys(TIMING_TOY, 1)
+    assert launches == logged and launches["tile_trans"] == 0
+    assert all(launches[n] > 0 for n in ("expand", "tile_fwd", "tile_bwd",
+                                         "seg_reduce_f32",
+                                         "seg_reduce_packed"))
+    # the k-view steps launch K5 nowhere; the port_current rows nothing else
+    assert launches["seg_reduce_packed"] == launches["tile_bwd"]
+    for name in TIMING_TOY:
+        assert out.count(f"phase 21: {name}: cpu\n") == 1
+    for k in (1, 2):
+        assert f"phase 21: multicam_step: k={k}: num_rendered per view " \
+            in out
+    assert "phase 21: multicam_step: per-camera amortization from 2-view " \
+        "batching: " in out
+    assert out.count("phase 21: microbench_sortscale: {\"b\": ") == 2
+    for row in ("one s32 scatter : ", "two s32 scatters: ",
+                "one c64 scatter : "):
+        assert f"phase 21: microbench_scatter_pack: {row}" in out
+    assert "; launches of the path (its 5 processes; " in out
+    checked = [ln for ln in out.splitlines()
+               if ln.startswith("phase 21: K5 in ")]
+    assert [ln.split(": first bound ")[0] for ln in checked] == [
+        "phase 21: K5 in microbench_sort port_current_key_sort+K5 B=2048 "
+        "P=256",
+        "phase 21: K5 in microbench_reduce port_current_K5 B=2048 P=256",
+        "phase 21: K5 in microbench_sortscale port_current B=1088 P=256",
+        "phase 21: K5 in microbench_sortscale port_current B=2176 P=256"]
+    # root's bounds start past slot 0 (the case the plain version missed)
+    assert int(checked[1].split(": first bound ")[1].split(",")[0]) > 0
+
+
+@pytest.mark.parametrize("fault", ["bounds_from_zero", "one_sum_off"])
+def test_phase21_k5_check_catches_a_wrong_reduction(fault):
+    """Phase 21's check of a port_current row fails on a reduction that
+    is wrong where the row's bounds start past slot 0 (the plain
+    version's old fault: segments read from slot 0) or on one sum off by
+    1e-3, and passes the right one."""
+    from reduced3dgs_torch.ops import tile_render as ttr
+
+    cases = list(cs.k5_row_cases(torch.device("cpu"), {
+        "microbench_reduce": ("--batch", "2048", "--prims", "256")}))
+    assert len(cases) == 1
+    what, fn, rows, order, bounds = cases[0]
+    assert int(bounds[0]) > 0
+    cs.k5_row_check("cpu", what, fn, rows, order, bounds)
+
+    def wrong():
+        if fault == "bounds_from_zero":
+            shifted = bounds - bounds[0]
+            return ttr.seg_reduce_plain(rows, order, shifted, False)
+        out = fn().clone()
+        out[3, 5] += 1e-3
+        return out
+
+    with pytest.raises(RuntimeError, match="phase 21: "):
+        cs.k5_row_check("cpu", what, wrong, rows, order, bounds)
