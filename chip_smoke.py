@@ -37,8 +37,10 @@ before the final line:
     its blocks stage, and gives the lane utilisation (pixel pairs over 32
     x warp pairs) for the kernels' warp footprint and for the former one;
  6. where a frame's time goes (baseline model, the ring, the settled
-    budget): stage times by CUDA events through renderer.render's marks,
-    then one pass under torch.profiler whose kernel time is set against
+    budget): stage times by the stage clock (utils/profiling.py; its
+    stages once a view, and its device counters equal to the binnings'
+    num_rendered, total_padded and pad need read on the host), then one
+    pass under torch.profiler whose kernel time is set against
     the CUDA-event span of that same pass (the device's idle share; no
     cummax kernel may run);
  7. the training kernels against their plain versions: K3
@@ -68,7 +70,8 @@ before the final line:
     step time, the fwd+bwd pixels/s bench.py reports (through
     reduced3dgs_torch.bench: its step replayed as a CUDA graph, at the
     1080p geometry), the stage times by
-    CUDA events (the reduction stage also split into key sort, kernel
+    the stage clock (its device counters held to the binnings as in
+    phase 6; the reduction stage also split into key sort, kernel
     and reorder, on one step's own inputs) and the launches and idle
     share of one profiled step;
 10. K4 (csrc/tile_trans.cu) against its plain version at the 512p and the
@@ -226,7 +229,9 @@ before the final line:
     to the plain version (bit for bit on segments of at most two
     instances) and to the float64 sums (phase 7's tolerance).  Its
     launches go on the kernels line as "launches_phase21" (the checks'
-    launches not counted).
+    launches not counted).  The stage clock's kernel (csrc/stamp.cu) ends
+    the kernels line: its launches in this process and in phases 6 and 9,
+    and the renders whose counters phase 6 compared.
 
 The last line is {"ok": true, "device": {...}}.  Without a card, or
 without the rest of the repository beside it, it exits non-zero first.
@@ -1190,6 +1195,7 @@ def main(argv=None):
     from reduced3dgs_torch.ops import _cuda
     from reduced3dgs_torch.ops import binning as tbin
     from reduced3dgs_torch.ops import tile_render as ttr
+    from reduced3dgs_torch.utils import profiling
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -1270,7 +1276,12 @@ def main(argv=None):
     del prep, k2in
 
     # --- phase 6: where a frame's time goes -----------------------------
-    _profile_frames(res["baseline"]["pool"], res["views"], budget, smi)
+    stamp = {"name": "stamp", "route": "cuda",
+             "source": "reduced3dgs_torch/csrc/stamp.cu", "replaces": None}
+    before = profiling.STAMP.launches
+    stamp["counters_checked_phase6"] = _profile_frames(
+        res["baseline"]["pool"], res["views"], budget, smi)
+    stamp["launches_phase6"] = profiling.STAMP.launches - before
     del res
 
     # --- phase 7: the training kernels against their plain versions ----
@@ -1298,7 +1309,9 @@ def main(argv=None):
           f"{MAIN['width']}x{MAIN['height']}, num_rendered {fb_nr}, budget "
           f"{BENCH_BUDGET}: {fb_ms:.3f} ms, {pps:.4e} pixels/s; {smi}",
           flush=True)
+    before = profiling.STAMP.launches
     train_l, f32_l, trainer, next_it = train_main_path(dev, args.seed, smi)
+    stamp["launches_phase9"] = profiling.STAMP.launches - before
     kernels += [report_k3(case, train_l["tile_bwd"]),
                 report_seg(*segs["f32"], "f32", f32_l["seg_reduce_f32"]),
                 report_seg(*segs["bf16x2"], "bf16x2",
@@ -1368,6 +1381,11 @@ def main(argv=None):
         k["launches_phase19"] = launches19.get(k["name"], 0)
         k["launches_phase20"] = launches20[k["name"]]
         k["launches_phase21"] = launches21[k["name"]]
+    # the stage clock's launches in this process (its own subprocesses'
+    # are not logged): phases 6 and 9 trace, and every captured graph
+    # holds its stamps
+    stamp["launches"] = profiling.STAMP.launches
+    kernels.append(stamp)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1521,16 +1539,61 @@ def _report_k2(k2in, w, h, launches, ttr):
             "library_ms": None}
 
 
+@contextlib.contextmanager
+def binning_spy():
+    """Every binning renderer.render makes inside the block, as
+    (num_rendered, total_padded, B_pad, budget): the first two the
+    binning's own 0-dim tensors, to be read on the host afterwards."""
+    from reduced3dgs_torch.ops import binning
+
+    seen, real = [], binning.bin_gaussians
+
+    def spy(prep, width, height, budget, tile_rows=None):
+        b = real(prep, width, height, budget, tile_rows=tile_rows)
+        seen.append((b.num_rendered, b.total_padded,
+                     b.gauss_aligned.shape[0], budget))
+        return b
+
+    binning.bin_gaussians = spy
+    try:
+        yield seen
+    finally:
+        binning.bin_gaussians = real
+
+
+def check_counters(snap, seen, what):
+    """The device counters of a profiling.snapshot() against the binnings
+    binning_spy saw, read on the host: num_rendered, total_padded and the
+    pad need, the pads past the budget (total_padded less num_rendered)
+    per mille of the B_pad - budget slots K1 has for them.  Returns the
+    renders compared."""
+    from reduced3dgs_torch.ops.binning import ALIGN
+
+    nr = [int(n) for n, _, _, _ in seen]
+    tp = [int(t) for _, t, _, _ in seen]
+    need = [(t - n) * 1000 // (b_pad - -(-budget // ALIGN) * ALIGN)
+            for n, t, (_, _, b_pad, budget) in zip(nr, tp, seen)]
+    want = {name: {"sum": sum(v), "max": max(v), "count": len(v)}
+            for name, v in (("num_rendered", nr), ("total_padded", tp),
+                            ("pad_need_permille", need))}
+    got = {name: snap["counters"].get(name) for name in want}
+    check(seen and got == want, f"{what}: device counters {got}, the "
+          f"binnings read on the host {want}")
+    return len(seen)
+
+
 def _profile_frames(pv, views, budget, smi):
     """Phase 6 on the baseline model over the ring at the settled budget.
-    Stage times come from renderer.render's marks with the profiler off;
-    the idle share comes from one pass under torch.profiler: its kernel
-    time against the CUDA-event span of that same pass."""
+    Stage times and the device counters come from the stage clock
+    (profiling.enable(), the profiler off), the counters held to the
+    binnings read on the host; the idle share comes from one pass under
+    torch.profiler: its kernel time against the CUDA-event span of that
+    same pass.  Returns the renders whose counters were compared."""
     import torch
 
     from reduced3dgs_torch.profile_trace import trace_call
     from reduced3dgs_torch.render import render_once
-    from reduced3dgs_torch.renderer import STAGES
+    from reduced3dgs_torch.utils import profiling
 
     bg = torch.zeros(3, device=pv.device)
     cps = [c.params(pv.device) for c in views]
@@ -1538,21 +1601,33 @@ def _profile_frames(pv, views, budget, smi):
     for cp in cps:  # warm-up at the budget
         render_once(pv, cp, bg, budget)
     torch.cuda.synchronize()
-    stage = [0.0] * len(STAGES)
+    profiling.reset()
     host = 0.0
-    for cp in cps:
-        marks = []
-        t0 = time.perf_counter()
-        render_once(pv, cp, bg, budget, marks=marks)
-        marks[-1].synchronize()
-        host += time.perf_counter() - t0
-        for i in range(len(STAGES)):
-            stage[i] += marks[i].elapsed_time(marks[i + 1])
+    with profiling.enable(), binning_spy() as seen:
+        for cp in cps:
+            t0 = time.perf_counter()
+            render_once(pv, cp, bg, budget)
+            torch.cuda.synchronize()
+            host += time.perf_counter() - t0
+    snap = profiling.snapshot()
+    profiling.reset()
+    stages = snap["stages"]
+    names = profiling.VIEW_STAGES[0 if pv.ragged is not None else 1:]
+    check({n: s["count"] for n, s in stages.items()}
+          == dict.fromkeys(names, nv) and snap["stages_open"] == 0
+          and snap["stamps_dropped"] == 0,
+          f"stage clock: not the stages {names} once a view: {snap}")
+    compared = check_counters(snap, seen, "phase 6")
+    stage = [stages[n]["s"] * 1e3 for n in names]
     print(f"phase 6: baseline {nv} views, budget {budget}, profiler off: "
-          "stage ms per view (CUDA events) "
-          f"{', '.join(f'{n} {v / nv:.3f}' for n, v in zip(STAGES, stage))}"
+          "stage ms per view (stage clock) "
+          f"{', '.join(f'{n} {v / nv:.3f}' for n, v in zip(names, stage))}"
           f"; frame {sum(stage) / nv:.3f} ms on the device, "
-          f"{host / nv * 1e3:.3f} ms host wall; {smi}", flush=True)
+          f"{host / nv * 1e3:.3f} ms host wall; device counters equal to "
+          f"the {compared} binnings read on the host (num_rendered max "
+          f"{snap['counters']['num_rendered']['max']}, pad need max "
+          f"{snap['counters']['pad_need_permille']['max']} per mille); "
+          f"{smi}", flush=True)
 
     trace, span = trace_call(
         lambda: [render_once(pv, cp, bg, budget) for cp in cps], pv.device,
@@ -1574,6 +1649,7 @@ def _profile_frames(pv, views, budget, smi):
     for ms, count, key in rows[:PROFILE_TOP]:
         print(f"phase 6: {ms:9.4f} ms/frame x{count:<6.1f} {key[:100]}",
               flush=True)
+    return compared
 
 
 # ---------------------------------------------------------------------------
@@ -1938,7 +2014,7 @@ def train_main_path(dev, seed, smi):
 
     from reduced3dgs_torch.ops import binning as tbin
     from reduced3dgs_torch.ops import tile_render as ttr
-    from reduced3dgs_torch.train.trainer import TRAIN_STAGES
+    from reduced3dgs_torch.utils import profiling
 
     kernels = {"expand": tbin.EXPAND, "tile_fwd": ttr.TILE_FWD,
                "tile_bwd": ttr.TILE_BWD,
@@ -1979,9 +2055,9 @@ def train_main_path(dev, seed, smi):
     check(tr.stats.get("n_points_cloned", 0)
           + tr.stats.get("n_points_split", 0) > 0, "nothing was densified")
 
-    # stage times by CUDA events over a few more steps
+    # stage times by the stage clock over a few more steps
     it = steps + 1
-    stage = np.zeros(len(TRAIN_STAGES))
+    names = profiling.TRAIN_STAGES
     seen = []  # the last step's (gradient rows, binning, mode)
     reduce_by_src = ttr.segment_reduce_by_src
 
@@ -1990,21 +2066,31 @@ def train_main_path(dev, seed, smi):
         return reduce_by_src(dfeat, binning, grad_reduce)
 
     ttr.segment_reduce_by_src = spy
+    profiling.reset()
     try:
-        for _ in range(TRAIN["timed_steps"]):
-            marks = []
-            tr.step(it, marks=marks)
-            torch.cuda.synchronize()
-            it += 1
-            check(len(marks) == len(TRAIN_STAGES) + 1, "stage marks missing")
-            stage += [marks[i].elapsed_time(marks[i + 1])
-                      for i in range(len(TRAIN_STAGES))]
+        with profiling.enable(), binning_spy() as binnings:
+            for _ in range(TRAIN["timed_steps"]):
+                tr.step(it)
+                torch.cuda.synchronize()
+                it += 1
     finally:
         ttr.segment_reduce_by_src = reduce_by_src
-    stage /= TRAIN["timed_steps"]
-    print("phase 9: stage ms per step (CUDA events, bf16x2) "
-          + ", ".join(f"{n} {v:.3f}" for n, v in zip(TRAIN_STAGES, stage))
-          + f"; sum {stage.sum():.3f} ms; {smi}", flush=True)
+    snap = profiling.snapshot()
+    profiling.reset()
+    stages = snap["stages"]
+    # a budget regrow redoes a step: its stages are timed twice
+    runs = TRAIN["timed_steps"] + snap["counters"].get(
+        "budget_redos", {"sum": 0})["sum"]
+    check({n: s["count"] for n, s in stages.items()}
+          == dict.fromkeys(names, runs) and snap["stages_open"] == 0
+          and snap["stamps_dropped"] == 0,
+          f"stage clock: not the stages {names} once a step: {snap}")
+    compared = check_counters(snap, binnings, "phase 9")
+    stage = np.array([stages[n]["s"] * 1e3 / runs for n in names])
+    print("phase 9: stage ms per step (stage clock, bf16x2) "
+          + ", ".join(f"{n} {v:.3f}" for n, v in zip(names, stage))
+          + f"; sum {stage.sum():.3f} ms; device counters equal to the "
+          f"{compared} binnings read on the host; {smi}", flush=True)
 
     reduction_split(*seen[-1], smi)
     del seen

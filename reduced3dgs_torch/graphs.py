@@ -23,6 +23,8 @@ import time
 
 import torch
 
+from reduced3dgs_torch.utils import profiling
+
 
 def kernel_counters():
     """The launch counters of the kernels a render, a fwd+bwd pass or a
@@ -73,28 +75,40 @@ class Captured:
     ``out`` is what fn returned during the capture: its tensors are the
     graph's static outputs, rewritten by every replay.  ``launches`` holds
     each kernel's launches in one replay (its counter's rise during the
-    capture) and ``capture_s`` the seconds of warm-up and capture."""
+    capture) and ``capture_s`` the seconds of warm-up and capture, which
+    also go to the process-wide counter graph_capture_s (utils/
+    profiling.py; spans r3dgs.graph.warm / capture / replay).  The stage
+    clock's ring exists before the capture: the graph's stamp nodes write
+    there at every replay while tracing is on."""
 
     def __init__(self, fn, warm, device, warmup: int = 1):
         t0 = time.perf_counter()
-        side = torch.cuda.Stream(device=device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            for _ in range(warmup):
-                warm()
-        torch.cuda.current_stream(device).wait_stream(side)
-        kernels = kernel_counters()
-        before = {n: k.launches for n, k in kernels.items()}
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.out = fn()
-        self.launches = {n: k.launches - before[n]
-                         for n, k in kernels.items()}
-        torch.cuda.synchronize(device)
+        self.device = torch.device(device)
+        profiling.ring(self.device)
+        with profiling.span("r3dgs.graph.warm"):
+            side = torch.cuda.Stream(device=device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                for _ in range(warmup):
+                    warm()
+            torch.cuda.current_stream(device).wait_stream(side)
+        with profiling.span("r3dgs.graph.capture"):
+            kernels = kernel_counters()
+            before = {n: k.launches for n, k in kernels.items()}
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                self.out = fn()
+            self.launches = {n: k.launches - before[n]
+                             for n, k in kernels.items()}
+            torch.cuda.synchronize(device)
         self.capture_s = time.perf_counter() - t0
+        profiling.tally("graph_capture_s", self.capture_s)
 
     def replay(self):
-        self.graph.replay()
+        """One replay, after the tracing flag follows the switch."""
+        profiling.tracing(self.device)
+        with profiling.span("r3dgs.graph.replay"):
+            self.graph.replay()
 
 
 class Looped:

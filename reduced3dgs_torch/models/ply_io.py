@@ -22,6 +22,7 @@ import os
 import numpy as np
 
 from reduced3dgs_torch.data.ply import read_ply, write_ply
+from reduced3dgs_torch.utils import profiling
 
 _CODEBOOK_KEYS = (
     ["features_dc"] + [f"features_rest_{i}" for i in range(15)]
@@ -215,6 +216,7 @@ def _from_half_bits(a):
     return np.asarray(a).view(np.float16).astype(np.float32)
 
 
+@profiling.spanned("r3dgs.load.load_gaussian_ply")
 def load_gaussian_ply(path, quantised=False, half_float=False,
                       max_sh_degree=3, xyz_codec=None):
     """Read a (possibly quantised / half-float) multi-section PLY.
@@ -322,6 +324,7 @@ def load_gaussian_ply(path, quantised=False, half_float=False,
     return {k: np.concatenate(v, axis=0) for k, v in outs.items()}
 
 
+@profiling.spanned("r3dgs.load.pool_from_arrays")
 def pool_from_arrays(arrs, device=None, capacity=None):
     """Build the torch GaussianPool from load_gaussian_ply output, padded
     to the same power-of-two capacity the JAX pool uses, at the top SH

@@ -21,6 +21,7 @@ import torch
 from reduced3dgs_torch.models.gaussians import GaussianParams, GaussianPool
 from reduced3dgs_torch.ops import sh as sh_ops
 from reduced3dgs_torch.ops import transforms as tf
+from reduced3dgs_torch.utils import profiling
 
 
 class RaggedSH(NamedTuple):
@@ -30,6 +31,7 @@ class RaggedSH(NamedTuple):
     sizes: tuple  # (N_0, N_1, N_2, N_3) Python ints
 
 
+@profiling.spanned("r3dgs.load.build_ragged")
 @torch.no_grad()
 def build_ragged(pool: GaussianPool):
     """Reorder the pool's alive primitives by SH degree and pack the

@@ -29,7 +29,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("expand", "tile_fwd", "tile_bwd", "tile_trans", "seg_reduce")
+SOURCES = ("expand", "tile_fwd", "tile_bwd", "tile_trans", "seg_reduce",
+           "stamp")
 
 
 def _nvcc() -> str:

@@ -46,6 +46,7 @@ from reduced3dgs_torch.ops.binning import ALIGN, BinningOut
 from reduced3dgs_torch.ops.preprocess import (
     TILE_X, TILE_Y, PreprocessOut, tile_grid,
 )
+from reduced3dgs_torch.utils import profiling
 
 K = ALIGN  # = 128 instances per chunk / shared-memory batch
 NPIX = TILE_X * TILE_Y  # 256 pixels per tile
@@ -669,43 +670,37 @@ def _core_fwd(binning: BinningOut, width: int, height: int,
     return tile_fwd(feat, ranges, limit, grid_x, width, height)
 
 
-def _mark(marks):
-    if marks is not None:
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append(ev)
-
-
 class _RasterizeCore(torch.autograd.Function):
     """Packed tile rows with K3 + K5/K6 as the backward (the JAX package's
     custom VJP, tile_render.py:952).  The values come from
     binning.feat_rank (built from detached tensors); the gradients go to
-    the four differentiable inputs.  ``marks`` (a list, on the card)
-    receives an event at the start of the backward, after K3 and after
-    the reduction."""
+    the four differentiable inputs.  The backward marks the stage
+    boundaries "tile_bwd" (K3), "reduce" (the key sort and K5 / K6) and
+    "preprocess_bwd" (the rest of autograd, utils/profiling.py)."""
 
     @staticmethod
     def forward(ctx, means2d, conic, opacity, color, binning, width, height,
-                grad_reduce, marks, base):
+                grad_reduce, base):
         fast = grad_reduce == "bf16x2"
         feat, ranges, limit, grid_x = _walk_inputs(binning, width, fast)
         packed = tile_fwd(feat, ranges, limit, grid_x, width, height, base)
         ctx.save_for_backward(feat, ranges, limit, packed)
-        ctx.meta = (binning, grid_x, width, height, grad_reduce, marks, base)
+        ctx.meta = (binning, grid_x, width, height, grad_reduce, base)
         return packed
 
     @staticmethod
     def backward(ctx, g_packed):
         feat, ranges, limit, packed = ctx.saved_tensors
-        binning, grid_x, width, height, grad_reduce, marks, base = ctx.meta
-        _mark(marks)
+        binning, grid_x, width, height, grad_reduce, base = ctx.meta
+        device = g_packed.device
+        profiling.stage("tile_bwd", device)
         dfeat = tile_bwd(feat, ranges, limit, grid_x, width, height,
                          g_packed.contiguous(), packed, base)
-        _mark(marks)
+        profiling.stage("reduce", device)
         sums = segment_reduce_by_src(dfeat, binning, grad_reduce)
-        _mark(marks)
+        profiling.stage("preprocess_bwd", device)
         return (sums[0:2].T, sums[2:5].T, sums[5], sums[6:9].T,
-                None, None, None, None, None, None)
+                None, None, None, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -714,7 +709,7 @@ class _RasterizeCore(torch.autograd.Function):
 
 def tile_render(prep: PreprocessOut, binning: BinningOut, background,
                 width: int, height: int, want_transmittance: bool = False,
-                tile_rows=None, grad_reduce: str = "f32", marks=None):
+                tile_rows=None, grad_reduce: str = "f32"):
     """Tile-rendered image with reference-parity semantics, differentiable
     in prep.means2d, conic, opacity and color.
 
@@ -737,7 +732,7 @@ def tile_render(prep: PreprocessOut, binning: BinningOut, background,
     base = r0 * grid_x
     packed = _RasterizeCore.apply(prep.means2d, prep.conic, prep.opacity,
                                   prep.color, binning, width, height,
-                                  grad_reduce, marks, base)
+                                  grad_reduce, base)
     color, t_fin = _packed_to_images(packed, grid_x, num_rows, width,
                                      crop_h)
     bg = torch.as_tensor(background, dtype=torch.float32,

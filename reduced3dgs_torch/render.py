@@ -2,7 +2,7 @@
 
     python -m reduced3dgs_torch.render -m <model_dir> \\
         [--models baseline quantised_half quantised_pack] \\
-        [--variable_sh_bands] [--device cpu]
+        [--variable_sh_bands] [--trace] [--device cpu]
 
 Loads a trained model directory (self-describing via cfg_args), renders
 the train/test splits of each requested variant into
@@ -15,6 +15,11 @@ resolution, repeated to at least 32 frames, timed in one window), writing
   quantised       point_cloud_quantised.ply
   quantised_half  point_cloud_quantised_half.ply
   quantised_pack  point_cloud_quantised_pack.ply (u16c xyz codec)
+
+--trace turns utils/profiling.py on for the whole run and adds its
+snapshot under "trace" (the stage clock's seconds per stage, the host
+spans and the counters: the binning's pad need against its slack pool,
+budget redos, graph captures).
 
 The instance budget climbs the {2^k, 3*2^(k-1)} ladder until the views'
 true instance counts fit; the FPS ring then renders every view at one
@@ -33,6 +38,8 @@ from argparse import ArgumentParser
 
 import numpy as np
 import torch
+
+from reduced3dgs_torch.utils import profiling
 
 MODELS_CONFIG = {
     "baseline": {"quantised": False, "half_float": False},
@@ -79,9 +86,10 @@ class PoolView:
 
 
 def render_once(pv: PoolView, cp, background, budget: int,
-                backend: str = "tile", marks=None):
-    """Render one view given its CameraParams on the pool's device
-    (marks: see renderer.render)."""
+                backend: str = "tile"):
+    """Render one view given its CameraParams on the pool's device: one
+    frame of profiling.VIEW_STAGES ("shade" for a ragged pool only), then
+    its end."""
     from reduced3dgs_torch.renderer import render
 
     with torch.inference_mode():
@@ -89,12 +97,16 @@ def render_once(pv: PoolView, cp, background, budget: int,
         if pv.ragged is not None:
             from reduced3dgs_torch.models.variable_sh import eval_colors
 
+            profiling.stage("shade", pv.device)
             color_precomp = eval_colors(pv.ragged, pv.xyz, cp.campos)
-        return render(
+        profiling.stage("preprocess", pv.device)
+        out = render(
             pv.xyz, pv.features, pv.scaling, pv.rotation, pv.opacity,
             pv.degrees, cp, background, width=cp.width, height=cp.height,
             instance_budget=budget, alive_mask=pv.alive, backend=backend,
-            color_precomp=color_precomp, marks=marks)
+            color_precomp=color_precomp)
+        profiling.stage(profiling.END, pv.device)
+        return out
 
 
 def render_view(pv: PoolView, cam, background, budget: int = VIEW_START_BUDGET,
@@ -107,6 +119,7 @@ def render_view(pv: PoolView, cam, background, budget: int = VIEW_START_BUDGET,
         needed = int(out.num_rendered)
         if needed <= budget:
             return out, budget
+        profiling.add("budget_redos")
         budget = next_budget(budget, needed)
 
 
@@ -129,6 +142,7 @@ def render_set(pv: PoolView, cams, background, out_dir: str,
                       (np.clip(cam.image, 0, 1) * 255).astype(np.uint8))
 
 
+@profiling.spanned("r3dgs.render.settle_budget")
 def settle_budget(pv: PoolView, cps, background, budget: int,
                   backend: str = "tile"):
     """The eager warm-up pass of the FPS ring: render every view at
@@ -207,9 +221,12 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu (plain PyTorch "
                              "versions of the kernels)")
+    parser.add_argument("--trace", action="store_true",
+                        help="trace the run into fps_results.json")
     args = C.get_combined_args(parser, argv)
     device = resolve(args.device)
     log_launches_at_exit("render")
+    tracer = profiling.enable() if args.trace else None
     print(f"Rendering {args.model_path} on {device}")
 
     dataset = C.extract_model(args)
@@ -247,6 +264,9 @@ def main(argv=None):
                   f"x {res['reps']} reps in one timed window) on {device} "
                   f"(budget {res['budget']})")
 
+    if tracer is not None:
+        fps_results["trace"] = profiling.snapshot()
+        tracer.close()
     with open(os.path.join(args.model_path, "fps_results.json"), "w") as f:
         json.dump(fps_results, f, indent=2)
 

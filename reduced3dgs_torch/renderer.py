@@ -29,16 +29,9 @@ from reduced3dgs_torch.ops import binning as binning_ops
 from reduced3dgs_torch.ops import preprocess as prep_ops
 from reduced3dgs_torch.ops import transforms as tf
 from reduced3dgs_torch.ops.preprocess import CameraParams
+from reduced3dgs_torch.utils import profiling
 
 BACKENDS = ("tile", "ref")
-STAGES = ("preprocess", "binning", "composite")
-
-
-def _mark(marks):
-    if marks is not None:
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append(ev)
 
 
 def mark_visible(xyz, cam: CameraParams):
@@ -80,7 +73,6 @@ def render(
     screen_offset=None,
     grad_reduce: str = "f32",
     want_transmittance: bool = False,
-    marks: list | None = None,
     strip_r0: int | None = None,
     strip_rows: int | None = None,
 ) -> RenderOut:
@@ -93,31 +85,37 @@ def render(
 
     grad_reduce: the "tile" backend's per-primitive gradient reduction,
     "f32" or "bf16x2" (packed payload and the fast feature table, as in
-    the JAX package).  marks: on a CUDA device, a list that receives a
-    timing event recorded before the first stage and after each of
-    STAGES (stage times); the tile backward appends three more (see
-    tile_render._RasterizeCore).
+    the JAX package).
+
+    Stage boundaries (utils/profiling.py): this marks "binning" and
+    "composite"; the caller marks "preprocess" (with what it computes for
+    the render first) and what follows the composite.  After binning the
+    device counters take num_rendered and total_padded, the latter with
+    the slack pool K1 lays pads out in (its pad need, when folded).
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; use one of "
                          f"{BACKENDS}")
-    _mark(marks)
     prep = prep_ops.preprocess(
         xyz, scaling_raw, rotation_raw, opacity_raw, features, degrees, cam,
         alive_mask=alive_mask, scale_modifier=scale_modifier,
         color_precomp=color_precomp, screen_offset=screen_offset)
-    _mark(marks)
+    device = prep.depths.device
+    profiling.stage("binning", device)
     tile_rows = None if strip_rows is None else (strip_r0, strip_rows)
     if tile_rows is not None and backend != "tile":
         raise NotImplementedError("strip rendering is the tile backend's")
     b = binning_ops.bin_gaussians(prep, width, height, instance_budget,
                                   tile_rows=tile_rows)
-    _mark(marks)
+    b_pad = b.gauss_aligned.shape[0]
+    aligned = -(-instance_budget // binning_ops.ALIGN) * binning_ops.ALIGN
+    profiling.count("num_rendered", b.num_rendered)
+    profiling.count("total_padded", b.total_padded, pool=b_pad - aligned)
+    profiling.stage("composite", device)
     # Overflow report: num_rendered > budget means truncation, and
     # total_padded > b_pad means the alignment slack pool ran out (the
     # layout was clamped).  Both fold into one number the regrow loops
     # understand: grow the budget and redo the frame.
-    b_pad = b.gauss_aligned.shape[0]
     nr_report = torch.where(
         b.total_padded > b_pad,
         torch.clamp(b.num_rendered, min=instance_budget + 1),
@@ -136,8 +134,7 @@ def render(
         color, final_t, g_trans, g_touch = tile_render(
             prep, b, background, width, height,
             want_transmittance=want_transmittance, tile_rows=tile_rows,
-            grad_reduce=grad_reduce, marks=marks)
-    _mark(marks)
+            grad_reduce=grad_reduce)
     return RenderOut(
         color=color,
         final_t=final_t,

@@ -3,7 +3,7 @@
     python -m reduced3dgs_torch.train -s <scene> [-m <model_dir>] \\
         [--iterations N] [--grad_reduce bf16x2|f32] [--fused_steps K] \\
         [--checkpoint_iterations N ...] [--start_checkpoint chkpntN.npz] \\
-        [--device cpu]
+        [--trace] [--device cpu]
 
 Same flags, loop and saves as train.py (point_cloud/iteration_N/
 point_cloud.ply at every --save_iterations entry), on the card unless
@@ -23,7 +23,11 @@ option; see reduced3dgs_torch.render).
 At the end it writes <model_dir>/train_stats.json: the seconds of
 training and of the codebook fit, the files' bytes, how often each
 surgery ran, the iterations run in step groups, the graphs captured and
-the kernels' launches inside their replays and in the process.
+the kernels' launches inside their replays and in the process; with
+--trace (utils/profiling.py on for the whole run) also, under "trace",
+the stage clock's seconds per stage, the host spans and the counters
+(among them the binning's pad need against its slack pool and the
+budget redos).
 --ip / --port open the SIBR viewer bridge (network_gui.py), polled at
 the top of every iteration or step group as train.py does; if the port
 cannot be bound it prints "Network GUI disabled" and training goes on.
@@ -73,16 +77,19 @@ def build_parser():
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu (plain PyTorch "
                              "versions of the kernels)")
+    parser.add_argument("--trace", action="store_true",
+                        help="trace the run (stage clock, spans, counters) "
+                             "into train_stats.json")
     return parser
 
 
 def cfg_namespace(args):
     """The Namespace that cfg_args records: root train.py's for the same
     command line, so without the port's --device (a run option, not a
-    model setting).  --variable_sh_bands is kept and ignored as root keeps
-    and ignores it: it is a rendering option."""
+    model setting; nor --trace).  --variable_sh_bands is kept and ignored
+    as root keeps and ignores it: it is a rendering option."""
     return Namespace(**{k: v for k, v in vars(args).items()
-                        if k != "device"})
+                        if k not in ("device", "trace")})
 
 
 def final_compression(scene, iteration, max_sh_degree=3, stats=None):
@@ -118,9 +125,12 @@ def main(argv=None):
         all_kernel_counters, log_launches_at_exit,
     )
 
+    from reduced3dgs_torch.utils import profiling
+
     args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
     device = resolve(args.device)
     log_launches_at_exit("train")
+    tracer = profiling.enable() if args.trace else None
     args.save_iterations.append(args.iterations)
     dataset = C.extract_model(args)
     opt = C.extract_optimization(args)
@@ -278,6 +288,9 @@ def main(argv=None):
         graph_captures=trainer.graph_captures,
         capture_s=trainer.capture_s, graph_launches=trainer.graph_launches,
         launches={n: k.launches for n, k in all_kernel_counters().items()})
+    if tracer is not None:
+        summary["trace"] = profiling.snapshot()
+        tracer.close()
     with open(os.path.join(args.model_path, "train_stats.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(f"Surgeries {trainer.events}; {trainer.grouped_steps} of "

@@ -50,10 +50,7 @@ from reduced3dgs_torch.renderer import render
 from reduced3dgs_torch.train import adam, densify
 from reduced3dgs_torch.train.adam import AdamState
 from reduced3dgs_torch.train.densify import WholeRows
-
-# stage names of the events a marked train step records (see train_step)
-TRAIN_STAGES = ("preprocess", "binning", "composite", "loss", "loss_bwd",
-                "tile_bwd", "reduce", "preprocess_bwd", "adam")
+from reduced3dgs_torch.utils import profiling
 
 # A fused step's input vector: the camera (viewmatrix 16, projmatrix 16,
 # campos 3, tan_fovx, tan_fovy), the background 3, then the 13 Adam
@@ -101,27 +98,22 @@ def _xyz_lr(iteration, opt_cfg: OptimizationParams, spatial_lr_scale):
     )
 
 
-def _mark(marks):
-    if marks is not None:
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append(ev)
-
-
 def train_step(state: TrainState, cam: CameraParams, gt_image, background,
                iteration: int, *, width, height, budget, backend,
                opt_cfg: OptimizationParams, spatial_lr_scale: float,
                skip_update: bool = False, grad_reduce: str = "f32",
-               marks=None, adam_scalars=None):
+               adam_scalars=None):
     """One training iteration.  Returns (state, metrics) — and the
     gradients (a GaussianParams) when skip_update, for the host to replay
     the reference ordering backward -> surgery -> step.  metrics hold
-    0-dim tensors on the device.  marks (on the card, "tile" backend): a
-    list that receives one event as the render starts and one after each
-    of TRAIN_STAGES.  adam_scalars: (xyz learning rate, per-leaf (c1, c2)
-    bias corrections) as 0-dim float32 tensors in place of the values
-    `iteration` and the state's step counts give (see fused_step)."""
+    0-dim tensors on the device.  adam_scalars: (xyz learning rate,
+    per-leaf (c1, c2) bias corrections) as 0-dim float32 tensors in place
+    of the values `iteration` and the state's step counts give (see
+    fused_step).  Marks the boundaries of profiling.TRAIN_STAGES up to
+    "store"; the caller ends the step (profiling.END) once it has stored
+    the new state."""
     pool, opt, gen = state
+    profiling.stage("preprocess", pool.device)
     leaves = [p.detach().requires_grad_(True) for p in pool.params]
     params = GaussianParams(*leaves)
     screen_offset = torch.zeros((pool.capacity, 2), dtype=torch.float32,
@@ -132,7 +124,8 @@ def train_step(state: TrainState, cam: CameraParams, gt_image, background,
         params.scaling, params.rotation, params.opacity[:, 0], pool.degrees,
         cam, background, width=width, height=height, instance_budget=budget,
         alive_mask=pool.alive, backend=backend, grad_reduce=grad_reduce,
-        screen_offset=screen_offset, marks=marks)
+        screen_offset=screen_offset)
+    profiling.stage("loss", pool.device)
     ll1 = l1_loss(out.color, gt_image)
     lssim = 1.0 - ssim(out.color, gt_image)
     vis = out.visibility
@@ -148,10 +141,10 @@ def train_step(state: TrainState, cam: CameraParams, gt_image, background,
         lsh = torch.where(vis[:, None, None], abs_jax(params.features_rest),
                           0.0).sum() / (nvis * 45)
         loss = loss + opt_cfg.lambda_sh_sparsity * lsh
-    _mark(marks)
+    profiling.stage("loss_bwd", pool.device)
     got = torch.autograd.grad(loss, leaves + [screen_offset],
                               allow_unused=True)
-    _mark(marks)
+    profiling.stage("adam", pool.device)
     grads = GaussianParams(*(torch.zeros_like(p) if g is None else g
                              for p, g in zip(leaves, got[:-1])))
     g_screen = got[-1]
@@ -179,7 +172,7 @@ def train_step(state: TrainState, cam: CameraParams, gt_image, background,
             new_params, new_opt = adam.update(
                 pool.params, grads, opt, make_lr_tree(opt_cfg, lr_xyz),
                 bias=bias)
-    _mark(marks)
+    profiling.stage("store", pool.device)
     pool = pool.replace(params=new_params)
     metrics = {
         "loss": loss.detach(), "l1": ll1.detach(),
@@ -309,6 +302,7 @@ def fused_step(buf: FusedBuffers, *, width, height, budget, backend,
         grad_reduce=grad_reduce,
         adam_scalars=adam_scalars(buf.vec[VEC_ADAM:]))
     buf.store(state, metrics)
+    profiling.stage(profiling.END, buf.vec.device)
 
 
 class StepLoop:
@@ -582,53 +576,69 @@ class Trainer:
         of its cameras'; one host read of num_rendered after the group,
         and on overflow the cameras' budgets grow on the ladder and the
         whole group runs again from the same state with the same cameras
-        and backgrounds."""
+        and backgrounds.
+
+        Its host time is tiled by the spans r3dgs.step_group.<part>:
+        prepare (cameras, backgrounds, the step vectors and their copy to
+        the device), replays, read (the host read of num_rendered, which
+        waits for the card) and unpack (the new state and the metric
+        dicts)."""
+        with profiling.span("r3dgs.step_group"):
+            return self._step_group(list(iterations))
+
+    def _step_group(self, iterations):
         cfg = self.opt_cfg
-        iterations = list(iterations)
         if not iterations or not all(self.fusible(i) for i in iterations):
             raise ValueError(f"step_group: iterations {iterations} are not "
                              f"all fusible")
-        cams, bgs = [], []
-        for _ in iterations:
-            i = self._next_camera_idx()
-            c = self.cameras[i]
-            if cams and (c.width, c.height) != (cams[0].width,
-                                                cams[0].height):
-                self._stack.append(i)
-                break
-            cams.append(c)
-            bgs.append(self.rng.uniform(0.0, 1.0, 3) if cfg.random_background
-                       else self._background_host)
-        k = len(cams)
-        iterations = iterations[:k]
-        self.iteration = iterations[-1]
-        vecs = torch.as_tensor(np.stack([
-            np.concatenate([camera_vector(c), np.asarray(bg, np.float32),
-                            self._adam_scalars(it, j)])
-            for j, (c, bg, it) in enumerate(zip(cams, bgs, iterations))]),
-            device=self.device)
-        gts = [self.gt_image(c) for c in cams]
+        with profiling.span("r3dgs.step_group.prepare"):
+            cams, bgs = [], []
+            for _ in iterations:
+                i = self._next_camera_idx()
+                c = self.cameras[i]
+                if cams and (c.width, c.height) != (cams[0].width,
+                                                    cams[0].height):
+                    self._stack.append(i)
+                    break
+                cams.append(c)
+                bgs.append(self.rng.uniform(0.0, 1.0, 3)
+                           if cfg.random_background else self._background_host)
+            k = len(cams)
+            iterations = iterations[:k]
+            self.iteration = iterations[-1]
+            vecs = torch.as_tensor(np.stack([
+                np.concatenate([camera_vector(c), np.asarray(bg, np.float32),
+                                self._adam_scalars(it, j)])
+                for j, (c, bg, it) in enumerate(zip(cams, bgs, iterations))]),
+                device=self.device)
+            gts = [self.gt_image(c) for c in cams]
         while True:
-            budget = max(self._budget_for(c.uid) for c in cams)
-            runner = self._runner(cams[0].width, cams[0].height, budget,
-                                  vecs[0], gts[0])
-            hist_f, hist_i = train_steps_fused(runner, self.state, vecs, gts)
-            for n, v in runner.launches.items():
-                self.graph_launches[n] += v * k
-            needed = hist_i[:, 0].cpu().numpy()
+            with profiling.span("r3dgs.step_group.replays"):
+                budget = max(self._budget_for(c.uid) for c in cams)
+                runner = self._runner(cams[0].width, cams[0].height, budget,
+                                      vecs[0], gts[0])
+                hist_f, hist_i = train_steps_fused(runner, self.state, vecs,
+                                                   gts)
+                for n, v in runner.launches.items():
+                    self.graph_launches[n] += v * k
+            with profiling.span("r3dgs.step_group.read"):
+                needed = hist_i[:, 0].cpu().numpy()
             if int(needed.max()) <= budget:
                 break
+            profiling.add("budget_redos")
             for c, n in zip(cams, needed):
                 if int(n) > self._budget_for(c.uid):
                     self._budget_for(c.uid, int(n))
-        buf = runner.buf
-        self.state = buf.advanced(self.state, k)
-        self.grouped_steps += k
-        out = []
-        for j in range(k):
-            m = {n: hist_f[j, i] for i, n in enumerate(buf.float_names)}
-            m.update({n: hist_i[j, i] for i, n in enumerate(buf.int_names)})
-            out.append(m)
+        with profiling.span("r3dgs.step_group.unpack"):
+            buf = runner.buf
+            self.state = buf.advanced(self.state, k)
+            self.grouped_steps += k
+            out = []
+            for j in range(k):
+                m = {n: hist_f[j, i] for i, n in enumerate(buf.float_names)}
+                m.update({n: hist_i[j, i]
+                          for i, n in enumerate(buf.int_names)})
+                out.append(m)
         return out
 
     def _adam_scalars(self, iteration, ahead=0):
@@ -693,7 +703,7 @@ class Trainer:
             self.state = TrainState(pool, opt, gen)
         return pending
 
-    def step(self, iteration: int, marks=None):
+    def step(self, iteration: int):
         """One training iteration; returns the metrics dict (device
         tensors — only sync what you read).
 
@@ -705,9 +715,13 @@ class Trainer:
         store_grads, everything except opacity on a reset-only iteration.
         The final iteration never steps.  An iteration listed in
         cull_sh_iterations ends with the SH-band cull (two transmittance
-        renders per training camera).  marks: see train_step (the last
-        attempt's events).
+        renders per training camera).  Host span r3dgs.step, and
+        r3dgs.surgery.<event> for each surgery event.
         """
+        with profiling.span("r3dgs.step"):
+            return self._step(iteration)
+
+    def _step(self, iteration: int):
         cfg = self.opt_cfg
         self.iteration = iteration
         if iteration % SH_DEGREE_INTERVAL == 0:
@@ -734,15 +748,14 @@ class Trainer:
                                          device=self.device)
         while True:
             budget = self._budget_for(camera.uid)
-            if marks is not None:
-                marks.clear()
             out = train_step(
                 self.state, cp, gt, background, iteration,
                 width=camera.width, height=camera.height, budget=budget,
                 backend=self.backend, opt_cfg=cfg,
                 spatial_lr_scale=self.spatial_lr_scale,
                 skip_update=surgery or final, grad_reduce=self.grad_reduce,
-                marks=marks, adam_scalars=scalars)
+                adam_scalars=scalars)
+            profiling.stage(profiling.END, self.device)
             st, metrics = out[0], out[1]
             grads = out[2] if len(out) == 3 else None
             needed = int(metrics["num_rendered"])
@@ -750,6 +763,7 @@ class Trainer:
                 break
             # overflow: grow the bucket and redo this step exactly
             # (same camera, same background)
+            profiling.add("budget_redos")
             self._budget_for(camera.uid, needed)
         self.state = st
         self._surgery(iteration, grads, final)
@@ -770,38 +784,44 @@ class Trainer:
                 iteration in self.cull_sh_iterations,)):
             self.events[name] += int(ran)
         if will_densify:
-            pending = self.maybe_grow_pool(pending)
-            use_size = iteration > cfg.opacity_reset_interval
-            if cfg.store_grads and pending is not None:
-                self.state, dstats, pending = densify_step(
-                    self.state, float(self.extent), pending, opt_cfg=cfg,
-                    use_size_threshold=use_size, with_grads=True, rows=rows)
-            else:
-                self.state, dstats = densify_step(
-                    self.state, float(self.extent), opt_cfg=cfg,
-                    use_size_threshold=use_size, rows=rows)
-                pending = None  # params rebuilt without store_grads
-            self.stats.update({k: int(v) for k, v in dstats.items()})
+            with profiling.span("r3dgs.surgery.densify"):
+                pending = self.maybe_grow_pool(pending)
+                use_size = iteration > cfg.opacity_reset_interval
+                if cfg.store_grads and pending is not None:
+                    self.state, dstats, pending = densify_step(
+                        self.state, float(self.extent), pending, opt_cfg=cfg,
+                        use_size_threshold=use_size, with_grads=True,
+                        rows=rows)
+                else:
+                    self.state, dstats = densify_step(
+                        self.state, float(self.extent), opt_cfg=cfg,
+                        use_size_threshold=use_size, rows=rows)
+                    pending = None  # params rebuilt without store_grads
+                self.stats.update({k: int(v) for k, v in dstats.items()})
         if will_reset:
-            self.state = opacity_reset_step(self.state)
+            with profiling.span("r3dgs.surgery.reset"):
+                self.state = opacity_reset_step(self.state)
         if will_prune_dead:
-            self.state, n = prune_dead_step(self.state, float(self.extent),
-                                            rows)
-            self.stats["n_points_pruned"] = int(n)
+            with profiling.span("r3dgs.surgery.prune_dead"):
+                self.state, n = prune_dead_step(self.state,
+                                                float(self.extent), rows)
+                self.stats["n_points_pruned"] = int(n)
             pending = None  # prune() is called without store_grads
 
         if will_mercy:
-            red = mercy_counts(self.state, self.scene,
-                               pixel_scale=cfg.box_size, rows=rows)
-            self.state, mstats = mercy_step(
-                self.state, red, lambda_mercy=cfg.lambda_mercy,
-                mercy_minimum=cfg.mercy_minimum, mercy_type=cfg.mercy_type,
-                rows=rows)
-            self.stats["n_points_mercied"] = int(mstats["n_points_mercied"])
-            self.stats["redundancy_threshold"] = float(
-                mstats["redundancy_threshold"])
-            self.stats["opacity_threshold"] = float(
-                mstats["opacity_threshold"])
+            with profiling.span("r3dgs.surgery.mercy"):
+                red = mercy_counts(self.state, self.scene,
+                                   pixel_scale=cfg.box_size, rows=rows)
+                self.state, mstats = mercy_step(
+                    self.state, red, lambda_mercy=cfg.lambda_mercy,
+                    mercy_minimum=cfg.mercy_minimum,
+                    mercy_type=cfg.mercy_type, rows=rows)
+                self.stats["n_points_mercied"] = int(
+                    mstats["n_points_mercied"])
+                self.stats["redundancy_threshold"] = float(
+                    mstats["redundancy_threshold"])
+                self.stats["opacity_threshold"] = float(
+                    mstats["opacity_threshold"])
             pending = None  # mercy_points prunes without store_grads
 
         if pending is not None and not final:
@@ -815,13 +835,14 @@ class Trainer:
 
             # one budget for every render of the cull, the largest any
             # camera has needed so far; an overflow is not redone
-            pool = cull_sh_bands(
-                self.state.pool, self.cameras,
-                threshold=cfg.cdist_threshold * math.sqrt(3) / 255.0,
-                std_threshold=cfg.std_threshold,
-                budget=max(self.budgets.values(),
-                           default=self.initial_budget),
-                backend=self.backend, max_sh_degree=self.max_sh_degree,
-                active_sh_degree=int(self.state.pool.active_sh_degree),
-                transmittance=rows.transmittance)
+            with profiling.span("r3dgs.surgery.cull"):
+                pool = cull_sh_bands(
+                    self.state.pool, self.cameras,
+                    threshold=cfg.cdist_threshold * math.sqrt(3) / 255.0,
+                    std_threshold=cfg.std_threshold,
+                    budget=max(self.budgets.values(),
+                               default=self.initial_budget),
+                    backend=self.backend, max_sh_degree=self.max_sh_degree,
+                    active_sh_degree=int(self.state.pool.active_sh_degree),
+                    transmittance=rows.transmittance)
             self.state = self.state._replace(pool=pool)

@@ -8,7 +8,7 @@ import numpy as np
 import chip_smoke as cs
 from chip_rehearsal import cpu_card  # noqa: F401 (a fixture)
 from one_thread import one_intra_op_thread  # noqa: F401 (a fixture)
-from reduced3dgs_torch.train import trainer as ttrainer
+from reduced3dgs_torch.utils import profiling
 
 
 def test_phase7_kernel_cases(cpu_card, capsys):
@@ -52,4 +52,4 @@ def test_student_is_a_perturbed_copy():
     d = dc - pl["features_dc"][:, 0]
     assert 0.2 < d.std() < 0.4
     np.testing.assert_array_equal(pool.params.xyz.numpy(), pl["xyz"])
-    assert ttrainer.TRAIN_STAGES[-1] == "adam"
+    assert profiling.TRAIN_STAGES[-2:] == ("adam", "store")

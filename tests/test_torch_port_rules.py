@@ -437,22 +437,29 @@ def test_quality_experiment_needs_a_card_unless_asked(name, tmp_path,
     assert os.listdir(tmp_path) == []
 
 
-def test_profiling_scope_and_trace(tmp_path, capsys, monkeypatch):
-    """synced_scope names a range the torch.profiler trace holds (no NVTX
-    on the CPU) and, with record_time, prints its wall time; stop_trace
-    writes a Chrome trace."""
+def test_profiling_scope_and_trace(tmp_path):
+    """span names a range the torch.profiler trace holds (no NVTX on the
+    CPU) and, while the profiler records, adds its host seconds and calls
+    to the snapshot; off, it records nothing; stop_trace writes a Chrome
+    trace."""
     import json
 
     from reduced3dgs_torch.utils import profiling
 
-    monkeypatch.setattr(profiling, "record_time", True)
+    profiling.reset()
+    with profiling.span("scope_under_test"):
+        pass
+    assert profiling.snapshot()["spans"] == {}
     profiling.start_trace(str(tmp_path / "trace"))
-    with profiling.synced_scope("scope_under_test"):
+    with profiling.span("scope_under_test"):
         torch.ones(64, 64) @ torch.ones(64, 64)
     path = profiling.stop_trace()
     events = json.load(open(path))["traceEvents"]
     assert any(e.get("name") == "scope_under_test" for e in events)
-    assert "[profile] scope_under_test:" in capsys.readouterr().out
+    spans = profiling.snapshot()["spans"]
+    assert spans["scope_under_test"]["calls"] == 1
+    assert spans["scope_under_test"]["s"] > 0
+    profiling.reset()
     with pytest.raises(RuntimeError):
         profiling.stop_trace()
 

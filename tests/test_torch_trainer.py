@@ -387,3 +387,43 @@ def test_render_cli_variable_sh_on_trained_model(trained):
         assert a.shape == b.shape == (6, 64, 64, 3)
         assert np.abs(a - b).max() <= 1
     assert outs["baseline", True].max() > 50
+
+
+def test_cli_trace_writes_the_snapshot(trained, tmp_path):
+    """--trace (utils/profiling.py on for the run) puts the snapshot under
+    "trace": the training CLI's train_stats.json (every train stage once
+    an iteration, the step-group spans, the counters), the render CLI's
+    fps_results.json (the view stages once a render)."""
+    import json
+    import shutil
+
+    model, r = trained
+    assert r.returncode == 0, r.stderr[-3000:]
+    src = os.path.join(os.path.dirname(model), "scene")
+    out = str(tmp_path / "traced")
+    r = _run_cli("reduced3dgs_torch.train", [
+        "-s", src, "-m", out, "--device", "cpu", "--iterations", "8",
+        "--fused_steps", "4", "--save_iterations", "8",
+        "--test_iterations", "100", "--trace"])
+    assert r.returncode == 0, r.stderr[-3000:]
+    with open(os.path.join(out, "train_stats.json")) as f:
+        trace = json.load(f)["trace"]
+    stages = trace["stages"]
+    assert {n: s["count"] for n, s in stages.items()} == dict.fromkeys(
+        ("preprocess", "binning", "composite", "loss", "loss_bwd", "tile_bwd",
+         "reduce", "preprocess_bwd", "adam", "store"), 8)
+    assert trace["spans"]["r3dgs.step_group.replays"]["calls"] >= 1
+    assert trace["counters"]["num_rendered"]["count"] == 8
+    assert trace["stamps_dropped"] == 0
+    view = str(tmp_path / "view")
+    shutil.copytree(model, view)
+    r = _run_cli("reduced3dgs_torch.render", [
+        "-m", view, "--device", "cpu", "--skip_test", "--skip_measure_fps",
+        "--iteration", "12", "--models", "baseline", "--trace"])
+    assert r.returncode == 0, r.stderr[-3000:]
+    with open(os.path.join(view, "fps_results.json")) as f:
+        trace = json.load(f)["trace"]
+    renders = trace["counters"]["num_rendered"]["count"]
+    assert renders >= 6  # the six training views, redone on overflow
+    assert {n: s["count"] for n, s in trace["stages"].items()} == \
+        dict.fromkeys(("preprocess", "binning", "composite"), renders)
