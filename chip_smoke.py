@@ -232,6 +232,21 @@ before the final line:
     launches not counted).  The stage clock's kernel (csrc/stamp.cu) ends
     the kernels line: its launches in this process and in phases 6 and 9,
     and the renders whose counters phase 6 compared.
+22. the fused preprocess kernel (csrc/preprocess_fwd.cu, the forward of
+    ops/preprocess.py for renders that need no gradient) against the
+    torch path on a seeded 2^18-row pool (mixed degrees, dead rows, rows
+    behind the camera and outside the frustum, det-0 rows), at both
+    benchmark scenes' cameras, with and without the alive mask, at
+    scale_modifier 0.5 and with color_precomp: floats within 1e-5
+    relative, integer outputs equal but where a rounding within 4 ulps
+    excuses them (at most 1e-5 of the rows), two launches bit for bit; a
+    captured graph bit for bit its eager launches with the
+    preprocess_fused counter once a replay; frames through each path
+    within 1e-6 mean gap; then its ms at the m360 and tnt sizes (2^22 and
+    2^20 rows) beside the torch path's and the bytes bound, with the
+    same parity held between the two paths' outputs at those sizes.  Its
+    entry ends the kernels line, with its launches in phase 4's graphed
+    ring (zeroed just before) and phase 6's frames.
 
 The last line is {"ok": true, "device": {...}}.  Without a card, or
 without the rest of the repository beside it, it exits non-zero first.
@@ -371,6 +386,25 @@ TIMING_ARGS = {
     "multicam_step": ("1920", "1080", str(1 << 19), str(1 << 22), "3"),
     "microbench_sort": (), "microbench_reduce": (),
     "microbench_sortscale": (), "microbench_scatter_pack": ()}
+# phase 22: the fused preprocess kernel (csrc/preprocess_fwd.cu) at the
+# benchmark scenes' sizes (splatbench/configs/*_dense.json: the image,
+# fov_x, the pool's capacity and its live rows, the scale base; m360
+# shades its SH rows, tnt takes color_precomp from variable-SH shading)
+# and its parity pools' rows; what a row reads besides its coefficients
+# (xyz 12, log-scales 12, quaternion 16, opacity 4, degree 4, alive 1) and
+# what it writes (PreprocessOut: 64)
+PREP_SIZES = {
+    "m360": dict(width=1237, height=822, fov_x=56.0, rows=1 << 22,
+                 alive=2959677, precomp=False, scale=0.012),
+    "tnt": dict(width=979, height=546, fov_x=80.0, rows=1 << 20,
+                alive=828629, precomp=True, scale=0.02)}
+PREP_PARITY_ROWS = 1 << 18
+PREP_ROW_IN = 49
+PREP_ROW_OUT = 64
+PREP_FLOAT_GAP = 1e-5  # relative, each row to its largest component
+PREP_NEAR_ULPS = 4  # an integer output may differ only this near a rounding
+PREP_EXCUSED_SHARE = 1e-5  # ... and on at most this share of the rows
+PREP_FRAME_GAP = 1e-6  # mean gap of a frame rendered through each path
 # phase 14: the offline compression's options
 COMPRESS = ("--pack_xyz", "--prune_frac", "0.17", "--finetune_iters", "32")
 # profiler kernel names of the train step's kernels (K5 and K6 are the
@@ -1194,6 +1228,7 @@ def main(argv=None):
     sys.path.insert(0, REPO)
     from reduced3dgs_torch.ops import _cuda
     from reduced3dgs_torch.ops import binning as tbin
+    from reduced3dgs_torch.ops import preprocess as tprep
     from reduced3dgs_torch.ops import tile_render as ttr
     from reduced3dgs_torch.utils import profiling
 
@@ -1238,10 +1273,12 @@ def main(argv=None):
     shutil.rmtree(root, ignore_errors=True)
     tbin.EXPAND.launches = 0
     ttr.TILE_FWD.launches = 0
+    tprep.PREPROCESS_FWD.launches = 0
     res = main_path(dev, root, MAIN["width"], MAIN["height"], MAIN["n"],
                     MAIN["scales"], args.seed, RING_VIEWS)
     launches = {"expand": tbin.EXPAND.launches,
-                "tile_fwd": ttr.TILE_FWD.launches}
+                "tile_fwd": ttr.TILE_FWD.launches,
+                "preprocess_fwd": tprep.PREPROCESS_FWD.launches}
     check(all(v > 0 for v in launches.values()),
           f"main path bypassed a kernel: {launches}")
     for variant in ("baseline", "quantised_half"):
@@ -1279,9 +1316,15 @@ def main(argv=None):
     stamp = {"name": "stamp", "route": "cuda",
              "source": "reduced3dgs_torch/csrc/stamp.cu", "replaces": None}
     before = profiling.STAMP.launches
+    prep_before = tprep.PREPROCESS_FWD.launches
     stamp["counters_checked_phase6"] = _profile_frames(
         res["baseline"]["pool"], res["views"], budget, smi)
     stamp["launches_phase6"] = profiling.STAMP.launches - before
+    prep_launches = {"launches_phase4": launches["preprocess_fwd"],
+                     "launches_phase6": tprep.PREPROCESS_FWD.launches
+                     - prep_before}
+    check(prep_launches["launches_phase6"] > 0,
+          f"phase 6: the frames bypassed preprocess_fwd: {prep_launches}")
     del res
 
     # --- phase 7: the training kernels against their plain versions ----
@@ -1376,6 +1419,9 @@ def main(argv=None):
     # --- phase 21: the timing experiments --------------------------------
     launches21 = timing_path(dev, eval_root, smi)
     shutil.rmtree(eval_root, ignore_errors=True)
+
+    # --- phase 22: the fused preprocess kernel ---------------------------
+    prep_kernel = preprocess_path(dev, args.seed, smi)
     for k in kernels:
         k["launches_phase18"] = launches18[k["name"]]
         k["launches_phase19"] = launches19.get(k["name"], 0)
@@ -1386,6 +1432,7 @@ def main(argv=None):
     # holds its stamps
     stamp["launches"] = profiling.STAMP.launches
     kernels.append(stamp)
+    kernels.append(dict(prep_kernel, **prep_launches))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4893,6 +4940,451 @@ def k5_row_check(dev, what, fn, rows, order, bounds):
           f"segments of <= 2 instances bit-identical), {e_ref:.3e} against "
           "the float64 sums", flush=True)
     del run
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the fused preprocess kernel
+# ---------------------------------------------------------------------------
+
+def prep_cameras(size, device, n_views=2, radius=3.5):
+    """CameraParams of `n_views` poses around the origin at one of
+    PREP_SIZES' image sizes and fields of view."""
+    from reduced3dgs_torch.cameras import Camera
+
+    cfg = PREP_SIZES[size]
+    out = []
+    for i in range(n_views):
+        a = 0.4 + 2.1 * i
+        out.append(Camera.look_at(
+            eye=(radius * math.sin(a), 0.3 * i, -radius * math.cos(a)),
+            target=(0.1, -0.05, 0.0), fov_x=math.radians(cfg["fov_x"]),
+            width=cfg["width"], height=cfg["height"]).params(device))
+    return out
+
+
+def prep_pool(n, seed, device, alive_rows=None, scale=0.02, degree=None,
+              dead_share=0.0, degenerate=0):
+    """A seeded pool of `n` rows made on `device`: 80 % in a ball of
+    radius 1.5 around the origin, 20 % in a shell of radii 5-15 (behind
+    the cameras and outside their frustums too); log-normal scales around
+    `scale`, unnormalised quaternions, raw opacities N(0, 2) (some below
+    the binning's 1/300), SH coefficients on every band whatever the
+    degree, degrees 0-3 mixed (or all `degree`); the first `alive_rows`
+    alive, and `dead_share` of those dead again at random; the last
+    `degenerate` rows near the centre with one log-scale of 12 and two
+    of -12, whose 2D covariances round to det 0 or below."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(int(seed))
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=device)
+
+    d = randn(n, 3)
+    d = d / d.norm(dim=1, keepdim=True).clamp_min(1e-6)
+    shell = rand(n) < 0.2
+    r = torch.where(shell, 5.0 + 10.0 * rand(n), 1.5 * rand(n) ** (1 / 3))
+    xyz = d * r[:, None]
+    scales = math.log(scale) + 0.6 * randn(n, 3)
+    rots = randn(n, 4)
+    opac = 2.0 * randn(n)
+    sh = 0.4 * randn(n, 16, 3)
+    degrees = (torch.randint(0, 4, (n,), generator=g, device=device,
+                             dtype=torch.int32) if degree is None else
+               torch.full((n,), degree, dtype=torch.int32, device=device))
+    alive = torch.arange(n, device=device) < (
+        n if alive_rows is None else alive_rows)
+    if dead_share:
+        alive &= rand(n) >= dead_share
+    if degenerate:
+        k = slice(n - degenerate, n)
+        xyz[k] = 0.3 * randn(degenerate, 3)
+        scales[k] = torch.tensor([12.0, -12.0, -12.0], device=device)
+        opac[k] = 3.0
+        alive[k] = True
+    return dict(xyz=xyz, scales=scales, rots=rots, opac=opac, sh=sh,
+                degrees=degrees, alive=alive)
+
+
+def prep_args(pool, precomp=None):
+    """preprocess's positional inputs from a prep_pool (its sh replaced
+    by the PoolView's (P, 1, 3) zeros where colours come precomputed)."""
+    import torch
+
+    sh = pool["sh"] if precomp is None else torch.zeros(
+        (pool["xyz"].shape[0], 1, 3), device=pool["xyz"].device)
+    return (pool["xyz"], pool["scales"], pool["rots"], pool["opac"], sh,
+            pool["degrees"])
+
+
+def prep_rounding_floats(pool, cam, alive=True, scale_modifier=1.0):
+    """(P, 9) float32: the values the torch path rounds to integers, from
+    its own ops -- the radius before its ceil and the eight tile
+    coordinates of the square and the binning rect before truncation,
+    each 0.5 where its rounding cannot change an output (a culled row's
+    radius, a coordinate the clip to the grid decides) -- and two (P,)
+    bool: the live rows whose 2D covariance's determinant is 0, and the
+    rows behind the camera's near plane."""
+    import torch
+
+    from reduced3dgs_torch.ops import preprocess as tp
+    from reduced3dgs_torch.ops import transforms as tf
+
+    xyz = pool["xyz"]
+    focal_x = cam.width / (2.0 * cam.tan_fovx)
+    focal_y = cam.height / (2.0 * cam.tan_fovy)
+    p_view = tf.transform_points_3x3(xyz, cam.viewmatrix)
+    live = p_view[:, 2] > 0.2
+    if alive:
+        live = live & pool["alive"]
+    safe = (torch.arange(3, device=xyz.device) == 2).to(xyz.dtype)
+    t_safe = torch.where(live[:, None], p_view, safe)
+    p_hom = tf.transform_points(xyz, cam.projmatrix)
+    p_w = 1.0 / torch.where(live, p_hom[:, 3] + 1e-7, 1.0)
+    mx = tf.ndc2pix(p_hom[:, 0] * p_w, cam.width)
+    my = tf.ndc2pix(p_hom[:, 1] * p_w, cam.height)
+    cov3d = tf.build_cov3d(torch.exp(pool["scales"]), pool["rots"],
+                           scale_modifier)
+    cov2d = tf.compute_cov2d(t_safe, focal_x, focal_y, cam.tan_fovx,
+                             cam.tan_fovy, cov3d, cam.viewmatrix)
+    det = cov2d[:, 0] * cov2d[:, 2] - cov2d[:, 1] * cov2d[:, 1]
+    mid = 0.5 * (cov2d[:, 0] + cov2d[:, 2])
+    disc = torch.sqrt(torch.clamp(mid * mid - det, min=0.1))
+    r_pre = 3.0 * torch.sqrt(torch.clamp(mid + disc, min=0.0))
+    kept = live & (det != 0.0)
+    rad = torch.where(kept, torch.ceil(r_pre), 0.0)
+    op = 1.0 / (1.0 + torch.exp(-pool["opac"]))
+    ext_x, ext_y, _ = tp.binning_extents(cov2d, op)
+    grid_x, grid_y = tp.tile_grid(cam.width, cam.height)
+
+    def tile(v, grid):  # outside [0.5, grid + 0.5] the clip decides
+        return torch.where((v >= 0.5) & (v <= grid + 0.5), v, 0.5)
+
+    cols = [torch.where(kept, r_pre, 0.5)]
+    for rx, ry in ((rad, rad), (torch.minimum(ext_x, rad),
+                                torch.minimum(ext_y, rad))):
+        cols += [tile((mx - rx) / tp.TILE_X, grid_x),
+                 tile((my - ry) / tp.TILE_Y, grid_y),
+                 tile((mx + rx + tp.TILE_X - 1) / tp.TILE_X, grid_x),
+                 tile((my + ry + tp.TILE_Y - 1) / tp.TILE_Y, grid_y)]
+    return (torch.stack(cols, dim=1), live & (det == 0.0),
+            p_view[:, 2] <= 0.2)
+
+
+def near_integer(v, ulps=PREP_NEAR_ULPS):
+    """(P,) bool: rows with a value of (P, k) float32 `v` within `ulps`
+    units in the last place of an integer."""
+    import torch
+
+    a = v.abs()
+    ulp = torch.nextafter(a, torch.full_like(a, math.inf)) - a
+    return ((v - torch.round(v)).abs() <= ulps * ulp).any(dim=1)
+
+
+def compare_prep(got, want, near):
+    """A kernel's PreprocessOut against the torch path's: per float
+    output its largest relative gap (each row to its largest component's
+    magnitude, colours to at least 1, their unit range; NaN where the
+    torch path has NaN counts as equal), the rows whose integer outputs
+    differ, and those of them no near-integer rounding (`near`) excuses."""
+    import torch
+
+    gaps = {}
+    for name in ("means2d", "depths", "conic", "opacity", "color"):
+        a = getattr(got, name).reshape(got.depths.shape[0], -1)
+        b = getattr(want, name).reshape(a.shape)
+        scale = b.abs().amax(dim=1, keepdim=True)
+        if name == "color":
+            scale = scale.clamp_min(1.0)
+        gap = (a - b).abs() / scale.clamp_min(1e-30)
+        same = (a == b) | (a.isnan() & b.isnan())
+        gaps[name] = float(torch.where(same, 0.0, gap.nan_to_num(math.inf))
+                           .max()) if a.numel() else 0.0
+    diff = torch.zeros_like(got.depths, dtype=torch.bool)
+    for name in ("radii", "rect_min", "rect_max", "tiles_touched"):
+        a = getattr(got, name).reshape(diff.shape[0], -1)
+        diff |= (a != getattr(want, name).reshape(a.shape)).any(dim=1)
+    return dict(gaps=gaps, differ=int(diff.sum()),
+                unexcused=int((diff & ~near).sum()), near=int(near.sum()))
+
+
+def same_bits(a, b):
+    """Two PreprocessOuts equal bit for bit."""
+    import torch
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    return all(torch.equal(bits(x), bits(y)) for x, y in zip(a, b))
+
+
+def prep_cases(pool, size):
+    """[(name, CameraParams, keyword arguments of preprocess)]: each pose
+    of `size`'s cameras with the alive mask, without it, at
+    scale_modifier 0.5 and with color_precomp."""
+    import torch
+
+    n = pool["xyz"].shape[0]
+    g = torch.Generator(device=pool["xyz"].device).manual_seed(n)
+    precomp = torch.rand((n, 3), generator=g, device=pool["xyz"].device)
+    out = []
+    for v, cam in enumerate(prep_cameras(size, pool["xyz"].device)):
+        for name, kw in (("alive", dict(alive_mask=pool["alive"])),
+                         ("no_mask", {}),
+                         ("modifier_0.5", dict(alive_mask=pool["alive"],
+                                               scale_modifier=0.5)),
+                         ("precomp", dict(alive_mask=pool["alive"],
+                                          color_precomp=precomp))):
+            out.append((f"{size} view {v} {name}", cam, kw))
+    return out
+
+
+def _say(line):
+    print(line, flush=True)
+
+
+def check_prep(name, got, want, floats, rows):
+    """check() the kernel's outputs `got` against the torch path's `want`
+    by compare_prep, with the near-integer rows of the torch path's
+    pre-rounding `floats`: floats within PREP_FLOAT_GAP, integer outputs
+    equal but on rows a rounding excuses, at most PREP_EXCUSED_SHARE of
+    `rows`.  Returns compare_prep's result."""
+    res = compare_prep(got, want, near_integer(floats))
+    check(max(res["gaps"].values()) <= PREP_FLOAT_GAP
+          and res["unexcused"] == 0
+          and res["differ"] <= PREP_EXCUSED_SHARE * rows,
+          f"{name}: kernel against the torch path {res}")
+    return res
+
+
+def prep_parity(dev, seed, rows=PREP_PARITY_ROWS, say=_say):
+    """The kernel against the torch path on a seeded parity pool, for
+    every case of prep_cases at both sizes: check_prep, and two launches
+    bit for bit.  The pool must reach every kind of row (culled by depth,
+    dead, outside the frustum, det 0, each degree).  Returns the worst
+    float gap and the most rows excused in one case."""
+    import torch
+
+    from reduced3dgs_torch.ops import preprocess as tp
+
+    pool = prep_pool(rows, seed, dev, dead_share=0.05, degenerate=512)
+    worst, most = 0.0, 0
+    kinds = dict.fromkeys(("behind", "dead", "outside", "det0"), 0)
+    for size in PREP_SIZES:
+        for name, cam, kw in prep_cases(pool, size):
+            args = prep_args(pool, kw.get("color_precomp"))
+            with torch.no_grad():
+                want = tp.preprocess_torch(*args, cam, **kw)
+                outs = [tp.preprocess_fused(*args, cam, **kw)
+                        for _ in range(2)]
+            floats, det0, behind = prep_rounding_floats(
+                pool, cam, "alive_mask" in kw,
+                kw.get("scale_modifier", 1.0))
+            check(same_bits(*outs), f"{name}: two launches differ")
+            res = check_prep(name, outs[0], want, floats, rows)
+            worst = max(worst, *res["gaps"].values())
+            most = max(most, res["differ"])
+            kept = floats[:, 0] != 0.5
+            kinds["det0"] += int(det0.sum())
+            kinds["behind"] += int(behind.sum())
+            kinds["outside"] += int((kept & (want.radii == 0)).sum())
+            if "alive_mask" in kw:
+                kinds["dead"] += int((~pool["alive"]).sum())
+            say(f"phase 22: {name}: largest float gaps "
+                + ", ".join(f"{k} {v:.2e}" for k, v in res["gaps"].items())
+                + f"; integer outputs differ on {res['differ']} of {rows} "
+                f"rows ({res['near']} near a rounding); visible "
+                f"{int((want.radii > 0).sum())}")
+    degrees = torch.bincount(pool["degrees"].long(), minlength=4)
+    check(all(kinds.values()) and bool((degrees > 0).all()),
+          f"parity pool lacks a kind of row: {kinds}, degrees {degrees}")
+    return worst, most
+
+
+def prep_frame_checks(dev, seed, say=_say):
+    """The kernel inside a captured graph (the camera from a device
+    vector, two poses) bit for bit its eager launches, with the
+    preprocess_fused counter once a replay summing the visible rows; and
+    a frame of each size rendered through the kernel within
+    PREP_FRAME_GAP mean gap of the same frame through the torch path.
+    Returns the largest mean gap."""
+    import torch
+
+    from reduced3dgs_torch import graphs
+    from reduced3dgs_torch.cameras import Camera
+    from reduced3dgs_torch.ops import preprocess as tp
+    from reduced3dgs_torch.render import next_budget
+    from reduced3dgs_torch.renderer import render
+    from reduced3dgs_torch.train.trainer import (
+        camera_from_vector, camera_vector,
+    )
+    from reduced3dgs_torch.utils import profiling
+
+    pool = prep_pool(PREP_PARITY_ROWS, seed + 1, dev, dead_share=0.05)
+    args = prep_args(pool)
+    worst = 0.0
+    for size, cfg in PREP_SIZES.items():
+        cams = [Camera.look_at(eye=(3.5 * math.sin(a), 0.2, -3.5 *
+                                    math.cos(a)), target=(0, 0, 0),
+                               fov_x=math.radians(cfg["fov_x"]),
+                               width=cfg["width"], height=cfg["height"])
+                for a in (0.3, 2.5)]
+        vec = torch.zeros(37, device=dev)
+        cp = camera_from_vector(vec, cfg["width"], cfg["height"])
+        with torch.inference_mode():
+            run = graphs.runner(lambda: tp.preprocess(
+                *args, cp, alive_mask=pool["alive"]), dev)
+            profiling.reset()
+            with profiling.enable():
+                visible = 0
+                for cam in cams:
+                    vec.copy_(torch.as_tensor(camera_vector(cam)))
+                    run.replay()
+                    eager = tp.preprocess_fused(*args, cam.params(dev),
+                                                alive_mask=pool["alive"])
+                    check(same_bits(run.out, eager),
+                          f"{size}: replayed graph differs from the eager "
+                          "launch")
+                    visible += int((run.out.radii > 0).sum())
+                snap = profiling.snapshot()
+            profiling.reset()
+        c = snap["counters"].get("preprocess_fused")
+        # the graph's replays and the eager launches, once each
+        check(c is not None and c["count"] == 2 * len(cams)
+              and c["sum"] == 2 * visible,
+              f"{size}: preprocess_fused {c}, want {2 * len(cams)} renders "
+              f"and {2 * visible} rows")
+        del run
+        bg = torch.zeros(3, device=dev)
+        for cam in cams:
+            cpar = cam.params(dev)
+            budget = 1 << 20
+            while True:
+                with torch.no_grad():
+                    outs = [render(pool["xyz"], pool["sh"], pool["scales"],
+                                   pool["rots"], pool["opac"],
+                                   pool["degrees"], cpar, bg,
+                                   width=cfg["width"],
+                                   height=cfg["height"],
+                                   instance_budget=budget,
+                                   alive_mask=pool["alive"],
+                                   screen_offset=off)
+                            for off in (None, torch.zeros_like(
+                                pool["xyz"][:, :2]))]
+                need = max(int(o.num_rendered) for o in outs)
+                if need <= budget:
+                    break
+                budget = next_budget(budget, need)
+            gap = float((outs[0].color - outs[1].color).abs().mean())
+            check(gap <= PREP_FRAME_GAP, f"{size}: frame through the kernel "
+                  f"{gap:.3e} from the torch path's")
+            worst = max(worst, gap)
+            top = float((outs[0].color - outs[1].color).abs().max())
+            say(f"phase 22: {size} frame ({need} instances): mean gap "
+                f"{gap:.3e}, largest {top:.3e} against the torch path")
+    return worst
+
+
+def prep_bytes(pool, out, precomp):
+    """The bytes the kernel must move for a launch: every row's inputs
+    and outputs, and each visible row's coefficients its degree keeps (or
+    its precomputed colour)."""
+    import torch
+
+    vis = out.radii > 0
+    if precomp:
+        coeff = 12 * int(vis.sum())
+    else:
+        d = pool["degrees"].clamp(0, 3).long()
+        coeff = 12 * int(torch.where(vis, (d + 1) ** 2, 0).sum())
+    n = pool["xyz"].shape[0]
+    return n * (PREP_ROW_IN + PREP_ROW_OUT) + coeff
+
+
+def prep_timing(dev, seed, smi, say=_say):
+    """Each PREP_SIZES scene: the torch path's and the kernel's ms a call
+    (a replayed graph, best of 3 windows of replays), beside the bytes
+    bound of the launch and the bound of every row reading all 48
+    coefficients; the two paths' outputs there held to check_prep.
+    Returns {size: {name: ms, ..., "parity": compare_prep's result}}."""
+    import torch
+
+    from reduced3dgs_torch import graphs
+    from reduced3dgs_torch.ops import preprocess as tp
+
+    res = {}
+    for size, cfg in PREP_SIZES.items():
+        shares = (0.45, 0.2, 0.15, 0.2) if cfg["precomp"] else None
+        pool = prep_pool(cfg["rows"], seed + 7, dev, cfg["alive"],
+                         cfg["scale"], degree=None if shares else 3)
+        if shares:
+            cut = np.cumsum(np.array(shares) * cfg["rows"]).astype(int)
+            idx = torch.arange(cfg["rows"], device=dev)
+            pool["degrees"] = torch.bucketize(
+                idx, torch.as_tensor(cut[:-1], device=dev),
+                right=True).to(torch.int32)
+        precomp = (torch.rand((cfg["rows"], 3), device=dev)
+                   if cfg["precomp"] else None)
+        args = prep_args(pool, precomp)
+        cam = prep_cameras(size, dev, n_views=1)[0]
+        kw = dict(alive_mask=pool["alive"], color_precomp=precomp)
+        rows = {"torch": lambda: tp.preprocess_torch(*args, cam, **kw),
+                "kernel": lambda: tp.preprocess_fused(*args, cam, **kw)}
+        ms = {}
+        with torch.inference_mode():
+            out = tp.preprocess_fused(*args, cam, **kw)
+            want = tp.preprocess_torch(*args, cam, **kw)
+            floats, _, _ = prep_rounding_floats(pool, cam)
+            parity = check_prep(f"{size} at {cfg['rows']} rows", out, want,
+                                floats, cfg["rows"])
+            del want, floats
+            for name, fn in rows.items():
+                run = graphs.runner(fn, dev)
+                sec, reps = graphs.best_window(run, dev)
+                ms[name] = sec * 1e3
+                del run
+        nbytes = prep_bytes(pool, out, cfg["precomp"])
+        least = bound(nbytes, 0)[0]
+        every = bound(cfg["rows"] * (PREP_ROW_IN + 192 + PREP_ROW_OUT), 0)[0]
+        res[size] = dict(ms, bound_ms=least, bound_all_rows_ms=every,
+                         visible=int((out.radii > 0).sum()), parity=parity)
+        say(f"phase 22: {size} ({cfg['rows']} rows, {cfg['alive']} alive, "
+            f"{res[size]['visible']} visible, "
+            f"{'color_precomp' if cfg['precomp'] else 'SH 3'}): "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+            + f"; bound {least:.4f} ms ({nbytes} B; "
+            f"{100 * least / ms['kernel']:.1f} % of it), every row's 48 "
+            f"coefficients {every:.4f} ms; against the torch path: largest "
+            f"float gaps "
+            + ", ".join(f"{k} {v:.2e}" for k, v in parity["gaps"].items())
+            + f", integer outputs differ on {parity['differ']} rows "
+            f"({parity['near']} near a rounding); {smi}")
+        del pool, args, out, precomp
+        torch.cuda.empty_cache()
+    return res
+
+
+def preprocess_path(dev, seed, smi):
+    """Phase 22: prep_parity, prep_frame_checks and prep_timing; returns
+    the kernel's entry of the kernels line."""
+    from reduced3dgs_torch.ops import preprocess as tp
+
+    t0 = time.perf_counter()
+    before = tp.PREPROCESS_FWD.launches
+    worst, most = prep_parity(dev, seed)
+    frame = prep_frame_checks(dev, seed)
+    timing = prep_timing(dev, seed, smi)
+    print(f"phase 22: {time.perf_counter() - t0:.3f} s; largest float gap "
+          f"{worst:.3e}, most rows excused in a case {most}, largest frame "
+          f"mean gap {frame:.3e}", flush=True)
+    return {"name": "preprocess_fwd", "route": "cuda",
+            "source": "reduced3dgs_torch/csrc/preprocess_fwd.cu",
+            "replaces": None, "float_gap": worst, "rows_excused": most,
+            "frame_gap": frame, "timing_ms": timing,
+            "launches_phase22": tp.PREPROCESS_FWD.launches - before}
 
 
 if __name__ == "__main__":

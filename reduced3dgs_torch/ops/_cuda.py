@@ -30,7 +30,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("expand", "tile_fwd", "tile_bwd", "tile_trans", "seg_reduce",
-           "stamp")
+           "stamp", "preprocess_fwd")
 
 
 def _nvcc() -> str:

@@ -6,6 +6,12 @@ rather than removed, so every output keeps P rows.  Differentiable in
 the raw parameters (training); ties of max/min split the gradient as JAX
 does (torch.maximum / torch.minimum, never torch.clamp, on the
 differentiable values).
+
+A render that asks for no gradient, on a card and with no screen offset,
+takes one hand-written CUDA kernel instead (csrc/preprocess_fwd.cu, the
+same outputs in one pass, chosen by `takes_kernel`); every other call --
+training, the CPU, the densification statistics' screen offset -- runs
+the torch ops below.
 """
 
 from __future__ import annotations
@@ -14,8 +20,10 @@ from typing import NamedTuple
 
 import torch
 
+from reduced3dgs_torch.ops import _cuda
 from reduced3dgs_torch.ops import sh as sh_ops
 from reduced3dgs_torch.ops import transforms as tf
+from reduced3dgs_torch.utils import profiling
 
 TILE_X = 16
 TILE_Y = 16
@@ -116,6 +124,32 @@ def preprocess(
     zero-valued (P, 2) tensor added to the pixel centres, whose gradient
     is dL/dmean2d (the densification statistics).
     """
+    args = (means3d, scales_raw, rotations_raw, opacities_raw, sh, degrees)
+    kw = dict(alive_mask=alive_mask, scale_modifier=scale_modifier,
+              color_precomp=color_precomp)
+    tensors = [t for t in (*args, *cam[:5], alive_mask, color_precomp)
+               if t is not None]
+    if takes_kernel(tensors, screen_offset):
+        return preprocess_fused(*args, cam, **kw)
+    return preprocess_torch(*args, cam, screen_offset=screen_offset, **kw)
+
+
+def preprocess_torch(
+    means3d,
+    scales_raw,
+    rotations_raw,
+    opacities_raw,
+    sh,
+    degrees,
+    cam: CameraParams,
+    *,
+    alive_mask=None,
+    scale_modifier=1.0,
+    color_precomp=None,
+    screen_offset=None,
+):
+    """`preprocess` through the torch ops, whatever the device and the
+    grad mode: the differentiable path and the CPU's."""
     grid_x, grid_y = tile_grid(cam.width, cam.height)
     focal_x = cam.width / (2.0 * cam.tan_fovx)
     focal_y = cam.height / (2.0 * cam.tan_fovy)
@@ -199,3 +233,103 @@ def preprocess(
         rect_max=rect_max,
         tiles_touched=tiles,
     )
+
+
+# ---------------------------------------------------------------------------
+# The forward-only kernel (csrc/preprocess_fwd.cu)
+# ---------------------------------------------------------------------------
+
+_ARGS = ([_cuda.ctypes.c_void_p] * 5 + [_cuda.ctypes.c_int]
+         + [_cuda.ctypes.c_void_p] * 8 + [_cuda.ctypes.c_int] * 3
+         + [_cuda.ctypes.c_float] + [_cuda.ctypes.c_void_p] * 11)
+PREPROCESS_FWD = _cuda.Kernel("preprocess_fwd", "preprocess_fwd_launch",
+                              _ARGS)
+
+
+def _on_card(t) -> bool:
+    return isinstance(t, torch.Tensor) and t.device.type == "cuda"
+
+
+def takes_kernel(tensors, screen_offset=None) -> bool:
+    """The dispatch rule of `preprocess`: the kernel when every input
+    tensor is on a card, there is no screen offset and no gradient is
+    asked for (grad mode off, or no input requires one)."""
+    if screen_offset is not None or not all(map(_on_card, tensors)):
+        return False
+    return not (torch.is_grad_enabled()
+                and any(t.requires_grad for t in tensors))
+
+
+def preprocess_fused(means3d, scales_raw, rotations_raw, opacities_raw, sh,
+                     degrees, cam: CameraParams, *, alive_mask=None,
+                     scale_modifier=1.0,
+                     color_precomp=None) -> PreprocessOut:
+    """`preprocess`'s outputs from csrc/preprocess_fwd.cu in one launch on
+    the current stream (capturable: no host read, outputs from
+    torch.empty).  Inputs float32 on one card (degrees int32,
+    alive_mask bool, sh (P, C, 3) with C <= 16), made contiguous where
+    they are views that are not (Camera.params' matrices are transposed
+    views); the camera's tensors are read through their device pointers.
+    Records the count of visible rows under the device counter
+    "preprocess_fused"."""
+    def dense(t):
+        return None if t is None else t.contiguous()
+
+    means3d, scales_raw, rotations_raw, opacities_raw, sh, degrees, \
+        alive_mask, color_precomp = map(dense, (
+            means3d, scales_raw, rotations_raw, opacities_raw, sh, degrees,
+            alive_mask, color_precomp))
+    cam = cam._replace(**{k: dense(getattr(cam, k))
+                          for k in cam._fields[:5]})
+    p = means3d.shape[0]
+    f32 = torch.float32
+    want = [(means3d, (p, 3), f32), (scales_raw, (p, 3), f32),
+            (rotations_raw, (p, 4), f32), (opacities_raw, (p,), f32),
+            (degrees, (p,), torch.int32),
+            (cam.viewmatrix, (4, 4), f32), (cam.projmatrix, (4, 4), f32),
+            (cam.campos, (3,), f32), (cam.tan_fovx, (), f32),
+            (cam.tan_fovy, (), f32)]
+    if alive_mask is not None:
+        want.append((alive_mask, (p,), torch.bool))
+    if color_precomp is None:
+        c = sh.shape[1] if sh.ndim == 3 else 0
+        if not 1 <= c <= 16:
+            raise ValueError("preprocess_fused: sh must be (P, C, 3), "
+                             "1 <= C <= 16")
+        want.append((sh, (p, c, 3), f32))
+    else:
+        want.append((color_precomp, (p, 3), f32))
+    dev = means3d.device
+    for t, shape, dtype in want:
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError("preprocess_fused: every input on one card")
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"preprocess_fused: want {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+
+    def out(*shape, dtype=f32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    i32 = torch.int32
+    res = PreprocessOut(
+        means2d=out(p, 2), depths=out(p), conic=out(p, 3), opacity=out(p),
+        color=out(p, 3), radii=out(p, dtype=i32),
+        rect_min=out(p, 2, dtype=i32), rect_max=out(p, 2, dtype=i32),
+        tiles_touched=out(p, dtype=i32))
+    visible = torch.zeros((), dtype=i32, device=dev)
+
+    def ptr(t):
+        return None if t is None else _cuda.ptr(t)
+
+    with torch.cuda.device(dev):
+        PREPROCESS_FWD(
+            ptr(means3d), ptr(scales_raw), ptr(rotations_raw),
+            ptr(opacities_raw), ptr(sh),
+            0 if color_precomp is not None else sh.shape[1],
+            ptr(degrees), ptr(alive_mask), ptr(color_precomp),
+            ptr(cam.viewmatrix), ptr(cam.projmatrix), ptr(cam.campos),
+            ptr(cam.tan_fovx), ptr(cam.tan_fovy), p, cam.width,
+            cam.height, float(scale_modifier), *map(ptr, res),
+            ptr(visible), _cuda.stream_of(means3d))
+    profiling.count("preprocess_fused", visible)
+    return res

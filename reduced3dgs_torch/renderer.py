@@ -2,7 +2,8 @@
 
 Counterpart of reduced3dgs_tpu/renderer.py.  Differentiable in the raw
 parameters (and ``screen_offset``); callers that only serve wrap it in
-torch.inference_mode (reduced3dgs_torch/render.py), so no graph is built.
+torch.inference_mode (reduced3dgs_torch/render.py), so no graph is built,
+and on a card their preprocess is one kernel (ops/preprocess.py).
 Backends:
 
   * "tile" — the tile rasterizer (ops/tile_render.py): kernels K1 + K2

@@ -56,8 +56,10 @@ STAGES = ("shade",) + TRAIN_STAGES + (END,)
 # device counters: the render's instances and the padded slots its walk
 # covers; the fold adds PAD_NEED, the pads K1 lays out past the budget
 # (total_padded less num_rendered) per mille of the b_pad - budget slots
-# it has for them (above 1000: the layout lost pads)
-COUNTERS = ("num_rendered", "total_padded")
+# it has for them (above 1000: the layout lost pads); the rows that
+# csrc/preprocess_fwd.cu found visible, stamped only where a render took
+# that kernel (its count: those renders)
+COUNTERS = ("num_rendered", "total_padded", "preprocess_fused")
 PAD_NEED = "pad_need_permille"
 _COUNTER_BASE = 64
 _ID = {n: i for i, n in enumerate(STAGES)}
