@@ -247,6 +247,16 @@ before the final line:
     same parity held between the two paths' outputs at those sizes.  Its
     entry ends the kernels line, with its launches in phase 4's graphed
     ring (zeroed just before) and phase 6's frames.
+23. alignment pads past binning's slack pool at the benchmark's m360_full
+    size (splatbench/configs/m360_full.json, its assumed density, the
+    scene from --seed): views of its viewing path served by the
+    program's FrameServer and rendered by the plain reference
+    (splatbench/reference/raster.py), each view's pad need against the
+    pool, pads_spilled (tracing on) and the frame's mean and largest gap
+    to the reference, within the m360_full.serve cell's limits; at least
+    one view must lay pads past the pool, and on the first such view K1's
+    keys and the whole BinningOut must equal the plain version's bit for
+    bit.
 
 The last line is {"ok": true, "device": {...}}.  Without a card, or
 without the rest of the repository beside it, it exits non-zero first.
@@ -405,6 +415,10 @@ PREP_FLOAT_GAP = 1e-5  # relative, each row to its largest component
 PREP_NEAR_ULPS = 4  # an integer output may differ only this near a rounding
 PREP_EXCUSED_SHARE = 1e-5  # ... and on at most this share of the rows
 PREP_FRAME_GAP = 1e-6  # mean gap of a frame rendered through each path
+# phase 23: the poses of the m360_full viewing path served and compared
+# (the path's 600 poses, as the benchmark's serve traffic has them)
+SPILL_PATH = 600
+SPILL_POSES = (0, 75, 150, 225, 300, 375, 450, 525)
 # phase 14: the offline compression's options
 COMPRESS = ("--pack_xyz", "--prune_frac", "0.17", "--finetune_iters", "32")
 # profiler kernel names of the train step's kernels (K5 and K6 are the
@@ -587,7 +601,8 @@ def expand_cases():
     and ints: the binning-test marks with room to spare, a budget that
     truncates them and no instances at all; a budget that ends inside one
     primitive's instances; P = 0 and P = 1; padding needs past the pad
-    slots, so that binning's markers are clamped."""
+    slots, so that binning's markers are clamped, with a budget that
+    leaves no room for them and with one whose unused slots take them."""
     cases = []
     for name, p, budget, grid in [
             ("plain", 700, 8192 + 1024, (20, 12)),
@@ -597,7 +612,9 @@ def expand_cases():
             ("budget splits a primitive", 300, 4096, (16, 9)),
             ("P=0", 0, 1024, (4, 3)),
             ("P=1", 1, 1024, (4, 3)),
-            ("padding past the pad slots", 700, 8192, (20, 12))]:
+            ("padding past the pad slots", 700, 8192, (20, 12)),
+            ("padding spilled into the unused slots", 700, 3 * 8192,
+             (20, 12))]:
         if name == "budget splits a primitive":
             rng = np.random.default_rng(13)
             counts = rng.poisson(40, p).astype(np.int64)
@@ -621,12 +638,15 @@ def expand_cases():
         n_extra = (pad_start[-1] // 256 * 128 if name.startswith("padding")
                    else -(-(pad_start[-1] + 300) // 128) * 128)
         i = int(np.searchsorted(offsets, budget, side="right"))
+        fits = min(total, budget) + pad_start[-1] <= budget + n_extra
         check((total > budget) == (name in ("truncate",
                                             "budget splits a primitive"))
               and (name != "empty" or total == 0)
               and (name != "budget splits a primitive"
                    or offsets[i] - counts[i] < budget < offsets[i])
-              and (pad_start[-1] > n_extra) == name.startswith("padding"),
+              and (pad_start[-1] > n_extra) == name.startswith("padding")
+              and (not name.startswith("padding")
+                   or fits == name.startswith("padding spilled")),
               f"expand case {name} is not what it claims")
         cases.append((name, dict(
             offsets=offsets.astype(np.int32), counts=counts.astype(np.int32),
@@ -1422,6 +1442,9 @@ def main(argv=None):
 
     # --- phase 22: the fused preprocess kernel ---------------------------
     prep_kernel = preprocess_path(dev, args.seed, smi)
+
+    # --- phase 23: pads past the slack pool at the m360_full size ---------
+    spill_path(dev, args.seed)
     for k in kernels:
         k["launches_phase18"] = launches18[k["name"]]
         k["launches_phase19"] = launches19.get(k["name"], 0)
@@ -1464,7 +1487,7 @@ def _small_render_check(dev):
     return err
 
 
-def k1_inputs(prep, width, height, budget, tbin):
+def k1_inputs(prep, width, height, budget, tbin, tile_rows=None):
     """K1's arguments in one bin_gaussians call (captured, not counted)
     and that call's BinningOut."""
     captured = {}
@@ -1476,7 +1499,8 @@ def k1_inputs(prep, width, height, budget, tbin):
 
     tbin.bin_keys = spy
     try:
-        out = tbin.bin_gaussians(prep, width, height, budget)
+        out = tbin.bin_gaussians(prep, width, height, budget,
+                                 tile_rows=tile_rows)
     finally:
         tbin.bin_keys = orig
     return captured["args"], out
@@ -1497,27 +1521,39 @@ def k1_bound(args):
     return bound(nbytes, ops * K1_OPS_PER_STEP)
 
 
+def check_k1(prep, width, height, budget, tbin, what, tile_rows=None):
+    """K1 on the inputs of one bin_gaussians call: its keys and the whole
+    BinningOut must equal the plain version's bit for bit.  Returns K1's
+    arguments and the BinningOut."""
+    import torch
+
+    args, got_b = k1_inputs(prep, width, height, budget, tbin, tile_rows)
+    got = tbin._bin_keys_cuda(*args)
+    want = tbin.bin_keys_plain(*args)
+    orig = tbin.bin_keys
+    tbin.bin_keys = tbin.bin_keys_plain
+    try:
+        want_b = tbin.bin_gaussians(prep, width, height, budget,
+                                    tile_rows=tile_rows)
+    finally:
+        tbin.bin_keys = orig
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"K1 {what}: kernel != plain")
+    for field in got_b._fields:
+        a, b = getattr(got_b, field), getattr(want_b, field)
+        check(torch.equal(a, b), f"K1 {what}: BinningOut.{field} differs "
+                                 "from the plain version's")
+    return args, got_b
+
+
 def _report_k1(prep, width, height, budget, launches, tbin):
     """K1 at the main path's shapes: its inputs are captured from one
     bin_gaussians call of the main-path view; the keys and the whole
     BinningOut must equal the plain version's bit for bit."""
     import torch
 
-    args, got_b = k1_inputs(prep, width, height, budget, tbin)
-    got = tbin._bin_keys_cuda(*args)
-    want = tbin.bin_keys_plain(*args)
-    orig = tbin.bin_keys
-    tbin.bin_keys = tbin.bin_keys_plain
-    try:
-        want_b = tbin.bin_gaussians(prep, width, height, budget)
-    finally:
-        tbin.bin_keys = orig
-    torch.cuda.synchronize()
-    check(torch.equal(got, want), "K1 main-path shapes: kernel != plain")
-    for field in got_b._fields:
-        a, b = getattr(got_b, field), getattr(want_b, field)
-        check(torch.equal(a, b), f"K1 main-path shapes: BinningOut.{field} "
-                                 "differs from the plain version's")
+    args, _ = check_k1(prep, width, height, budget, tbin,
+                       "main-path shapes")
     offsets, nv, b_pad = args[0], args[4], args[7]
     slots = torch.arange(int(nv), dtype=torch.int32, device=offsets.device)
     ms = time_ms(lambda: tbin._bin_keys_cuda(*args), 50)
@@ -1609,20 +1645,29 @@ def binning_spy():
 
 
 def check_counters(snap, seen, what):
-    """The device counters of a profiling.snapshot() against the binnings
-    binning_spy saw, read on the host: num_rendered, total_padded and the
-    pad need, the pads past the budget (total_padded less num_rendered)
-    per mille of the B_pad - budget slots K1 has for them.  Returns the
-    renders compared."""
+    """The counters of a profiling.snapshot() against the binnings
+    binning_spy saw, read on the host: the device's num_rendered and
+    total_padded, and what the fold derives from them: the pad need, the
+    pads past the budget (total_padded less num_rendered) per mille of
+    the B_pad - budget slots K1 has for them (its slack pool);
+    pads_spilled, the pads laid past that pool where the layout fits in
+    B_pad, and the same per mille of the pool.  Returns the renders
+    compared."""
     from reduced3dgs_torch.ops.binning import ALIGN
 
     nr = [int(n) for n, _, _, _ in seen]
     tp = [int(t) for _, t, _, _ in seen]
-    need = [(t - n) * 1000 // (b_pad - -(-budget // ALIGN) * ALIGN)
-            for n, t, (_, _, b_pad, budget) in zip(nr, tp, seen)]
+    pools = [b_pad - -(-budget // ALIGN) * ALIGN
+             for _, _, b_pad, budget in seen]
+    need = [(t - n) * 1000 // pool for n, t, pool in zip(nr, tp, pools)]
+    spilled = [0 if t > b_pad else max(0, t - min(n, b_pad - pool) - pool)
+               for n, t, pool, (_, _, b_pad, _) in zip(nr, tp, pools, seen)]
+    spill = [v * 1000 // pool for v, pool in zip(spilled, pools)]
     want = {name: {"sum": sum(v), "max": max(v), "count": len(v)}
             for name, v in (("num_rendered", nr), ("total_padded", tp),
-                            ("pad_need_permille", need))}
+                            ("pad_need_permille", need),
+                            ("pads_spilled", spilled),
+                            ("pad_spill_permille", spill))}
     got = {name: snap["counters"].get(name) for name in want}
     check(seen and got == want, f"{what}: device counters {got}, the "
           f"binnings read on the host {want}")
@@ -5385,6 +5430,143 @@ def preprocess_path(dev, seed, smi):
             "replaces": None, "float_gap": worst, "rows_excused": most,
             "frame_gap": frame, "timing_ms": timing,
             "launches_phase22": tp.PREPROCESS_FWD.launches - before}
+
+
+
+# phase 23: alignment pads past the slack pool
+
+def spill_scene(cfg, seed, dev):
+    """The benchmark's seeded scene of `cfg` as the program's PoolView."""
+    from reduced3dgs_torch.models.gaussians import (
+        GaussianParams, GaussianPool,
+    )
+    from reduced3dgs_torch.render import PoolView
+    from splatbench import scene
+
+    leaves = scene.primitives(cfg, seed, dev)
+    return PoolView(GaussianPool(
+        params=GaussianParams(*(leaves[k] for k in scene.LEAVES)),
+        degrees=leaves["degrees"], alive=leaves["alive"],
+        active_sh_degree=cfg["sh_degree"]))
+
+
+def spilled_k1(pv, cam, budget, dev):
+    """K1 on a view that lays pads past the slack pool: the inputs of its
+    binning in one eager render_once at `budget`, the keys and the whole
+    BinningOut held to the plain version's bit for bit (check_k1), and
+    the layout checked to spill (pad need over the pool, within B_pad).
+    Returns (nv, pad need, slack pool)."""
+    import torch
+
+    from reduced3dgs_torch.ops import binning as tbin
+    from reduced3dgs_torch.render import render_once
+
+    seen, real = [], tbin.bin_gaussians
+
+    def spy(prep, width, height, budget, tile_rows=None):
+        seen.append((prep, width, height, budget, tile_rows))
+        return real(prep, width, height, budget, tile_rows=tile_rows)
+
+    tbin.bin_gaussians = spy
+    try:
+        render_once(pv, cam.params(dev), torch.zeros(3, device=dev), budget)
+    finally:
+        tbin.bin_gaussians = real
+    prep, w, h, b, rows = seen[0]
+    args, _ = check_k1(prep, w, h, b, tbin, "spilled view", rows)
+    nv, need = int(args[4]), int(args[3][-1])
+    pool = args[7] - args[6]
+    check(need > pool and nv + need <= args[7], f"K1 spilled view: pad "
+          f"need {need}, slack pool {pool}, nv {nv}, B_pad {args[7]}")
+    return nv, need, pool
+
+
+def spill_frames(dev, seed, cfg, poses=SPILL_POSES, path=SPILL_PATH,
+                 say=_say, k1=False):
+    """The poses of cfg's viewing path served by a FrameServer settled
+    over them, each frame traced (pads_spilled and the pad need, per
+    mille of the slack pool) and held to the reference's frame within
+    the m360_full.serve cell's limits.  k1 (a card): K1 is held to the
+    plain version (spilled_k1) on the first pose over the pool.  Returns
+    [(pose, pad need per mille, pads_spilled, the reference's pad share,
+    mean gap, largest gap)]."""
+    import torch
+
+    from reduced3dgs_torch.cameras import Camera
+    from reduced3dgs_torch.render import FrameServer
+    from reduced3dgs_torch.train.trainer import camera_vector
+    from reduced3dgs_torch.utils import profiling
+    from splatbench import scene
+    from splatbench.generators import view as vw
+    from splatbench.reference import full_precision
+
+    with open(os.path.join(REPO, "splatbench", "limits",
+                           "m360_full.serve.json")) as f:
+        limits = json.load(f)
+    w, h = cfg["width"], cfg["height"]
+    route = scene.viewing_path(cfg, seed, path)
+    cams = [Camera(uid=i, colmap_id=i, R=route[i][0], T=route[i][1],
+                   fov_x=math.radians(cfg["assumed"]["fov_x_deg"]),
+                   fov_y=scene.fov_y(cfg), image=None,
+                   image_name=f"{i:05d}", width=w, height=h)
+            for i in poses]
+    server = FrameServer(spill_scene(cfg, seed, dev), w, h,
+                         torch.zeros(3, device=dev))
+    server.settle(cams)
+    frames = []
+    for i, cam in zip(poses, cams):
+        profiling.reset()
+        with profiling.enable():
+            out = server.frame(camera_vector(cam))
+            snap = profiling.snapshot()
+        frames.append((i, out.color.clone(), snap["counters"]))
+        profiling.reset()
+    over = [k for k, (_, _, c) in enumerate(frames)
+            if c["pad_need_permille"]["max"] > 1000]
+    if k1 and over:
+        nv, need, pool = spilled_k1(server.pv, cams[over[0]], server.budget,
+                                    dev)
+        say(f"phase 23: K1 on pose {poses[over[0]]} (nv {nv}, pad need "
+            f"{need} against a slack pool of {pool}): keys and BinningOut "
+            f"bit-identical to the plain version's")
+    rows = []
+    with full_precision():
+        model = vw.reference_model(cfg, seed, dev)
+        for i, color, counters in frames:
+            want, share = vw.reference_frame(cfg, model, route[i], dev)
+            gap = (color - want).abs()
+            mean, top = float(gap.mean()), float(gap.max())
+            need = counters["pad_need_permille"]["max"]
+            spilled = counters["pads_spilled"]["max"]
+            say(f"phase 23: pose {i}: pad need {need} per mille of the "
+                f"slack pool (the reference's {share:.4f}), pads_spilled "
+                f"{spilled}, mean gap {mean:.3e}, largest {top:.3e} "
+                f"(budget {server.budget})")
+            check(mean <= limits["frame_mean_gap"]
+                  and top <= limits["frame_max_gap"],
+                  f"pose {i}: frame gaps {mean:.3e} / {top:.3e} over the "
+                  f"limits {limits}")
+            # (the pad need is floored to whole per mille)
+            check(spilled > 0 if need > 1000 else need == 1000
+                  or spilled == 0, f"pose {i}: pads_spilled {spilled} at "
+                  f"a pad need of {need} per mille")
+            rows.append((i, need, spilled, share, mean, top))
+    return rows
+
+
+def spill_path(dev, seed):
+    """Phase 23 at the m360_full size."""
+    with open(os.path.join(REPO, "splatbench", "configs",
+                           "m360_full.json")) as f:
+        cfg = json.load(f)
+    t0 = time.perf_counter()
+    rows = spill_frames(dev, seed, cfg, k1=True)
+    check(any(spilled > 0 for _, _, spilled, _, _, _ in rows),
+          "phase 23: no view laid pads past the slack pool")
+    print(f"phase 23: {time.perf_counter() - t0:.3f} s; {len(rows)} views, "
+          f"{sum(r[2] > 0 for r in rows)} with pads past the pool; largest "
+          f"mean gap {max(r[4] for r in rows):.3e}, largest gap "
+          f"{max(r[5] for r in rows):.3e}", flush=True)
 
 
 if __name__ == "__main__":

@@ -20,7 +20,10 @@
 // budget)), a device scalar read through its pointer, so the host never
 // waits and the shapes stay static.  With pp1 = P + 1:
 //
-//   real slot s < budget, s >= nv:  key = T pp1 + P  (truncated or unused)
+//   real slot s < budget, s >= nv:  pad k = n_extra + (s - nv), n_extra =
+//       b_pad - budget (the slack pool), when the whole layout fits (nv +
+//       pad_start[T] <= b_pad) and k < pad_start[T]: key = t pp1 + P, t
+//       found as for a pad slot; else key = T pp1 + P (truncated, unused)
 //   real slot s < nv:  i = the first rank with offsets[i] > s (an
 //       upper-bound search over all P ranks), start = offsets[i] -
 //       counts[i], r = s - start, w = (rect & 1023) + 1,
@@ -48,6 +51,15 @@
 // k.  pad_start[0] = 0, so L >= 0.  Every key is bit-exact with
 // bin_keys_plain (binning.py), which computes it the TPU's way; there is
 // no 2^24 cap (the JAX limb scheme has one): indices are 32-bit ints.
+//
+// Pads past the slack pool.  The TPU kernel has pad slots for the first
+// n_extra pads only, and the later tiles' pads are lost: their ranges
+// then start off the 128-slot grid and hold other tiles' instances.  Here
+// such pads spill into the budget's unused slots [nv, budget) when the
+// whole layout fits in b_pad; after the sort every tile's instances and
+// pads are whole.  Where they fit in the pool the keys are the TPU's.  A
+// layout that does not fit keeps the TPU's keys; binning reports it
+// (total_padded > b_pad) and the host redoes the frame.
 //
 // What bounds it on the card: the 8 B key written per slot (B_pad, about
 // 39 MB at the 1080p budget of 2^22, ~12 us at 3.35 TB/s).  A search reads
@@ -85,12 +97,18 @@ __global__ void bin_keys_kernel(const int* __restrict__ offsets,
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= b_pad) return;
   const long long pp1 = static_cast<long long>(p) + 1;
+  const int n = __ldg(nv);
   long long key;
   if (s >= budget) {  // alignment padding
     const int t = upper_bound(pad_start, num_tiles + 1, s - budget) - 1;
     key = t * pp1 + p;
-  } else if (s >= __ldg(nv)) {  // truncated or unused
-    key = num_tiles * pp1 + p;
+  } else if (s >= n) {  // a spilled pad, truncated or unused
+    const int need = __ldg(pad_start + num_tiles);
+    const int k = (b_pad - budget) + (s - n);
+    const int t = (n + need <= b_pad && k < need)
+                      ? upper_bound(pad_start, num_tiles + 1, k) - 1
+                      : num_tiles;
+    key = t * pp1 + p;
   } else {
     const int i = upper_bound(offsets, p, s);
     const int r = s - (__ldg(offsets + i) - __ldg(counts + i));

@@ -150,8 +150,11 @@ def bin_keys_plain(offsets, counts, rectpack, pad_start, nv, grid_x: int,
                    budget: int, b_pad: int):
     """Plain version of K1: the (B_pad,) int64 sort key of every slot,
     tile * (P+1) + rank.  The first `budget` slots hold the instances in
-    rank order (slots at or past nv: tile num_tiles, rank P); pad slot k
-    belongs to the tile whose cumulative padding need covers k (rank P).
+    rank order; pad slot k belongs to the tile whose cumulative padding
+    need covers k (rank P).  Slot nv + j (at or past nv: no instance)
+    holds pad n_extra + j (n_extra = b_pad - budget, the slack pool) when
+    every pad fits in B_pad (nv + pad need <= b_pad), and is unused
+    otherwise or past the pads: tile num_tiles, rank P.
 
     offsets/counts/rectpack: (P,) int32 in depth-rank order (inclusive
     prefix sums of the counts, the counts, the rect words); pad_start:
@@ -159,7 +162,9 @@ def bin_keys_plain(offsets, counts, rectpack, pad_start, nv, grid_x: int,
     () int32 instances that fit.  Computed as the JAX package does: the
     instance -> primitive expand of _expand_stream, then a marker scatter
     and running max for the padding (the sentinel num_tiles marks the end
-    of all real padding).
+    of all real padding).  Where the pads fit in the slack pool the keys
+    are the JAX package's, bit for bit; the spill into the unused slots
+    is this port's (the JAX package drops those pads).
     """
     p = offsets.shape[0]
     num_tiles = pad_start.shape[0] - 1
@@ -186,20 +191,30 @@ def bin_keys_plain(offsets, counts, rectpack, pad_start, nv, grid_x: int,
     pad_counts = pad_start[1:] - pad_start[:-1]
     pmark = torch.cat([pad_counts > 0,
                        torch.ones(1, dtype=torch.bool, device=dev)])
-    # markers at or past n_extra are dropped: they land in one extra slot
-    # that is cut off (a clamp, not a mask, so the host never syncs)
-    pmark_pos = torch.clamp(torch.where(pmark, pad_start, n_extra),
-                            max=n_extra)
-    pmarkers = torch.zeros(n_extra + 1, dtype=torch.int64, device=dev)
+    # the marker pass runs over pads 0 .. b_pad - 1: pad k < n_extra has
+    # a pad slot of its own, pad k >= n_extra may spill (below); markers
+    # at or past b_pad land in one extra slot that is cut off (a clamp,
+    # not a mask, so the host never syncs)
+    pmark_pos = torch.clamp(torch.where(pmark, pad_start, b_pad), max=b_pad)
+    pmarkers = torch.zeros(b_pad + 1, dtype=torch.int64, device=dev)
     pmarkers.scatter_reduce_(
         0, pmark_pos.long(),
         torch.arange(num_tiles + 1, dtype=torch.int64, device=dev), "amax")
-    pad_tile = torch.cummax(pmarkers[:n_extra], dim=0).values
+    pad_tile = torch.cummax(pmarkers[:b_pad], dim=0).values
+
+    # pads past the slack pool spill into the budget's unused slots: pad
+    # n_extra + j goes to slot nv + j, when the whole layout fits (nv +
+    # pad need <= b_pad); else those slots stay unused and the layout is
+    # the JAX package's (renderer.py reports it as an overflow)
+    fits = nv + pad_start[-1] <= b_pad
+    spill_k = torch.clamp(n_extra + slot - nv, min=0, max=b_pad - 1)
+    spilled = fits & ~in_range
+    tile = torch.where(spilled, pad_tile[spill_k], tile)
 
     pp1 = p + 1
     key = (tile.long() * pp1
            + torch.where(in_range, gauss_c, p).long())
-    key_pad = pad_tile * pp1 + p
+    key_pad = pad_tile[:n_extra] * pp1 + p
     return torch.cat([key, key_pad])
 
 

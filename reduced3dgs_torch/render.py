@@ -111,8 +111,11 @@ def render_once(pv: PoolView, cp, background, budget: int,
 
 def render_view(pv: PoolView, cam, background, budget: int = VIEW_START_BUDGET,
                 backend: str = "tile"):
-    """Render one view, redoing it up the budget ladder until the true
-    instance count fits.  Returns (RenderOut, budget used)."""
+    """Render one view eagerly, redoing it up the budget ladder until it
+    fits: its true instance count within the budget and its instances
+    with their alignment pads within the binning's slots (renderer.py
+    reports either miss as num_rendered > budget).  Returns (RenderOut,
+    budget used)."""
     cp = cam.params(pv.device)
     while True:
         out = render_once(pv, cp, background, budget, backend)
@@ -126,14 +129,22 @@ def render_view(pv: PoolView, cam, background, budget: int = VIEW_START_BUDGET,
 def render_set(pv: PoolView, cams, background, out_dir: str,
                backend: str = "tile"):
     """Write renders/NNNNN.png (and gt/ where the camera has an image),
-    through data/png.py (no Pillow needed)."""
+    through data/png.py (no Pillow needed): the path's frames served by a
+    FrameServer, a new one where the image size changes."""
     from reduced3dgs_torch.data.png import write_png
+    from reduced3dgs_torch.train.trainer import camera_vector
 
     os.makedirs(os.path.join(out_dir, "renders"), exist_ok=True)
     os.makedirs(os.path.join(out_dir, "gt"), exist_ok=True)
-    budget = VIEW_START_BUDGET
+    server = None
     for idx, cam in enumerate(cams):
-        out, budget = render_view(pv, cam, background, budget, backend)
+        if server is None or (server.width, server.height) != (cam.width,
+                                                               cam.height):
+            server = FrameServer(
+                pv, cam.width, cam.height, background,
+                VIEW_START_BUDGET if server is None else server.budget,
+                backend=backend)
+        out = server.frame(camera_vector(cam))
         img = np.clip(out.color.cpu().numpy(), 0, 1)
         write_png(os.path.join(out_dir, "renders", f"{idx:05d}.png"),
                   (img * 255).astype(np.uint8))
@@ -147,13 +158,88 @@ def settle_budget(pv: PoolView, cps, background, budget: int,
                   backend: str = "tile"):
     """The eager warm-up pass of the FPS ring: render every view at
     `budget`, climbing the ladder and starting over whenever a view
-    needs more.  Returns (budget, the largest instance count)."""
+    needs more (more instances than the budget, or instances and
+    alignment pads past the binning's slots: both reported as
+    num_rendered > budget).  Returns (budget, the largest report)."""
     while True:
         needed = max(int(render_once(pv, cp, background, budget,
                                      backend).num_rendered) for cp in cps)
         if needed <= budget:
             return budget, needed
         budget = next_budget(budget, needed)
+
+
+class FrameServer:
+    """One viewer's frame entry: render_once at a settled budget, captured
+    once (graphs.runner: a CUDA graph on a card, a loop on the CPU) and
+    reading its camera from a device vector (train.trainer.camera_vector's
+    layout), so that a request costs one pose copy, one replay and one
+    host read of num_rendered.
+
+    ``settle(cams)`` settles the budget over the cameras as settle_budget
+    does and captures the frame.  ``frame(pose)`` renders one request: the
+    pose row (37 float32; pinned host memory keeps its copy off the
+    host's clock) copied into the vector, the replay, the read; a frame
+    that does not fit (renderer.py's report) climbs next_budget's ladder,
+    is captured again and rendered again, each redo counted in
+    budget_redos.  It returns the frame's RenderOut, the graph's outputs,
+    which the next frame rewrites.  Spans r3dgs.serve.frame and, inside
+    it, .replay / .read (the read waits for the card) / .recapture."""
+
+    def __init__(self, pv: PoolView, width: int, height: int, background,
+                 budget: int = VIEW_START_BUDGET, backend: str = "tile"):
+        from reduced3dgs_torch.train.trainer import CAMERA_VEC
+
+        self.pv = pv
+        self.width, self.height = width, height
+        self.background = background
+        self.budget = budget
+        self.backend = backend
+        self.vec = torch.zeros(CAMERA_VEC, dtype=torch.float32,
+                               device=pv.device)
+        self.runner = None
+
+    def settle(self, cams):
+        """Settle the budget over `cams` (Cameras of this size) and
+        capture the frame at it; returns the budget."""
+        from reduced3dgs_torch.train.trainer import camera_vector
+
+        cps = [c.params(self.pv.device) for c in cams]
+        self.budget, _ = settle_budget(self.pv, cps, self.background,
+                                       self.budget, self.backend)
+        self.vec.copy_(torch.as_tensor(camera_vector(cams[0])))
+        self._capture()
+        return self.budget
+
+    def _capture(self):
+        from reduced3dgs_torch import graphs
+        from reduced3dgs_torch.train.trainer import camera_from_vector
+
+        cp = camera_from_vector(self.vec, self.width, self.height)
+        budget = self.budget
+        self.runner = None  # the old graph's memory goes before the new
+        self.runner = graphs.runner(
+            lambda: render_once(self.pv, cp, self.background, budget,
+                                self.backend), self.pv.device)
+
+    def frame(self, pose):
+        """The frame at `pose` (a camera vector, host tensor or array)."""
+        with profiling.span("r3dgs.serve.frame"):
+            self.vec.copy_(torch.as_tensor(pose), non_blocking=True)
+            if self.runner is None:
+                with profiling.span("r3dgs.serve.recapture"):
+                    self._capture()
+            while True:
+                with profiling.span("r3dgs.serve.replay"):
+                    self.runner.replay()
+                with profiling.span("r3dgs.serve.read"):
+                    needed = int(self.runner.out.num_rendered)
+                if needed <= self.budget:
+                    return self.runner.out
+                profiling.add("budget_redos")
+                self.budget = next_budget(self.budget, needed)
+                with profiling.span("r3dgs.serve.recapture"):
+                    self._capture()
 
 
 def fps_ring(pv: PoolView, cps, background, budget: int,

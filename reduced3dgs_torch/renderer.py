@@ -15,9 +15,9 @@ Backends:
              oracle; small images and tests only.
 
 The per-frame instance count is data-dependent; callers pass a static
-``instance_budget`` and ``out.num_rendered`` reports the true count (plus
-alignment-slack overflow) so the host can grow the budget and redo the
-frame.
+``instance_budget`` and ``out.num_rendered`` reports the true count, or
+more than the budget where the aligned layout does not fit its slots, so
+the host can grow the budget and redo the frame.
 """
 
 from __future__ import annotations
@@ -91,8 +91,10 @@ def render(
     Stage boundaries (utils/profiling.py): this marks "binning" and
     "composite"; the caller marks "preprocess" (with what it computes for
     the render first) and what follows the composite.  After binning the
-    device counters take num_rendered and total_padded, the latter with
-    the slack pool K1 lays pads out in (its pad need, when folded).
+    device counters take num_rendered, with the aligned budget, and
+    total_padded, with the slack pool K1 lays pads out in (folded: its
+    pad need, and the pads spilled past that pool into the budget's
+    unused slots).
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; use one of "
@@ -110,16 +112,18 @@ def render(
                                   tile_rows=tile_rows)
     b_pad = b.gauss_aligned.shape[0]
     aligned = -(-instance_budget // binning_ops.ALIGN) * binning_ops.ALIGN
-    profiling.count("num_rendered", b.num_rendered)
-    profiling.count("total_padded", b.total_padded, pool=b_pad - aligned)
+    overflow = b.total_padded > b_pad
+    profiling.count("num_rendered", b.num_rendered, aux=aligned)
+    profiling.count("total_padded", b.total_padded, aux=b_pad - aligned)
     profiling.stage("composite", device)
     # Overflow report: num_rendered > budget means truncation, and
-    # total_padded > b_pad means the alignment slack pool ran out (the
-    # layout was clamped).  Both fold into one number the regrow loops
-    # understand: grow the budget and redo the frame.
+    # total_padded > b_pad means the instances and their alignment pads
+    # do not fit in the b_pad slots (K1 then keeps the JAX package's
+    # layout, which loses the last tiles' pads).  Both fold into one
+    # number the regrow loops understand: grow the budget and redo the
+    # frame.  Every layout with total_padded <= b_pad is whole.
     nr_report = torch.where(
-        b.total_padded > b_pad,
-        torch.clamp(b.num_rendered, min=instance_budget + 1),
+        overflow, torch.clamp(b.num_rendered, min=instance_budget + 1),
         b.num_rendered)
 
     if backend == "ref":

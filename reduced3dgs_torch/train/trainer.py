@@ -55,7 +55,8 @@ from reduced3dgs_torch.utils import profiling
 # A fused step's input vector: the camera (viewmatrix 16, projmatrix 16,
 # campos 3, tan_fovx, tan_fovy), the background 3, then the 13 Adam
 # scalars of Trainer._adam_scalars.
-VEC_BG = slice(37, 40)
+CAMERA_VEC = 37  # camera_vector's length
+VEC_BG = slice(CAMERA_VEC, CAMERA_VEC + 3)
 VEC_ADAM = 40
 STEP_VEC = 53
 FLOAT_METRICS = ("loss", "l1", "ssim_loss", "alpha_regul",
@@ -187,7 +188,8 @@ def train_step(state: TrainState, cam: CameraParams, gt_image, background,
 
 
 def camera_vector(camera) -> np.ndarray:
-    """The camera part of a fused step's input vector (float32, 37)."""
+    """The camera part of a fused step's input vector (float32,
+    CAMERA_VEC)."""
     return np.concatenate([
         np.asarray(camera.world_view_transform, np.float32).reshape(16),
         np.asarray(camera.full_proj_transform, np.float32).reshape(16),

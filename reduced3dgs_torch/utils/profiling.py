@@ -17,12 +17,14 @@ Three instruments, one switch and one read-out.
   a torch.profiler trace shows it on the clock of the device's kernels;
   while tracing is on it also adds its host seconds and calls.  While
   tracing is off it costs one flag check.
-* ``count(name, value, pool)`` writes a device int32's value through the
+* ``count(name, value, aux)`` writes a device int32's value through the
   same ring (on the CPU: the host reads it), its tag the counter's id
-  and `pool` above it; the fold works out the binning's pad need from a
-  render's two counters and its slack pool.  ``add(name, value)`` adds
-  a host value.  Both record only while tracing is on; ``tally`` adds
-  whatever the switch (graph captures, which happen at set-up).
+  and `aux` above it; the fold works out the binning's pad need and its
+  spill past the slack pool from a render's two counters, the aligned
+  budget and the pool.
+  ``add(name, value)`` adds a host value.  Both record only while
+  tracing is on; ``tally`` adds whatever the switch (graph captures,
+  which happen at set-up).
 
 Tracing is on while an ``enable()`` is in force or a torch profiler
 records.  The switch is read where work is launched: at every eager
@@ -53,14 +55,18 @@ TRAIN_STAGES = ("preprocess", "binning", "composite", "loss", "loss_bwd",
                 "tile_bwd", "reduce", "preprocess_bwd", "adam", "store")
 END = "end"
 STAGES = ("shade",) + TRAIN_STAGES + (END,)
-# device counters: the render's instances and the padded slots its walk
-# covers; the fold adds PAD_NEED, the pads K1 lays out past the budget
-# (total_padded less num_rendered) per mille of the b_pad - budget slots
-# it has for them (above 1000: the layout lost pads); the rows that
-# csrc/preprocess_fwd.cu found visible, stamped only where a render took
-# that kernel (its count: those renders)
+# device counters: the render's instances (tagged with its aligned
+# budget) and the padded slots its walk covers (tagged with its slack
+# pool, b_pad less that budget); the fold adds PAD_NEED, the pads K1 lays
+# out (total_padded less num_rendered) per mille of the pool (above 1000:
+# pads spill into the budget's unused slots), SPILLED, the pads laid past
+# the pool where the layout fits in b_pad, and PAD_SPILL, those per mille
+# of the pool; the rows that csrc/preprocess_fwd.cu found visible,
+# stamped only where a render took that kernel (its count: those renders)
 COUNTERS = ("num_rendered", "total_padded", "preprocess_fused")
 PAD_NEED = "pad_need_permille"
+SPILLED = "pads_spilled"
+PAD_SPILL = "pad_spill_permille"
 _COUNTER_BASE = 64
 _ID = {n: i for i, n in enumerate(STAGES)}
 _ID.update({n: _COUNTER_BASE + i for i, n in enumerate(COUNTERS)})
@@ -201,11 +207,12 @@ def stage(name: str, device) -> None:
         _host(_ID[name], time.perf_counter_ns())
 
 
-def count(name: str, value, pool: int = 0) -> None:
+def count(name: str, value, aux: int = 0) -> None:
     """A device counter (one of COUNTERS): the int32 0-dim tensor `value`.
-    pool: with total_padded, the render's slack pool (b_pad - budget), from
-    which the fold works out PAD_NEED."""
-    tag = _ID[name] | pool << _AUX
+    aux: with num_rendered the render's aligned budget, with total_padded
+    its slack pool (b_pad - budget), from which the fold works out
+    PAD_NEED, SPILLED and PAD_SPILL."""
+    tag = _ID[name] | aux << _AUX
     if value.device.type == "cuda":
         _launch(value.device, tag, value)
     elif on():
@@ -287,14 +294,17 @@ def _fold(entries, source):
     open_ = _REG.pending.pop(source, None)
     rendered = None
     for tag, value in entries:
-        ident, pool = tag & ((1 << _AUX) - 1), tag >> _AUX
+        ident, aux = tag & ((1 << _AUX) - 1), tag >> _AUX
         if ident >= _COUNTER_BASE:
             name = COUNTERS[ident - _COUNTER_BASE]
             tally(name, value)
             if name == "num_rendered":
-                rendered = value
-            elif pool > 0 and rendered is not None:
-                tally(PAD_NEED, (value - rendered) * 1000 // pool)
+                rendered, aligned = value, aux
+            elif name == "total_padded" and aux > 0 \
+                    and rendered is not None:
+                tally(PAD_NEED, (value - rendered) * 1000 // aux)
+                if aligned > 0:
+                    _fold_spill(value, rendered, aligned, aux)
             continue
         if open_ is not None:
             if ident > open_[0]:
@@ -306,6 +316,16 @@ def _fold(entries, source):
         open_ = None if ident == _ID[END] else (ident, value)
     if open_ is not None:
         _REG.pending[source] = open_
+
+
+def _fold_spill(padded, rendered, aligned, pool):
+    """SPILLED and PAD_SPILL of one render: K1 lays the pads past the
+    slack pool into the budget's unused slots where the whole layout fits
+    (ops/binning.py:bin_keys_plain)."""
+    spilled = 0 if padded > aligned + pool else \
+        max(0, padded - pool - min(rendered, aligned))
+    tally(SPILLED, spilled)
+    tally(PAD_SPILL, spilled * 1000 // pool)
 
 
 def _drain():

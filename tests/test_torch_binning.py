@@ -143,7 +143,8 @@ def keys_by_search(offsets, counts, rectpack, pad_start, nv, grid_x, budget,
                    b_pad):
     """csrc/expand.cu's algorithm in torch: a real slot below nv is owned
     by the first rank whose inclusive offset exceeds it, a pad slot by the
-    last tile whose padding prefix sum is at or below it."""
+    last tile whose padding prefix sum is at or below it; real slot nv + j
+    holds pad b_pad - budget + j where every pad fits in b_pad."""
     p = offsets.shape[0]
     num_tiles = pad_start.shape[0] - 1
     pp1 = p + 1
@@ -158,6 +159,11 @@ def keys_by_search(offsets, counts, rectpack, pad_start, nv, grid_x, budget,
         tx = (rect >> 20) + torch.fmod(r, w)
         real = (ty * grid_x + tx).long() * pp1 + i
         key = torch.where(s < nv, real, key)
+    need = pad_start[-1]
+    k = b_pad - budget + s - nv
+    t = torch.searchsorted(pad_start, k, right=True) - 1
+    spill = (s >= nv) & (nv + need <= b_pad) & (k < need)
+    key = torch.where(spill, t.long() * pp1 + p, key)
     k = torch.arange(b_pad - budget, dtype=torch.int32)
     t = torch.searchsorted(pad_start, k, right=True) - 1
     return torch.cat([key, t.long() * pp1 + p])

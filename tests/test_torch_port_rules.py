@@ -164,9 +164,17 @@ def test_chip_smoke_kernel_inputs_and_cases():
         assert out.shape == (case["b_pad"],) and out.dtype == torch.int64
         p, budget = case["counts"].size, case["budget"]
         tiles = case["pad_start"].size - 1
-        # slots past nv: tile num_tiles, rank P; pads: rank P of a tile
+        # slots past nv: tile num_tiles, rank P, but for the pads that
+        # spill there (rank P of a tile, then tile num_tiles); pads: rank
+        # P of a tile
         past = out[int(case["nv"][0]):budget]
-        assert bool((past == tiles * (p + 1) + p).all())
+        unused = tiles * (p + 1) + p
+        if name.startswith("padding spilled"):
+            spilled = int((past != unused).sum())
+            assert spilled > 0 and bool((past[spilled:] == unused).all())
+            assert bool((past % (p + 1) == p).all())
+        else:
+            assert bool((past == unused).all())
         assert bool((out[budget:] % (p + 1) == p).all())
         if name == "empty":
             assert past.numel() == budget

@@ -131,11 +131,12 @@ def test_every_train_stage_once_per_step_in_order(how):
     assert sum(s["s"] for s in stages.values()) == pytest.approx(
         span * 1e-9, rel=1e-9)
     assert snap["stages_open"] == 0 and snap["stamps_dropped"] == 0
-    # binning's two counters and the pad need a render, six renders; no
-    # training render takes the fused preprocess kernel
+    # binning's two counters and the pad need and spill folded from them
+    # a render, six renders; no training render takes the fused
+    # preprocess kernel
     assert {n: c["count"] for n, c in snap["counters"].items()} == \
-        dict.fromkeys(("num_rendered", "total_padded", profiling.PAD_NEED),
-                      6)
+        dict.fromkeys(("num_rendered", "total_padded", "pads_spilled",
+                       profiling.PAD_NEED, profiling.PAD_SPILL), 6)
     assert cs.check_counters(snap, seen, "train") == 6
 
 
@@ -167,7 +168,7 @@ def test_the_pad_need_is_folded_from_a_renders_two_counters():
         for nr, tp, pool in ((1000, 1640, 512), (7, 128, 1024),
                              (5000, 5000, 256), (0, 0, 128)):
             profiling.count("num_rendered", one + nr)
-            profiling.count("total_padded", one + tp, pool=pool)
+            profiling.count("total_padded", one + tp, aux=pool)
         profiling.count("total_padded", one + 4)  # no pool: no pad need
     c = profiling.snapshot()["counters"]
     assert c["num_rendered"] == {"sum": 6007, "max": 5000, "count": 4}
@@ -175,6 +176,24 @@ def test_the_pad_need_is_folded_from_a_renders_two_counters():
     # 640 of 512 slots, 121 of 1024, none
     assert c[profiling.PAD_NEED] == {"sum": 1250 + 118, "max": 1250,
                                      "count": 4}
+
+
+def test_the_spill_is_folded_from_a_renders_two_counters():
+    """The fold's spill on written entries: each num_rendered tagged with
+    its render's aligned budget, each total_padded with its slack pool;
+    the pads past the pool count where the layout fits in budget + pool
+    slots, and a num_rendered without its budget folds no spill."""
+    one = torch.tensor(0, dtype=torch.int32)
+    with profiling.enable():
+        for nr, tp, aligned in ((800, 1440, 1024), (100, 300, 1024),
+                                (1000, 1640, 1024), (800, 1440, 0)):
+            profiling.count("num_rendered", one + nr, aux=aligned)
+            profiling.count("total_padded", one + tp, aux=512)
+    c = profiling.snapshot()["counters"]
+    # 128 pads past the pool; within it; a layout past its 1,536 slots
+    assert c[profiling.SPILLED] == {"sum": 128, "max": 128, "count": 3}
+    assert c[profiling.PAD_SPILL] == {"sum": 250, "max": 250, "count": 3}
+    assert c[profiling.PAD_NEED]["count"] == 4
 
 
 def test_spans_in_the_chrome_trace_with_their_parents(tmp_path):
@@ -347,7 +366,8 @@ def test_a_full_device_ring_counts_what_it_drops(cuda, monkeypatch):
             for _ in range(2):
                 render_once(pv, cp, torch.zeros(3, device=cuda), BUDGET)
         snap = profiling.snapshot()
-        # four boundaries and two counters a render
-        assert snap["stamps_dropped"] == 2 * 6 - 8
+        # four boundaries and three counters a render (binning's two
+        # and the fused preprocess's)
+        assert snap["stamps_dropped"] == 2 * 7 - 8
     finally:
         profiling._REG.rings.clear()
