@@ -27,12 +27,14 @@ before the final line:
     through reduced3dgs_torch.render (budget ladder; FPS of the ring as a
     replayed CUDA graph of its frames, timed by CUDA events);
     the kernels' launch counters are zeroed just before and read just
-    after, and must have risen; the ring once more through K2 as built
+    after, and must have risen, the tile counts' (csrc/tile_counts.cu)
+    as often as K1's, once a binning; the ring once more through K2 as built
     and through its expf build on the same inputs (PSNR between the two,
     pixels more than 2e-5 from the plain version);
  5. per-kernel times (CUDA events) at the main path's shapes beside the
-    plain versions, the bound, and a PyTorch yardstick (K1's keys and the
-    whole BinningOut bit for bit against the plain version's); K2's line also
+    plain versions, the bound, and a PyTorch yardstick (K1's keys bit for
+    bit against the plain version's, the whole BinningOut against the one
+    binned with the plain K1 and tile counts); K2's line also
     counts the (warp, instance) pairs its warps dispatch and the instances
     its blocks stage, and gives the lane utilisation (pixel pairs over 32
     x warp pairs) for the kernels' warp footprint and for the former one;
@@ -42,7 +44,7 @@ before the final line:
     num_rendered, total_padded and pad need read on the host), then one
     pass under torch.profiler whose kernel time is set against
     the CUDA-event span of that same pass (the device's idle share; no
-    cummax kernel may run);
+    cummax or index_add_ kernel may run);
  7. the training kernels against their plain versions: K3
     (csrc/tile_bwd.cu) at 512p and at the 1080p main-path shapes with both
     feature tables (exact zeros on every slot outside the walked ranges,
@@ -255,8 +257,22 @@ before the final line:
     pool, pads_spilled (tracing on) and the frame's mean and largest gap
     to the reference, within the m360_full.serve cell's limits; at least
     one view must lay pads past the pool, and on the first such view K1's
-    keys and the whole BinningOut must equal the plain version's bit for
+    keys and the whole BinningOut must equal the plain versions' bit for
     bit.
+24. binning's per-tile counts (csrc/tile_counts.cu) against their plain
+    version and the four-index_add_ path they replaced, bit for bit, and
+    two launches bit for bit: the budget splitting a primitive mid-row,
+    at a row start, at its last and first instance, nv = 0 and
+    num_rendered, every row culled, P = 0, rects on the grid's last row
+    and column, a strip window, 2^22 rows at 1237x822 and a grid past the
+    shared-memory limit (the device-memory variant); then its ms at the
+    binnings of the benchmark's m360_full and tnt_reduced_dense scenes
+    (2^22 and 2^20 rows, first pose of the viewing path, settled and
+    split budgets) beside the bytes bound, the plain version's ms and
+    the index_add_ path's (library_ms).  Its entry ends the kernels line
+    (ms, bound_ms, plain_ms and library_ms at the m360_full binning, every
+    binning's under timing_ms), with its launches in phase 4's graphed
+    ring.
 
 The last line is {"ok": true, "device": {...}}.  Without a card, or
 without the rest of the repository beside it, it exits non-zero first.
@@ -675,6 +691,151 @@ def k1_edge_cases(device):
         print(f"phase 2: K1 {name}, P={case['counts'].size} budget="
               f"{case['budget']} B_pad={case['b_pad']}: bit-exact, two "
               "launches bit-identical", flush=True)
+
+
+def tile_counts_index_add(offsets, counts, rectpack, nv, grid_x, grid_y):
+    """The per-tile counts as ops/binning.py computed them before
+    csrc/tile_counts.cu: four int64 index_add_ of every row's rect
+    corners into the difference array (rows that add nothing add zeros),
+    the split primitive's partial rect by outer products.  The kernel's
+    oracle in the tests and its PyTorch yardstick (library_ms); the
+    signature and output of tile_counts_plain."""
+    import torch
+
+    i32 = torch.int32
+    dev = offsets.device
+    p = offsets.shape[0]
+    nv = nv.reshape(())
+    rw_p = (rectpack & 1023) + 1
+    x0 = rectpack >> 20
+    y0 = (rectpack >> 10) & 1023
+    x1 = torch.where(counts > 0, x0 + rw_p, x0)
+    y1 = y0 + torch.where(counts > 0, torch.div(counts, rw_p,
+                                                rounding_mode="floor"), 0)
+    full = offsets <= nv  # every instance of the primitive fits
+    diff = torch.zeros((grid_y + 1) * (grid_x + 1), dtype=torch.int64,
+                       device=dev)
+    inc = (full & (counts > 0)).long()
+    stride = grid_x + 1
+    for yy, xx, sign in ((y0, x0, 1), (y0, x1, -1), (y1, x0, -1),
+                         (y1, x1, 1)):
+        diff.index_add_(0, (yy.long() * stride + xx.long()), inc * sign)
+    d2 = diff.reshape(grid_y + 1, grid_x + 1)
+    count2d = torch.cumsum(torch.cumsum(d2, dim=0), dim=1)[:grid_y, :grid_x]
+    if p > 0:
+        p_star = full.sum()
+        ps = torch.clamp(p_star, max=p - 1).reshape(1)
+        xs0, xs1, ys0, off_ps, cnt_ps = torch.stack(
+            [x0, x1, y0, offsets, counts]).index_select(1, ps)[:, 0]
+        q = nv - (off_ps - cnt_ps)
+        has_partial = (p_star < p) & (q > 0) & (cnt_ps > 0)
+        w = torch.clamp(xs1 - xs0, min=1)
+        fr = torch.div(q, w, rounding_mode="floor")
+        rem = q - fr * w
+        iy = torch.arange(grid_y, dtype=i32, device=dev)
+        ix = torch.arange(grid_x, dtype=i32, device=dev)
+        yfull = ((iy >= ys0) & (iy < ys0 + fr)).long()
+        xfull = ((ix >= xs0) & (ix < xs1)).long()
+        yrow = (iy == ys0 + fr).long()
+        xrem = ((ix >= xs0) & (ix < xs0 + rem)).long()
+        corr = yfull[:, None] * xfull[None, :] + yrow[:, None] * xrem[None, :]
+        count2d = count2d + has_partial.long() * corr
+    return count2d.reshape(-1).to(i32)
+
+
+def tile_counts_case(p, grid_x, grid_y, seed, cull=0.3, window=None,
+                     edge=False):
+    """tile_counts' inputs but nv, as numpy int32 arrays and ints, made
+    as bin_gaussians makes them: `p` rows of seeded rects of 1-6 tiles a
+    side inside the grid, a `cull` share of them with count 0 (their
+    rects left as they are, as a culled row's are), the rows in a seeded
+    order.  window=(r0, rows): the rects' rows clipped to that window of
+    tile rows and shifted by -r0 (a strip's binning; the grid is the
+    window's); edge: every rect reaches the grid's last column or its
+    last row."""
+    rng = np.random.default_rng(seed)
+    w = rng.integers(1, 7, p)
+    h = rng.integers(1, 7, p)
+    x0 = rng.integers(0, grid_x, p)
+    y0 = rng.integers(0, grid_y, p)
+    if edge:
+        right = rng.random(p) < 0.5
+        x0 = np.where(right, np.maximum(grid_x - w, 0), x0)
+        y0 = np.where(right, y0, np.maximum(grid_y - h, 0))
+    x1 = np.minimum(x0 + w, grid_x)
+    y1 = np.minimum(y0 + h, grid_y)
+    if window is not None:
+        r0, grid_y = window
+        y0 = np.clip(y0, r0, r0 + grid_y) - r0
+        y1 = np.clip(y1, r0, r0 + grid_y) - r0
+    live = rng.random(p) >= cull
+    counts = np.where(live, np.maximum((x1 - x0) * (y1 - y0), 0), 0)
+    rectpack = (x0 << 20) | (y0 << 10) | (np.maximum(x1 - x0, 1) - 1)
+    return dict(offsets=np.cumsum(counts).astype(np.int32),
+                counts=counts.astype(np.int32),
+                rectpack=rectpack.astype(np.int32), grid_x=grid_x,
+                grid_y=grid_y)
+
+
+def split_nv(case, where):
+    """An nv that splits a row of `case` of at least 2 tile columns and 3
+    tile rows (an edge case's: of at least 2 rows), the first such row
+    past the middle: "mid-row" after its second row's first tile, "row
+    start" at its second row's start, "last" before its last instance,
+    "first" after its first one."""
+    counts, rect = case["counts"], case["rectpack"]
+    w = (rect & 1023) + 1
+    h = np.where(counts > 0, counts // w, 0)
+    p = counts.size
+    k = next(i for i in range(p // 2, p) if w[i] >= 2 and h[i] >= 2)
+    start = int(case["offsets"][k]) - int(counts[k])
+    return start + {"mid-row": int(w[k]) + 1, "row start": int(w[k]),
+                    "last": int(counts[k]) - 1, "first": 1}[where]
+
+
+def tile_counts_cases(big=False):
+    """[(name, tile_counts keyword arguments)] as numpy int32 arrays and
+    ints: a 900-row pool on a 23 x 17 grid whose budget splits a
+    primitive mid-row, at a row start, at its last and at its first
+    instance, fits every row (nv = num_rendered) or none (nv = 0); every
+    row culled; P = 0; rects on the grid's last row and column, whole and
+    split; a strip window of tile rows.  big: also 2^22 rows at 1237 x
+    822 (78 x 52 tiles) and a grid whose difference array is past the
+    kernel's shared-memory limit (300 x 200 tiles, 2^18 rows), each
+    whole and split mid-row."""
+    out = []
+
+    def add(name, case, nv):
+        check(0 <= nv <= (int(case["offsets"][-1]) if case["counts"].size
+                          else 0), f"tile counts case {name}: nv {nv}")
+        out.append((name, dict(case, nv=np.array([nv], np.int32))))
+
+    base = tile_counts_case(900, 23, 17, 3)
+    total = int(base["offsets"][-1])
+    for where in ("mid-row", "row start", "last", "first"):
+        add(f"budget splits a primitive, {where}", base,
+            split_nv(base, where))
+    add("nv = num_rendered", base, total)
+    add("nv = 0", base, 0)
+    add("every row culled", tile_counts_case(300, 23, 17, 4, cull=1.0), 0)
+    add("P = 0", tile_counts_case(0, 23, 17, 5), 0)
+    edge = tile_counts_case(600, 23, 17, 6, edge=True)
+    add("rects on the last row and column", edge,
+        int(edge["offsets"][-1]))
+    add("rects on the last row and column, split", edge,
+        split_nv(edge, "mid-row"))
+    strip = tile_counts_case(900, 23, 17, 7, window=(5, 6))
+    add("strip window", strip, int(strip["offsets"][-1]))
+    add("strip window, split", strip, split_nv(strip, "last"))
+    if big:
+        for name, case in (
+                ("2^22 rows at 1237x822", tile_counts_case(1 << 22, 78, 52,
+                                                           8)),
+                ("past the shared-memory limit", tile_counts_case(
+                    1 << 18, 300, 200, 9))):
+            add(name, case, int(case["offsets"][-1]))
+            add(f"{name}, split", case, split_nv(case, "mid-row"))
+    return out
 
 
 def bench_scene(n, scales, seed):
@@ -1294,13 +1455,17 @@ def main(argv=None):
     tbin.EXPAND.launches = 0
     ttr.TILE_FWD.launches = 0
     tprep.PREPROCESS_FWD.launches = 0
+    tbin.TILE_COUNTS.launches = 0
     res = main_path(dev, root, MAIN["width"], MAIN["height"], MAIN["n"],
                     MAIN["scales"], args.seed, RING_VIEWS)
     launches = {"expand": tbin.EXPAND.launches,
                 "tile_fwd": ttr.TILE_FWD.launches,
-                "preprocess_fwd": tprep.PREPROCESS_FWD.launches}
+                "preprocess_fwd": tprep.PREPROCESS_FWD.launches,
+                "tile_counts": tbin.TILE_COUNTS.launches}
     check(all(v > 0 for v in launches.values()),
           f"main path bypassed a kernel: {launches}")
+    check(launches["tile_counts"] == launches["expand"],
+          f"main path: tile counts not once a binning: {launches}")
     for variant in ("baseline", "quantised_half"):
         r = res[variant]
         print(f"phase 4: {variant}: {r['fps']:.3f} FPS over {r['frames']} "
@@ -1445,6 +1610,9 @@ def main(argv=None):
 
     # --- phase 23: pads past the slack pool at the m360_full size ---------
     spill_path(dev, args.seed)
+
+    # --- phase 24: binning's per-tile counts -------------------------------
+    counts_kernel = tile_counts_path(dev, args.seed, smi)
     for k in kernels:
         k["launches_phase18"] = launches18[k["name"]]
         k["launches_phase19"] = launches19.get(k["name"], 0)
@@ -1456,6 +1624,8 @@ def main(argv=None):
     stamp["launches"] = profiling.STAMP.launches
     kernels.append(stamp)
     kernels.append(dict(prep_kernel, **prep_launches))
+    kernels.append(dict(counts_kernel,
+                        launches_phase4=launches["tile_counts"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1522,34 +1692,36 @@ def k1_bound(args):
 
 
 def check_k1(prep, width, height, budget, tbin, what, tile_rows=None):
-    """K1 on the inputs of one bin_gaussians call: its keys and the whole
-    BinningOut must equal the plain version's bit for bit.  Returns K1's
-    arguments and the BinningOut."""
+    """K1 on the inputs of one bin_gaussians call: its keys must equal the
+    plain version's, and the whole BinningOut (K1's keys and the tile
+    counts of csrc/tile_counts.cu) the one binned with both plain
+    versions, bit for bit.  Returns K1's arguments and the BinningOut."""
     import torch
 
     args, got_b = k1_inputs(prep, width, height, budget, tbin, tile_rows)
     got = tbin._bin_keys_cuda(*args)
     want = tbin.bin_keys_plain(*args)
-    orig = tbin.bin_keys
-    tbin.bin_keys = tbin.bin_keys_plain
+    kernels = tbin.bin_keys, tbin.tile_counts
+    tbin.bin_keys, tbin.tile_counts = tbin.bin_keys_plain, \
+        tbin.tile_counts_plain
     try:
         want_b = tbin.bin_gaussians(prep, width, height, budget,
                                     tile_rows=tile_rows)
     finally:
-        tbin.bin_keys = orig
+        tbin.bin_keys, tbin.tile_counts = kernels
     torch.cuda.synchronize()
     check(torch.equal(got, want), f"K1 {what}: kernel != plain")
     for field in got_b._fields:
         a, b = getattr(got_b, field), getattr(want_b, field)
         check(torch.equal(a, b), f"K1 {what}: BinningOut.{field} differs "
-                                 "from the plain version's")
+                                 "from the plain versions'")
     return args, got_b
 
 
 def _report_k1(prep, width, height, budget, launches, tbin):
     """K1 at the main path's shapes: its inputs are captured from one
     bin_gaussians call of the main-path view; the keys and the whole
-    BinningOut must equal the plain version's bit for bit."""
+    BinningOut must equal the plain versions' bit for bit (check_k1)."""
     import torch
 
     args, _ = check_k1(prep, width, height, budget, tbin,
@@ -1566,8 +1738,9 @@ def _report_k1(prep, width, height, budget, launches, tbin):
           f"plain {plain_ms:.4f} ms, torch.searchsorted (the owner index of "
           f"the slots below nv only) {lib_ms:.4f} ms, bound {bms:.4f} ms "
           f"({by}; bytes {b_ms:.4f}, operations {o_ms:.4f}), roofline share "
-          f"{bms / ms * 100:.1f} %; keys and BinningOut bit-identical to the "
-          "plain version's", flush=True)
+          f"{bms / ms * 100:.1f} %; keys bit-identical to the plain "
+          "version's; BinningOut bit-identical to the one binned with the "
+          "plain K1 and tile counts", flush=True)
     return {"name": "expand", "route": "cuda",
             "source": "reduced3dgs_torch/csrc/expand.cu",
             "replaces": "reduced3dgs_tpu/ops/binning.py:164",
@@ -1625,8 +1798,9 @@ def _report_k2(k2in, w, h, launches, ttr):
 @contextlib.contextmanager
 def binning_spy():
     """Every binning renderer.render makes inside the block, as
-    (num_rendered, total_padded, B_pad, budget): the first two the
-    binning's own 0-dim tensors, to be read on the host afterwards."""
+    (num_rendered, total_padded, B_pad, budget, seg_bounds): the first two
+    the binning's own 0-dim tensors and the last its (P + 1,) tensor, to
+    be read on the host afterwards."""
     from reduced3dgs_torch.ops import binning
 
     seen, real = [], binning.bin_gaussians
@@ -1634,7 +1808,7 @@ def binning_spy():
     def spy(prep, width, height, budget, tile_rows=None):
         b = real(prep, width, height, budget, tile_rows=tile_rows)
         seen.append((b.num_rendered, b.total_padded,
-                     b.gauss_aligned.shape[0], budget))
+                     b.gauss_aligned.shape[0], budget, b.seg_bounds))
         return b
 
     binning.bin_gaussians = spy
@@ -1651,24 +1825,32 @@ def check_counters(snap, seen, what):
     pads past the budget (total_padded less num_rendered) per mille of
     the B_pad - budget slots K1 has for them (its slack pool);
     pads_spilled, the pads laid past that pool where the layout fits in
-    B_pad, and the same per mille of the pool.  Returns the renders
-    compared."""
+    B_pad, and the same per mille of the pool; on a card
+    tile_counts_rows, the ranks with a segment of instances that fit
+    (the rows csrc/tile_counts.cu added), absent on the CPU.  Returns
+    the renders compared."""
     from reduced3dgs_torch.ops.binning import ALIGN
 
-    nr = [int(n) for n, _, _, _ in seen]
-    tp = [int(t) for _, t, _, _ in seen]
+    nr = [int(n) for n, _, _, _, _ in seen]
+    tp = [int(t) for _, t, _, _, _ in seen]
     pools = [b_pad - -(-budget // ALIGN) * ALIGN
-             for _, _, b_pad, budget in seen]
+             for _, _, b_pad, budget, _ in seen]
     need = [(t - n) * 1000 // pool for n, t, pool in zip(nr, tp, pools)]
     spilled = [0 if t > b_pad else max(0, t - min(n, b_pad - pool) - pool)
-               for n, t, pool, (_, _, b_pad, _) in zip(nr, tp, pools, seen)]
+               for n, t, pool, (_, _, b_pad, _, _)
+               in zip(nr, tp, pools, seen)]
     spill = [v * 1000 // pool for v, pool in zip(spilled, pools)]
+    rows = [int((sb[1:] > sb[:-1]).sum()) for _, _, _, _, sb in seen]
+    card = bool(seen) and seen[0][4].device.type == "cuda"
     want = {name: {"sum": sum(v), "max": max(v), "count": len(v)}
             for name, v in (("num_rendered", nr), ("total_padded", tp),
                             ("pad_need_permille", need),
                             ("pads_spilled", spilled),
-                            ("pad_spill_permille", spill))}
+                            ("pad_spill_permille", spill))
+            + ((("tile_counts_rows", rows),) if card else ())}
     got = {name: snap["counters"].get(name) for name in want}
+    check(card or "tile_counts_rows" not in snap["counters"],
+          f"{what}: tile_counts_rows recorded on the CPU")
     check(seen and got == want, f"{what}: device counters {got}, the "
           f"binnings read on the host {want}")
     return len(seen)
@@ -1727,9 +1909,12 @@ def _profile_frames(pv, views, budget, smi):
     rows = trace.kernel_rows()
     check(rows, "profiler saw no kernel on the card")
     span /= nv
-    # K1 writes binning's keys: no running max of the former key pass
+    # K1 writes binning's keys: no running max of the former key pass;
+    # csrc/tile_counts.cu the tile counts: no index_add_
     check(not any("cummax" in r[2] for r in rows),
           "a cummax kernel runs in the frame")
+    check(not any("indexFunc" in r[2] for r in rows),
+          "an index_add_ kernel runs in the frame")
     busy = trace.busy_ms
     launches = sum(r[1] for r in rows)
     print(f"phase 6: profiled pass: {launches:.1f} kernel launches and "
@@ -2108,8 +2293,8 @@ def train_main_path(dev, seed, smi):
     from reduced3dgs_torch.ops import tile_render as ttr
     from reduced3dgs_torch.utils import profiling
 
-    kernels = {"expand": tbin.EXPAND, "tile_fwd": ttr.TILE_FWD,
-               "tile_bwd": ttr.TILE_BWD,
+    kernels = {"expand": tbin.EXPAND, "tile_counts": tbin.TILE_COUNTS,
+               "tile_fwd": ttr.TILE_FWD, "tile_bwd": ttr.TILE_BWD,
                "seg_reduce_packed": ttr.SEG_REDUCE_PACKED,
                "seg_reduce_f32": ttr.SEG_REDUCE_F32}
     t0 = time.perf_counter()
@@ -2126,9 +2311,10 @@ def train_main_path(dev, seed, smi):
     launches = {n: k.launches for n, k in kernels.items()}
     renders = launches["expand"]
     check(renders >= steps and all(launches[n] == renders for n in (
-        "tile_fwd", "tile_bwd", "seg_reduce_packed"))
+        "tile_counts", "tile_fwd", "tile_bwd", "seg_reduce_packed"))
         and launches["seg_reduce_f32"] == 0,
-        f"bf16x2 steps: not one K1, K2, K3 and K6 per render: {launches}")
+        f"bf16x2 steps: not one K1, tile counts, K2, K3 and K6 per render: "
+        f"{launches}")
     check(all(math.isfinite(x) for x in losses), "non-finite loss")
     nv = len(cams)
     first, last = np.mean(losses[:nv]), np.mean(losses[2 * nv:3 * nv])
@@ -5453,7 +5639,7 @@ def spill_scene(cfg, seed, dev):
 def spilled_k1(pv, cam, budget, dev):
     """K1 on a view that lays pads past the slack pool: the inputs of its
     binning in one eager render_once at `budget`, the keys and the whole
-    BinningOut held to the plain version's bit for bit (check_k1), and
+    BinningOut held to the plain versions' bit for bit (check_k1), and
     the layout checked to spill (pad need over the pool, within B_pad).
     Returns (nv, pad need, slack pool)."""
     import torch
@@ -5568,6 +5754,160 @@ def spill_path(dev, seed):
           f"mean gap {max(r[4] for r in rows):.3e}, largest gap "
           f"{max(r[5] for r in rows):.3e}", flush=True)
 
+
+
+# phase 24: binning's per-tile counts (csrc/tile_counts.cu)
+
+def tile_counts_checks(dev, say=_say):
+    """csrc/tile_counts.cu on tile_counts_cases(big=True) against its plain
+    version and the index_add_ yardstick, bit for bit, and two launches
+    bit for bit; the path (shared or device memory) each case took.
+    Returns the cases checked."""
+    import torch
+
+    from reduced3dgs_torch.ops import binning as tbin
+
+    cases = tile_counts_cases(big=True)
+    for name, case in cases:
+        kw = {k: torch.as_tensor(v, device=dev)
+              if isinstance(v, np.ndarray) else v for k, v in case.items()}
+        before = tbin.TILE_COUNTS.launches
+        got = tbin._tile_counts_cuda(**kw)
+        again = tbin._tile_counts_cuda(**kw)
+        want = tbin.tile_counts_plain(**kw)
+        lib = tile_counts_index_add(**kw)
+        torch.cuda.synchronize()
+        check(tbin.TILE_COUNTS.launches == before + 2,
+              f"tile counts {name}: launches")
+        check(torch.equal(got, want), f"tile counts {name}: kernel != plain")
+        check(torch.equal(want, lib),
+              f"tile counts {name}: plain != the index_add_ path")
+        check(torch.equal(got, again),
+              f"tile counts {name}: two launches differ")
+        shared = tbin.tile_counts_shared(case["grid_x"], case["grid_y"])
+        say(f"phase 24: tile counts {name} (P={case['counts'].size}, "
+            f"{case['grid_x']}x{case['grid_y']} tiles, "
+            f"{'shared' if shared else 'device'} memory): bit-exact against "
+            "the plain version and the index_add_ path, two launches "
+            "bit-identical")
+    return len(cases)
+
+
+def scene_tile_counts_args(cfg, seed, dev, split=False):
+    """tile_counts' arguments in the binning of the first pose of cfg's
+    viewing path (the benchmark's seeded scene), at the budget a
+    FrameServer settles there; split: at a budget that ends inside a
+    primitive.  Returns (the arguments, nv, num_rendered)."""
+    import torch
+
+    from reduced3dgs_torch.cameras import Camera
+    from reduced3dgs_torch.ops import binning as tbin
+    from reduced3dgs_torch.render import render_once, settle_budget
+    from splatbench import scene
+
+    pv = spill_scene(cfg, seed, dev)
+    R, T, _ = scene.viewing_path(cfg, seed, SPILL_PATH)[0]
+    cp = Camera(uid=0, colmap_id=0, R=R, T=T,
+                fov_x=math.radians(cfg["assumed"]["fov_x_deg"]),
+                fov_y=scene.fov_y(cfg), image=None, image_name="00000",
+                width=cfg["width"], height=cfg["height"]).params(dev)
+    bg = torch.zeros(3, device=dev)
+    budget, rendered = settle_budget(pv, [cp], bg, 1 << 20)
+    if split:
+        budget = rendered // 2
+    seen, real = [], tbin.tile_counts
+
+    def spy(*a):
+        seen.append(a)
+        return real(*a)
+
+    tbin.tile_counts = spy
+    try:
+        render_once(pv, cp, bg, budget)
+    finally:
+        tbin.tile_counts = real
+    (args,) = seen
+    return args, int(args[3]), rendered
+
+
+def tile_counts_timing(dev, seed, smi, say=_say):
+    """The kernel at the benchmark scenes' binnings (m360_full and
+    tnt_reduced_dense, 2^22 and 2^20 rows), settled and split: its ms (a
+    replayed graph, best of 3 windows) beside the bytes bound (the bytes
+    the work needs: each row's offset, since a count is the difference
+    of two offsets, the rect word of each row that adds, the counts
+    written once), the plain version's ms (eager, CUDA events) and the
+    index_add_ path's (library_ms, a replayed graph); all three bit for
+    bit.  Returns {size: {...}}."""
+    import torch
+
+    from reduced3dgs_torch import graphs
+    from reduced3dgs_torch.ops import binning as tbin
+
+    res = {}
+    for size, name in (("m360", "m360_full"), ("tnt", "tnt_reduced_dense")):
+        with open(os.path.join(REPO, "splatbench", "configs",
+                               f"{name}.json")) as f:
+            cfg = json.load(f)
+        for split in (False, True):
+            args, nv, rendered = scene_tile_counts_args(cfg, seed, dev, split)
+            p, gx, gy = args[0].shape[0], args[4], args[5]
+            with torch.inference_mode():
+                got = tbin._tile_counts_cuda(*args)
+                want = tbin.tile_counts_plain(*args)
+                lib = tile_counts_index_add(*args)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want) and torch.equal(got, lib),
+                      f"tile counts {name}: kernel, plain and index_add_ "
+                      "differ")
+                ms = {}
+                for row, fn in (("kernel", tbin._tile_counts_cuda),
+                                ("library", tile_counts_index_add)):
+                    run = graphs.runner(lambda fn=fn: fn(*args), dev)
+                    sec, _ = graphs.best_window(run, dev)
+                    ms[row] = sec * 1e3
+                    del run
+                ms["plain"] = time_ms(lambda: tbin.tile_counts_plain(*args),
+                                      5)
+            adds = int(((args[1] > 0) & (args[0] - args[1] < nv)).sum())
+            nbytes = 4 * p + 4 * adds + 4 * gx * gy
+            least = bound(nbytes, 0)[0]
+            key = f"{size}{'_split' if split else ''}"
+            res[key] = dict(ms_kernel=ms["kernel"], bound_ms=least,
+                            plain_ms=ms["plain"], library_ms=ms["library"],
+                            rows=p, rows_added=adds, nv=nv,
+                            num_rendered=rendered)
+            say(f"phase 24: {name} ({p} rows, {gx}x{gy} tiles, nv {nv} of "
+                f"{rendered}, {adds} rows add): kernel {ms['kernel']:.4f} "
+                f"ms, bound {least:.4f} ms ({nbytes} B; "
+                f"{100 * least / ms['kernel']:.1f} % of it), plain "
+                f"{ms['plain']:.4f} ms, index_add_ path (library_ms) "
+                f"{ms['library']:.4f} ms; bit for bit; {smi}")
+            del args, got, want, lib
+            torch.cuda.empty_cache()
+    return res
+
+
+def tile_counts_path(dev, seed, smi):
+    """Phase 24: tile_counts_checks and tile_counts_timing; returns the
+    kernel's entry of the kernels line, its times at the m360_full
+    binning at the top level as the other kernels' entries have them."""
+    from reduced3dgs_torch.ops import binning as tbin
+
+    t0 = time.perf_counter()
+    before = tbin.TILE_COUNTS.launches
+    cases = tile_counts_checks(dev)
+    timing = tile_counts_timing(dev, seed, smi)
+    print(f"phase 24: {time.perf_counter() - t0:.3f} s; {cases} cases bit "
+          "for bit", flush=True)
+    m360 = timing["m360"]
+    return {"name": "tile_counts", "route": "cuda",
+            "source": "reduced3dgs_torch/csrc/tile_counts.cu",
+            "replaces": None, "max_abs_err": 0.0, "ms": m360["ms_kernel"],
+            "plain_ms": m360["plain_ms"], "bound_ms": m360["bound_ms"],
+            "bound_by": "bytes", "library_ms": m360["library_ms"],
+            "cases": cases, "timing_ms": timing,
+            "launches_phase24": tbin.TILE_COUNTS.launches - before}
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -9,9 +9,9 @@ two int32 delta columns at the same P positions into B-sized buffers: if
 a complex64 scatter (the two deltas as its real and imaginary parts,
 exact in f32 for |v| < 2^24) costs one scatter, packing them halves it.
 The port has no such scatter on its path: K1 (csrc/expand.cu) writes
-every slot's key directly.  So the rows answer root's question for
-torch's scatter on the card; the port's scatters of this kind are
-ops/binning.py's _tile_counts (four index_add_ into a tile grid).
+every slot's key directly, and csrc/tile_counts.cu adds the tile counts
+in shared memory.  So the rows answer root's question for torch's
+scatter on the card.
 
 Root's draws (default_rng(0): P = 2^19 positions in [0, B), B =
 5,238,784, then two int32 delta columns in [-1000, 1000)) and its three

@@ -29,8 +29,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("expand", "tile_fwd", "tile_bwd", "tile_trans", "seg_reduce",
-           "stamp", "preprocess_fwd")
+SOURCES = ("expand", "tile_counts", "tile_fwd", "tile_bwd", "tile_trans",
+           "seg_reduce", "stamp", "preprocess_fwd")
 
 
 def _nvcc() -> str:
@@ -119,6 +119,13 @@ def _library(name: str, defines: tuple = ()) -> ctypes.CDLL:
     lib.r3dgs_error_string.restype = ctypes.c_char_p
     lib.r3dgs_error_string.argtypes = [ctypes.c_int]
     return lib
+
+
+def int_constant(source: str, symbol: str) -> int:
+    """What the C function `symbol` of ``csrc/<source>.cu`` (no arguments,
+    returning int) returns: a constant of the source, read from its build
+    (so it builds the source)."""
+    return int(getattr(_library(source), symbol)())
 
 
 class Kernel:

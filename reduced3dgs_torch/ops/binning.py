@@ -8,8 +8,10 @@ instance budget B:
     sort on the f32 depth bits viewed as int32), so within a tile depth
     order equals rank order,
   * per-tile instance counts come from a 2-D difference array over the
-    tile grid (integer-exact), plus the row-major partial rect of the one
-    primitive the budget splits,
+    tile grid (integer-exact) of the rows that add: every rect that fits
+    whole, and the row-major partial rect of the one primitive the budget
+    splits; on a card in one kernel (csrc/tile_counts.cu), whose plain
+    version ``tile_counts_plain`` the CPU runs,
   * the K-aligned relocation (every tile's range starts at a multiple of
     ALIGN) rides the ONE B-sized sort, on an int64 key tile*(P+1)+rank:
     synthetic padding instances carry (tile, P) keys and sort into each
@@ -30,6 +32,7 @@ import torch
 
 from reduced3dgs_torch.ops import _cuda
 from reduced3dgs_torch.ops.preprocess import PreprocessOut, tile_grid
+from reduced3dgs_torch.utils import profiling
 
 ALIGN = 128  # must equal tile_render.K (kernel batch width)
 CHUNK_GROUP = 8  # B_pad is a multiple of ALIGN*CHUNK_GROUP
@@ -253,23 +256,103 @@ def bin_keys(offsets, counts, rectpack, pad_start, nv, grid_x: int,
 
 
 # ---------------------------------------------------------------------------
-# bin_gaussians
+# per-tile instance counts
 # ---------------------------------------------------------------------------
 
-def _tile_counts(x0, x1, y0, y1, include, grid_x, grid_y):
-    """(grid_y, grid_x) int64 count of included rects covering each tile,
-    by a 2-D difference array (integer-exact)."""
-    dev = x0.device
-    diff = torch.zeros((grid_y + 1) * (grid_x + 1), dtype=torch.int64,
-                       device=dev)
-    inc = include.long()
-    stride = grid_x + 1
-    for yy, xx, sign in ((y0, x0, 1), (y0, x1, -1), (y1, x0, -1),
-                         (y1, x1, 1)):
-        diff.index_add_(0, (yy.long() * stride + xx.long()), inc * sign)
-    d2 = diff.reshape(grid_y + 1, grid_x + 1)
-    return torch.cumsum(torch.cumsum(d2, dim=0), dim=1)[:grid_y, :grid_x]
+TILE_COUNTS = _cuda.Kernel("tile_counts", "tile_counts_launch", [
+    _cuda.ctypes.c_void_p, _cuda.ctypes.c_void_p, _cuda.ctypes.c_void_p,
+    _cuda.ctypes.c_int, _cuda.ctypes.c_void_p, _cuda.ctypes.c_int,
+    _cuda.ctypes.c_int, _cuda.ctypes.c_void_p, _cuda.ctypes.c_void_p,
+    _cuda.ctypes.c_void_p])
 
+
+def tile_counts_shared(grid_x: int, grid_y: int) -> bool:
+    """Whether csrc/tile_counts.cu keeps this grid's difference array in
+    shared memory (else in device memory); builds the kernel."""
+    return 4 * (grid_x + 1) * (grid_y + 1) <= _cuda.int_constant(
+        "tile_counts", "tile_counts_smem_limit")
+
+
+def tile_counts_plain(offsets, counts, rectpack, nv, grid_x: int,
+                      grid_y: int):
+    """Plain version of csrc/tile_counts.cu: the (grid_y * grid_x,) int32
+    instance count of every tile, row-major.
+
+    offsets/counts/rectpack: (P,) int32 in depth-rank order (inclusive
+    prefix sums of the counts, the counts, the rect words); nv: (1,) int32
+    instances that fit.  The kernel's arithmetic: rows that add nothing
+    (count 0, or first instance at or past nv) are skipped; every other
+    row adds the rect of its first fr = q // w tile rows, q = min(count,
+    nv - start) its instances that fit, to a (grid_y + 1) x (grid_x + 1)
+    difference array, and the one row the budget splits (q < count) also
+    its partial tile row of q - fr w tiles; the counts are the array's
+    2-D prefix sums (integer-exact).
+    """
+    n = nv.reshape(())
+    start = offsets - counts
+    rows = torch.nonzero((counts > 0) & (start < n)).flatten()
+    rect, cnt = rectpack[rows], counts[rows]
+    x0, y0, w = rect >> 20, (rect >> 10) & 1023, (rect & 1023) + 1
+    q = torch.minimum(cnt, n - start[rows])
+    fr = torch.div(q, w, rounding_mode="floor")
+    stride = grid_x + 1
+    top, mid = y0 * stride + x0, (y0 + fr) * stride + x0
+    split = q < cnt
+    m2, rem = mid[split], (q - fr * w)[split]
+    corners = [(top, 1), (top + w, -1), (mid, -1), (mid + w, 1),
+               (m2, 1), (m2 + rem, -1), (m2 + stride, -1),
+               (m2 + stride + rem, 1)]
+    diff = torch.zeros((grid_y + 1) * stride, dtype=torch.int32,
+                       device=offsets.device)
+    diff.index_add_(0, torch.cat([a for a, _ in corners]).long(),
+                    torch.cat([torch.full_like(a, v) for a, v in corners]))
+    d2 = diff.reshape(grid_y + 1, stride)
+    d2 = torch.cumsum(torch.cumsum(d2, dim=0, dtype=torch.int32), dim=1,
+                      dtype=torch.int32)
+    return d2[:grid_y, :grid_x].reshape(-1)
+
+
+def _tile_counts_cuda(offsets, counts, rectpack, nv, grid_x: int,
+                      grid_y: int):
+    for t in (offsets, counts, rectpack, nv):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError("tile_counts: inputs must be contiguous int32")
+        if t.device != offsets.device:
+            raise ValueError("tile_counts: inputs must share one device")
+    p = offsets.shape[0]
+    if counts.shape != (p,) or rectpack.shape != (p,) or nv.numel() != 1 \
+            or not (0 < grid_x <= 1024 and 0 <= grid_y <= 1024):
+        raise ValueError("tile_counts: (P,) offsets / counts / rectpack, "
+                         "one nv, a grid of at most 1024 x 1024 tiles")
+    dev = offsets.device
+    n_diff = (grid_y + 1) * (grid_x + 1)
+    # the difference array, the last block's ticket, the rows that added
+    scratch = torch.zeros(n_diff + 2, dtype=torch.int32, device=dev)
+    out = torch.empty(grid_y * grid_x, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        TILE_COUNTS(_cuda.ptr(offsets), _cuda.ptr(counts),
+                    _cuda.ptr(rectpack), p, _cuda.ptr(nv), grid_x, grid_y,
+                    _cuda.ptr(scratch), _cuda.ptr(out),
+                    _cuda.stream_of(offsets))
+    profiling.count("tile_counts_rows", scratch[-1])
+    return out
+
+
+def tile_counts(offsets, counts, rectpack, nv, grid_x: int, grid_y: int):
+    """Per-tile counts: the CUDA kernel on a CUDA tensor (recording the
+    rows that added under the device counter "tile_counts_rows"), the
+    plain version on a CPU tensor (no fallback between them)."""
+    args = (offsets, counts, rectpack, nv, grid_x, grid_y)
+    if offsets.device.type == "cuda":
+        return _tile_counts_cuda(*args)
+    if offsets.device.type == "cpu":
+        return tile_counts_plain(*args)
+    raise ValueError(f"tile_counts: unsupported device {offsets.device}")
+
+
+# ---------------------------------------------------------------------------
+# bin_gaussians
+# ---------------------------------------------------------------------------
 
 def bin_gaussians(prep: PreprocessOut, width: int, height: int,
                   budget: int, tile_rows=None) -> BinningOut:
@@ -319,43 +402,13 @@ def bin_gaussians(prep: PreprocessOut, width: int, height: int,
     prim_inv = torch.empty(p, dtype=i32, device=dev)
     prim_inv[order] = torch.arange(p, dtype=i32, device=dev)
 
-    rw_p = (rectpack & 1023) + 1
-    x0 = rectpack >> 20
-    y0 = (rectpack >> 10) & 1023
-    x1 = torch.where(counts > 0, x0 + rw_p, x0)
-    y1 = y0 + torch.where(counts > 0, torch.div(counts, rw_p,
-                                                rounding_mode="floor"), 0)
     offsets = torch.cumsum(counts, dim=0, dtype=i32)  # inclusive
     num_rendered = offsets[-1] if p > 0 else i32t(0)
     nv = torch.clamp(num_rendered, max=budget)
+    nv1 = nv.reshape(1)
 
-    # --- per-tile counts ----------------------------------------------
-    full = offsets <= nv  # every instance of the primitive fits
-    count2d = _tile_counts(x0, x1, y0, y1, full & (counts > 0),
-                           grid_x, grid_y)
-    # at most one boundary primitive is split by the budget: its first q
-    # instances (row-major over its rect) are included
-    if p > 0:
-        p_star = full.sum()
-        # gathered by index_select: indexing with a 0-dim tensor would
-        # read it on the host (a sync, and no CUDA graph capture)
-        ps = torch.clamp(p_star, max=p - 1).reshape(1)
-        xs0, xs1, ys0, off_ps, cnt_ps = torch.stack(
-            [x0, x1, y0, offsets, counts]).index_select(1, ps)[:, 0]
-        q = nv - (off_ps - cnt_ps)
-        has_partial = (p_star < p) & (q > 0) & (cnt_ps > 0)
-        w = torch.clamp(xs1 - xs0, min=1)
-        fr = torch.div(q, w, rounding_mode="floor")
-        rem = q - fr * w
-        iy = torch.arange(grid_y, dtype=i32, device=dev)
-        ix = torch.arange(grid_x, dtype=i32, device=dev)
-        yfull = ((iy >= ys0) & (iy < ys0 + fr)).long()
-        xfull = ((ix >= xs0) & (ix < xs1)).long()
-        yrow = (iy == ys0 + fr).long()
-        xrem = ((ix >= xs0) & (ix < xs0 + rem)).long()
-        corr = yfull[:, None] * xfull[None, :] + yrow[:, None] * xrem[None, :]
-        count2d = count2d + has_partial.long() * corr
-    tcounts = count2d.reshape(num_tiles).to(i32)
+    # --- per-tile counts (integer-exact) ------------------------------
+    tcounts = tile_counts(offsets, counts, rectpack, nv1, grid_x, grid_y)
 
     # --- K-aligned relocation rides the one sort ----------------------
     padded = ((tcounts + ALIGN - 1) // ALIGN) * ALIGN
@@ -372,9 +425,8 @@ def bin_gaussians(prep: PreprocessOut, width: int, height: int,
     # the keys); pads and truncated slots carry rank P and sort past every
     # real instance of their tile.  No ties among real instances.
     pp1 = p + 1
-    key_a = torch.sort(bin_keys(
-        offsets, counts.contiguous(), rectpack.contiguous(), pad_start,
-        nv.reshape(1).contiguous(), grid_x, budget, b_pad)).values
+    key_a = torch.sort(bin_keys(offsets, counts, rectpack, pad_start, nv1,
+                                grid_x, budget, b_pad)).values
     tile_a = torch.div(key_a, pp1, rounding_mode="floor")
     gauss_u = key_a - tile_a * pp1
     gauss_a = torch.where(gauss_u == p, _MAXI, gauss_u).to(i32)

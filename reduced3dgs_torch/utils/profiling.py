@@ -62,8 +62,12 @@ STAGES = ("shade",) + TRAIN_STAGES + (END,)
 # pads spill into the budget's unused slots), SPILLED, the pads laid past
 # the pool where the layout fits in b_pad, and PAD_SPILL, those per mille
 # of the pool; the rows that csrc/preprocess_fwd.cu found visible,
-# stamped only where a render took that kernel (its count: those renders)
-COUNTERS = ("num_rendered", "total_padded", "preprocess_fused")
+# stamped only where a render took that kernel (its count: those renders);
+# the rows that csrc/tile_counts.cu added to binning's difference array
+# (those that fit whole and the one the budget splits), stamped by every
+# binning on a card
+COUNTERS = ("num_rendered", "total_padded", "preprocess_fused",
+            "tile_counts_rows")
 PAD_NEED = "pad_need_permille"
 SPILLED = "pads_spilled"
 PAD_SPILL = "pad_spill_permille"

@@ -56,6 +56,9 @@ def plain_counting(setattr):
     setattr(ttr, "_seg_reduce_cuda", ttr.seg_reduce_plain)
     setattr(ttr, "_tile_trans_cuda", ttr.tile_trans_plain)
     setattr(tbin, "_bin_keys_cuda", tbin.bin_keys_plain)
+    setattr(tbin, "_tile_counts_cuda", tbin.tile_counts_plain)
+    setattr(tbin, "tile_counts_plain", _counting(tbin.tile_counts_plain,
+                                                 tbin.TILE_COUNTS))
     setattr(ttr, "tile_trans_plain", _counting(ttr.tile_trans_plain,
                                                ttr.TILE_TRANS))
     setattr(tbin, "bin_keys_plain", _counting(tbin.bin_keys_plain,

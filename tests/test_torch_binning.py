@@ -204,3 +204,54 @@ def test_bin_keys_search_on_binning_scenes(name, monkeypatch):
     tbin.bin_gaussians(prep, width, height, budget)
     (args,) = seen
     assert torch.equal(keys_by_search(*args), tbin.bin_keys_plain(*args))
+
+
+TILE_COUNTS_CASES = cs.tile_counts_cases()
+
+
+@pytest.mark.parametrize("idx", range(len(TILE_COUNTS_CASES)),
+                         ids=[f"{i}-{c[0]}" for i, c in
+                              enumerate(TILE_COUNTS_CASES)])
+def test_tile_counts_plain_matches_index_add(idx):
+    """csrc/tile_counts.cu's plain version (rows that add nothing skipped,
+    the split row as two rects) against the four-index_add_ formulation
+    it replaced, bit for bit; the CPU dispatch is the plain version."""
+    name, case = TILE_COUNTS_CASES[idx]
+    kw = {k: torch.as_tensor(v) if isinstance(v, np.ndarray) else v
+          for k, v in case.items()}
+    want = cs.tile_counts_index_add(**kw)
+    got = tbin.tile_counts_plain(**kw)
+    assert got.dtype == torch.int32
+    assert got.shape == (case["grid_x"] * case["grid_y"],)
+    assert torch.equal(got, want), name
+    # every instance that fits lands on one tile
+    assert int(got.sum()) == int(case["nv"][0])
+    before = tbin.TILE_COUNTS.launches
+    assert torch.equal(tbin.tile_counts(**kw), want)
+    assert tbin.TILE_COUNTS.launches == before
+
+
+@pytest.mark.parametrize("tile_rows", [None, (2, 3), (4, 4)])
+@pytest.mark.parametrize("name", ["scene", "scene_overflow",
+                                  "synthetic_truncated"])
+def test_tile_counts_on_binning_scenes(name, tile_rows, monkeypatch):
+    """The counts of bit-identity scenes (and strip windows of them, whose
+    rects arrive clipped in rectpack), as bin_gaussians asks for them:
+    the plain version against the index_add_ formulation."""
+    build, width, height, budget = CASES[name]
+    prep = tprep.PreprocessOut(*(torch.as_tensor(np.array(a))
+                                 for a in build()))
+    seen = []
+    plain = tbin.tile_counts
+
+    def spy(*a):
+        seen.append(a)
+        return plain(*a)
+
+    monkeypatch.setattr(tbin, "tile_counts", spy)
+    tbin.bin_gaussians(prep, width, height, budget, tile_rows=tile_rows)
+    (args,) = seen
+    if tile_rows is not None:
+        assert args[5] == tile_rows[1]
+    assert torch.equal(tbin.tile_counts_plain(*args),
+                       cs.tile_counts_index_add(*args))

@@ -3,10 +3,11 @@
 Marked `gpu`: each test decides inside itself (through the `cuda` fixture)
 whether a card is present and skips with a reason where there is none.
 Run them on a machine with a card with `python -m pytest
-tests/test_torch_gpu.py -n 0`.  K1 (binning's slot keys) must be
+tests/test_torch_gpu.py -n 0`.  K1 (binning's slot keys) and the tile
+counts (csrc/tile_counts.cu, in shared and in device memory) must be
 bit-exact, and binning on the card must give the CPU's BinningOut bit for
-bit; K2 within 5e-3 on every value and 1e-4 on >= 99.9 % of them: the
-walks take their exponent as ex2.approx (WALK_EXP2 1, kept by chip_smoke's
+bit, with one launch of each a binning; K2 within 5e-3 on every value
+and 1e-4 on >= 99.9 % of them: the walks take their exponent as ex2.approx (WALK_EXP2 1, kept by chip_smoke's
 rule: the 1080p ring's frames of the ex2 and the expf builds agree to >=
 120 dB, and 30 of its 16.6 M pixels are more than 2e-5 from the plain
 version, the largest by 1.9e-3), so a sequential walk and the vectorised
@@ -80,13 +81,37 @@ def test_bin_gaussians_on_card_matches_cpu(cuda):
                                   (0.01, 0.05), 1 << 17)
     for budget in (1 << 17, 1 << 13):  # room to spare, truncated
         want = binning.bin_gaussians(prep, 200, 136, budget)
-        before = binning.EXPAND.launches
+        before = (binning.EXPAND.launches, binning.TILE_COUNTS.launches)
         got = binning.bin_gaussians(type(prep)(*(t.to(cuda) for t in prep)),
                                     200, 136, budget)
-        assert binning.EXPAND.launches == before + 1
+        assert (binning.EXPAND.launches,
+                binning.TILE_COUNTS.launches) == (before[0] + 1,
+                                                  before[1] + 1)
         for field in want._fields:
             assert torch.equal(getattr(got, field).cpu(),
                                getattr(want, field)), field
+
+
+def test_tile_counts_kernel_bit_exact(cuda):
+    """csrc/tile_counts.cu against its plain version, bit for bit, one
+    launch a call: chip_smoke.tile_counts_cases with its big cases (2^22
+    seeded rows at 1237x822, and a grid past the shared-memory limit, so
+    that the device-memory variant runs), each whole and split."""
+    import chip_smoke as cs
+    from reduced3dgs_torch.ops import binning
+
+    paths = set()
+    for name, case in cs.tile_counts_cases(big=True):
+        kw = {k: torch.as_tensor(v, device=cuda)
+              if isinstance(v, np.ndarray) else v for k, v in case.items()}
+        before = binning.TILE_COUNTS.launches
+        got = binning.tile_counts(**kw)
+        assert binning.TILE_COUNTS.launches == before + 1
+        want = binning.tile_counts_plain(**kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), name
+        paths.add(binning.tile_counts_shared(case["grid_x"], case["grid_y"]))
+    assert paths == {True, False}
 
 
 def test_tile_fwd_kernel_matches_plain(cuda):

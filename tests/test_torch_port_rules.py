@@ -102,13 +102,15 @@ def test_kernel_wrappers_never_fall_back():
     or raise; here a 'meta' tensor must raise, not run a plain version."""
     from reduced3dgs_torch.ops import binning, tile_render
 
-    kernels = (binning.EXPAND, tile_render.TILE_FWD, tile_render.TILE_BWD,
-               tile_render.TILE_TRANS, tile_render.SEG_REDUCE_F32,
-               tile_render.SEG_REDUCE_PACKED)
+    kernels = (binning.EXPAND, binning.TILE_COUNTS, tile_render.TILE_FWD,
+               tile_render.TILE_BWD, tile_render.TILE_TRANS,
+               tile_render.SEG_REDUCE_F32, tile_render.SEG_REDUCE_PACKED)
     before = [k.launches for k in kernels]
     meta = torch.empty(8, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         binning.bin_keys(meta, meta, meta, meta[:5], meta[:1], 2, 16, 32)
+    with pytest.raises(ValueError, match="unsupported device"):
+        binning.tile_counts(meta, meta, meta, meta[:1], 4, 3)
     feat = torch.empty((9, 128), device="meta")
     ranges = torch.empty((2, 1), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -242,7 +244,7 @@ def test_library_path_follows_included_headers(tmp_path, monkeypatch):
     after = {n: _cuda.library_path(n) for n in _cuda.SOURCES}
     for n in ("tile_fwd", "tile_bwd", "tile_trans"):
         assert after[n] != before[n]
-    for n in ("expand", "seg_reduce"):
+    for n in ("expand", "tile_counts", "seg_reduce"):
         assert after[n] == before[n]
     with open(csrc / "tile_fwd.cu", "ab") as f:
         f.write(b"\n// edited\n")

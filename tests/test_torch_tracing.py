@@ -12,7 +12,8 @@ and the device counters equal the binnings' own values read on the host
 The cases marked `gpu` (run on a card: `python -m pytest
 tests/test_torch_tracing.py --noconftest -o addopts= -p no:cacheprovider`)
 hold the device ring: a replayed StepGraph and a graphs.runner frame
-stamp only while tracing is on, and a full ring counts what it drops.
+stamp only while tracing is on, the tile counts' tile_counts_rows once a
+replayed frame, and a full ring counts what it drops.
 This file imports no JAX.
 """
 
@@ -158,6 +159,18 @@ def test_every_view_stage_once_per_frame_in_order(how, variable_sh):
     assert c["num_rendered"]["sum"] == sum(int(o.num_rendered) for o in outs)
     assert 0 < c["pad_need_permille"]["max"] < 1000
     assert c["total_padded"]["max"] % 128 == 0
+
+
+def test_tile_counts_rows_absent_on_the_cpu():
+    """The plain version of the tile counts records no counter: only a
+    card's kernel stamps tile_counts_rows."""
+    pv = _pool_view("cpu", False)
+    cam = cs.ring_cameras(SCENE["width"], SCENE["height"], n_views=1)[0]
+    with profiling.enable():
+        render_view(pv, cam, torch.zeros(3), BUDGET)
+    counters = profiling.snapshot()["counters"]
+    assert counters["num_rendered"]["count"] == 1
+    assert "tile_counts_rows" not in counters
 
 
 def test_the_pad_need_is_folded_from_a_renders_two_counters():
@@ -366,8 +379,36 @@ def test_a_full_device_ring_counts_what_it_drops(cuda, monkeypatch):
             for _ in range(2):
                 render_once(pv, cp, torch.zeros(3, device=cuda), BUDGET)
         snap = profiling.snapshot()
-        # four boundaries and three counters a render (binning's two
-        # and the fused preprocess's)
-        assert snap["stamps_dropped"] == 2 * 7 - 8
+        # four boundaries and four counters a render (binning's two, the
+        # tile counts' and the fused preprocess's)
+        assert snap["stamps_dropped"] == 2 * 8 - 8
     finally:
         profiling._REG.rings.clear()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("budget", [BUDGET, 1 << 9])  # ample; splits one
+def test_tile_counts_rows_once_a_replayed_frame(cuda, budget):
+    """tile_counts_rows on a replayed frame graph: once a replay, its sum
+    the rows csrc/tile_counts.cu added -- the ranks with instances that
+    fit (a nonempty segment), the rows that fit whole and the one the
+    budget splits."""
+    from reduced3dgs_torch import graphs
+
+    pv = _pool_view(cuda, False)
+    cp = cs.ring_cameras(SCENE["width"], SCENE["height"],
+                         n_views=1)[0].params(cuda)
+    bg = torch.zeros(3, device=cuda)
+    with cs.binning_spy() as seen:
+        run = graphs.runner(lambda: render_once(pv, cp, bg, budget), cuda)
+    profiling.reset()
+    with profiling.enable():
+        for _ in range(3):
+            run.replay()
+    got = profiling.snapshot()["counters"]["tile_counts_rows"]
+    nr, _, _, _, sb = seen[-1]
+    seg = (sb[1:] - sb[:-1]).cpu()
+    rows = int((seg > 0).sum())
+    assert got == {"sum": 3 * rows, "max": rows, "count": 3}
+    # the truncated frame's instances end at the budget, inside a row
+    assert int(sb[-1]) == min(budget, int(nr))
