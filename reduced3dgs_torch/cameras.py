@@ -3,7 +3,8 @@
 Counterpart of reduced3dgs_tpu/cameras.py: stores the *transposed*
 world-view and full-projection matrices (row-vector convention),
 znear=0.01 / zfar=100, and the camera center; ``params(device)`` returns
-the torch CameraParams bundle on that device.
+the torch CameraParams bundle on that device, ``camera_vector`` the
+pose a replayed graph reads from a device vector (``camera_from_vector``).
 """
 
 from __future__ import annotations
@@ -21,6 +22,9 @@ from reduced3dgs_torch.ops.transforms import projection_matrix, world_to_view
 
 ZNEAR = 0.01
 ZFAR = 100.0
+# camera_vector's length: viewmatrix 16, projmatrix 16, campos 3,
+# tan_fovx, tan_fovy
+CAMERA_VEC = 37
 
 
 @dataclass
@@ -96,3 +100,21 @@ class Camera:
             uid=uid, colmap_id=uid, R=R, T=T, fov_x=fov_x, fov_y=fov_y,
             image=image, image_name=image_name, width=width, height=height,
         )
+
+
+def camera_vector(camera) -> np.ndarray:
+    """The camera's float32 (CAMERA_VEC,) vector."""
+    return np.concatenate([
+        np.asarray(camera.world_view_transform, np.float32).reshape(16),
+        np.asarray(camera.full_proj_transform, np.float32).reshape(16),
+        np.asarray(camera.camera_center, np.float32).reshape(3),
+        np.float32([camera.tan_fovx, camera.tan_fovy])])
+
+
+def camera_from_vector(vec, width: int, height: int) -> CameraParams:
+    """CameraParams as views of a vector whose first CAMERA_VEC floats
+    are a camera_vector (no copy)."""
+    return CameraParams(
+        viewmatrix=vec[0:16].view(4, 4), projmatrix=vec[16:32].view(4, 4),
+        campos=vec[32:35], tan_fovx=vec[35], tan_fovy=vec[36],
+        width=width, height=height)

@@ -148,7 +148,7 @@ def scaling_bench(widths=(512,), n_prims=1 << 15, budget=1 << 18, iters=5,
     Returns [((n_data, n_tile), pixels_per_s), ...]."""
     import numpy as np
 
-    from reduced3dgs_torch.cameras import Camera
+    from reduced3dgs_torch.cameras import Camera, camera_vector
     from reduced3dgs_torch.config import OptimizationParams
     from reduced3dgs_torch.device import resolve
     from reduced3dgs_torch.graphs import time_replays
@@ -158,7 +158,7 @@ def scaling_bench(widths=(512,), n_prims=1 << 15, budget=1 << 18, iters=5,
     )
     from reduced3dgs_torch.train import adam
     from reduced3dgs_torch.train.trainer import (
-        StepGraph, StepLoop, TrainState, _xyz_lr, camera_vector,
+        StepGraph, StepLoop, TrainState, _xyz_lr,
     )
 
     world = dist.get_world_size() if dist.is_initialized() else 1

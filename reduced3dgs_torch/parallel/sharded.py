@@ -58,6 +58,7 @@ import math
 import torch
 import torch.distributed as dist
 
+from reduced3dgs_torch.cameras import camera_from_vector
 from reduced3dgs_torch.config import OptimizationParams
 from reduced3dgs_torch.models.gaussians import (
     GaussianParams, one_up_sh_degree,
@@ -69,11 +70,12 @@ from reduced3dgs_torch.ops.preprocess import TILE_Y, tile_grid
 from reduced3dgs_torch.ops.tile_render import (
     tile_render, transmittance_by_primitive,
 )
+from reduced3dgs_torch.renderer import overflow_report
 from reduced3dgs_torch.train import adam
 from reduced3dgs_torch.train import trainer as trainer_mod
 from reduced3dgs_torch.train.trainer import (
     VEC_ADAM, VEC_BG, TrainState, Trainer, _xyz_lr, adam_scalars,
-    camera_from_vector, make_lr_tree,
+    make_lr_tree,
 )
 
 # PreprocessOut fields gathered over the tile group: floats (those with a
@@ -85,6 +87,10 @@ _INT_FIELDS = (("radii", 1), ("rect_min", 2), ("rect_max", 2),
 # a sharded step's metrics as a fused step's buffers hold them: the float
 # ones, then the int32 ones with the budget's demand first
 SHARDED_METRICS = (("loss", "l1"), ("num_rendered_max", "num_alive"))
+# run_sharded_step_with_regrow: the budget's factor a growth, and the most
+# growths before it gives up
+REGROW_GROWTH = 2
+REGROW_MAX = 24
 
 
 class Mesh:
@@ -313,11 +319,7 @@ def sharded_train_step(state: TrainState, cams, gts, background, iteration,
                                   tile_rows=(r0, rows_per))
     strip = tile_render(prep, b, background, width, height,
                         tile_rows=(r0, rows_per), grad_reduce=grad_reduce)[0]
-    # the strip's demand, the slack-pool overflow folded in as
-    # renderer.render does
-    num_rendered = torch.where(
-        b.total_padded > b.gauss_aligned.shape[0],
-        torch.clamp(b.num_rendered, min=budget + 1), b.num_rendered)
+    num_rendered = overflow_report(b, budget)  # the strip's demand
 
     y0, n_rows = r0 * TILE_Y, rows_per * TILE_Y
     gt_pad = torch.cat([gt, gt.new_zeros((nt * n_rows - height,)
@@ -432,17 +434,18 @@ def sharded_fused_step(buf, *, mesh: Mesh, param_shard: bool, width,
 
 def run_sharded_step_with_regrow(state, cams, gts, background, iteration, *,
                                  mesh, width, height, budget, opt_cfg,
-                                 spatial_lr_scale, growth=2,
-                                 param_shard=False, skip_update=False,
-                                 grad_reduce="f32", max_doublings=24,
+                                 spatial_lr_scale, param_shard=False,
+                                 skip_update=False, grad_reduce="f32",
                                  adam_scalars=None):
     """The single-card overflow contract on the mesh: where a strip's
-    demand exceeded the budget, multiply the budget by `growth` until it
-    covers the demand and redo the step from the same state; at most
-    max_doublings growths, then RuntimeError.  Returns (state, metrics,
-    budget) (+ grads with skip_update)."""
+    demand exceeded the budget, multiply the budget by REGROW_GROWTH
+    until it covers the demand and redo the step from the same state; at
+    most REGROW_MAX growths, then RuntimeError.  Returns (state, metrics,
+    budget) (+ grads with skip_update).  It doubles, not climbs
+    renderer.next_budget's ladder: that is the JAX package's mesh contract
+    (reduced3dgs_tpu/parallel/sharded.py), which the mesh tests compare."""
     needed = None
-    for _ in range(max_doublings + 1):
+    for _ in range(REGROW_MAX + 1):
         out = sharded_train_step(
             state, cams, gts, background, iteration, mesh=mesh, width=width,
             height=height, budget=budget, opt_cfg=opt_cfg,
@@ -453,9 +456,9 @@ def run_sharded_step_with_regrow(state, cams, gts, background, iteration, *,
         if needed <= budget:
             return (out[0], out[1], budget) + tuple(out[2:])
         while budget < needed:
-            budget *= growth
+            budget *= REGROW_GROWTH
     raise RuntimeError(
-        f"instance-budget regrowth did not converge after {max_doublings} "
+        f"instance-budget regrowth did not converge after {REGROW_MAX} "
         f"growths (budget={budget}, demand={needed})")
 
 
@@ -812,8 +815,7 @@ class ShardedTrainer(Trainer):
         self.state, metrics, new_budget = out[0], out[1], out[2]
         pending = out[3] if len(out) > 3 else None
         for c in cams:
-            if new_budget > self._budget_for(c.uid):
-                self._budget_for(c.uid, new_budget)
+            self._budget_for(c.uid, new_budget)
 
         if surgery or iteration in self.cull_sh_iterations:
             self._surgery(iteration, pending, final)

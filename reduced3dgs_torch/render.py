@@ -22,8 +22,9 @@ spans and the counters: the binning's pad need against its slack pool,
 budget redos, graph captures).
 
 The instance budget climbs the {2^k, 3*2^(k-1)} ladder until the views'
-true instance counts fit; the FPS ring then renders every view at one
-budget, on the card as a replayed CUDA graph of all its frames.
+true instance counts fit (renderer.fit); the FPS ring then renders
+every view at one budget, on the card as a replayed CUDA graph of all
+its frames.
 --variable_sh_bands reorders each loaded pool by SH degree once and
 shades from one packed coefficient block per band
 (models/variable_sh.py); the colours enter the renderer as
@@ -39,6 +40,11 @@ from argparse import ArgumentParser
 import numpy as np
 import torch
 
+from reduced3dgs_torch.cameras import (
+    CAMERA_VEC, camera_from_vector, camera_vector,
+)
+# next_budget: the ladder is renderer's; importable from here as before
+from reduced3dgs_torch.renderer import fit, next_budget, render  # noqa: F401
 from reduced3dgs_torch.utils import profiling
 
 MODELS_CONFIG = {
@@ -51,14 +57,6 @@ MODELS_CONFIG = {
 FPS_START_BUDGET = 1 << 15
 FPS_MIN_FRAMES = 32  # the views repeat to at least this many timed frames
 VIEW_START_BUDGET = 1 << 19
-
-
-def next_budget(budget: int, needed: int) -> int:
-    """Climb the {2^k, 3*2^(k-1)} ladder until budget >= needed."""
-    while budget < needed:
-        budget = (budget // 2 * 3 if budget & (budget - 1) == 0
-                  else budget // 3 * 4)
-    return budget
 
 
 class PoolView:
@@ -90,8 +88,6 @@ def render_once(pv: PoolView, cp, background, budget: int,
     """Render one view given its CameraParams on the pool's device: one
     frame of profiling.VIEW_STAGES ("shade" for a ragged pool only), then
     its end."""
-    from reduced3dgs_torch.renderer import render
-
     with torch.inference_mode():
         color_precomp = None
         if pv.ragged is not None:
@@ -114,16 +110,15 @@ def render_view(pv: PoolView, cam, background, budget: int = VIEW_START_BUDGET,
     """Render one view eagerly, redoing it up the budget ladder until it
     fits: its true instance count within the budget and its instances
     with their alignment pads within the binning's slots (renderer.py
-    reports either miss as num_rendered > budget).  Returns (RenderOut,
-    budget used)."""
+    reports either miss as num_rendered > budget; renderer.fit redoes
+    the frame).  Returns (RenderOut, budget used)."""
     cp = cam.params(pv.device)
-    while True:
-        out = render_once(pv, cp, background, budget, backend)
-        needed = int(out.num_rendered)
-        if needed <= budget:
-            return out, budget
-        profiling.add("budget_redos")
-        budget = next_budget(budget, needed)
+
+    def attempt(b):
+        out = render_once(pv, cp, background, b, backend)
+        return out, int(out.num_rendered)
+
+    return fit(attempt, budget)
 
 
 def render_set(pv: PoolView, cams, background, out_dir: str,
@@ -132,7 +127,6 @@ def render_set(pv: PoolView, cams, background, out_dir: str,
     through data/png.py (no Pillow needed): the path's frames served by a
     FrameServer, a new one where the image size changes."""
     from reduced3dgs_torch.data.png import write_png
-    from reduced3dgs_torch.train.trainer import camera_vector
 
     os.makedirs(os.path.join(out_dir, "renders"), exist_ok=True)
     os.makedirs(os.path.join(out_dir, "gt"), exist_ok=True)
@@ -160,19 +154,21 @@ def settle_budget(pv: PoolView, cps, background, budget: int,
     `budget`, climbing the ladder and starting over whenever a view
     needs more (more instances than the budget, or instances and
     alignment pads past the binning's slots: both reported as
-    num_rendered > budget).  Returns (budget, the largest report)."""
-    while True:
-        needed = max(int(render_once(pv, cp, background, budget,
+    num_rendered > budget; renderer.fit redoes it, counted in
+    budget_redos).  Returns (budget, the largest report)."""
+    def attempt(b):
+        needed = max(int(render_once(pv, cp, background, b,
                                      backend).num_rendered) for cp in cps)
-        if needed <= budget:
-            return budget, needed
-        budget = next_budget(budget, needed)
+        return needed, needed
+
+    needed, budget = fit(attempt, budget)
+    return budget, needed
 
 
 class FrameServer:
     """One viewer's frame entry: render_once at a settled budget, captured
     once (graphs.runner: a CUDA graph on a card, a loop on the CPU) and
-    reading its camera from a device vector (train.trainer.camera_vector's
+    reading its camera from a device vector (cameras.camera_vector's
     layout), so that a request costs one pose copy, one replay and one
     host read of num_rendered.
 
@@ -180,16 +176,14 @@ class FrameServer:
     does and captures the frame.  ``frame(pose)`` renders one request: the
     pose row (37 float32; pinned host memory keeps its copy off the
     host's clock) copied into the vector, the replay, the read; a frame
-    that does not fit (renderer.py's report) climbs next_budget's ladder,
-    is captured again and rendered again, each redo counted in
+    that does not fit (renderer.py's report) is redone by renderer.fit:
+    up the ladder, captured again and rendered again, each redo counted in
     budget_redos.  It returns the frame's RenderOut, the graph's outputs,
     which the next frame rewrites.  Spans r3dgs.serve.frame and, inside
     it, .replay / .read (the read waits for the card) / .recapture."""
 
     def __init__(self, pv: PoolView, width: int, height: int, background,
                  budget: int = VIEW_START_BUDGET, backend: str = "tile"):
-        from reduced3dgs_torch.train.trainer import CAMERA_VEC
-
         self.pv = pv
         self.width, self.height = width, height
         self.background = background
@@ -202,8 +196,6 @@ class FrameServer:
     def settle(self, cams):
         """Settle the budget over `cams` (Cameras of this size) and
         capture the frame at it; returns the budget."""
-        from reduced3dgs_torch.train.trainer import camera_vector
-
         cps = [c.params(self.pv.device) for c in cams]
         self.budget, _ = settle_budget(self.pv, cps, self.background,
                                        self.budget, self.backend)
@@ -213,7 +205,6 @@ class FrameServer:
 
     def _capture(self):
         from reduced3dgs_torch import graphs
-        from reduced3dgs_torch.train.trainer import camera_from_vector
 
         cp = camera_from_vector(self.vec, self.width, self.height)
         budget = self.budget
@@ -229,17 +220,18 @@ class FrameServer:
             if self.runner is None:
                 with profiling.span("r3dgs.serve.recapture"):
                     self._capture()
-            while True:
-                with profiling.span("r3dgs.serve.replay"):
-                    self.runner.replay()
-                with profiling.span("r3dgs.serve.read"):
-                    needed = int(self.runner.out.num_rendered)
-                if needed <= self.budget:
-                    return self.runner.out
-                profiling.add("budget_redos")
-                self.budget = next_budget(self.budget, needed)
-                with profiling.span("r3dgs.serve.recapture"):
-                    self._capture()
+            return fit(self._attempt, self.budget)[0]
+
+    def _attempt(self, budget):
+        """fit's attempt: a recapture at a new budget, replay, read."""
+        if budget != self.budget:
+            self.budget = budget
+            with profiling.span("r3dgs.serve.recapture"):
+                self._capture()
+        with profiling.span("r3dgs.serve.replay"):
+            self.runner.replay()
+        with profiling.span("r3dgs.serve.read"):
+            return self.runner.out, int(self.runner.out.num_rendered)
 
 
 def fps_ring(pv: PoolView, cps, background, budget: int,

@@ -16,8 +16,8 @@ Backends:
 
 The per-frame instance count is data-dependent; callers pass a static
 ``instance_budget`` and ``out.num_rendered`` reports the true count, or
-more than the budget where the aligned layout does not fit its slots, so
-the host can grow the budget and redo the frame.
+more than the budget where the aligned layout does not fit its slots
+(``overflow_report``); every entry point redoes an overflow by ``fit``.
 """
 
 from __future__ import annotations
@@ -33,6 +33,37 @@ from reduced3dgs_torch.ops.preprocess import CameraParams
 from reduced3dgs_torch.utils import profiling
 
 BACKENDS = ("tile", "ref")
+
+
+def next_budget(budget: int, needed: int) -> int:
+    """Climb the {2^k, 3*2^(k-1)} ladder until budget >= needed (the
+    slack stays below 25 %)."""
+    while budget < needed:
+        budget = (budget // 2 * 3 if budget & (budget - 1) == 0
+                  else budget // 3 * 4)
+    return budget
+
+
+def overflow_report(b, budget: int):
+    """Binning ``b``'s num_rendered, past ``budget`` also where its
+    instances and alignment pads overflow the b_pad slots (total_padded >
+    b_pad: K1 then keeps the JAX package's layout, which loses the last
+    tiles' pads).  Every layout with total_padded <= b_pad is whole."""
+    return torch.where(b.total_padded > b.gauss_aligned.shape[0],
+                       torch.clamp(b.num_rendered, min=budget + 1),
+                       b.num_rendered)
+
+
+def fit(attempt, budget: int):
+    """Redo ``attempt(budget)`` -> (result, the overflow report as a host
+    int) up next_budget's ladder, each redo counted in budget_redos,
+    until the report fits; returns (result, budget)."""
+    while True:
+        result, needed = attempt(budget)
+        if needed <= budget:
+            return result, budget
+        profiling.add("budget_redos")
+        budget = next_budget(budget, needed)
 
 
 def mark_visible(xyz, cam: CameraParams):
@@ -112,19 +143,10 @@ def render(
                                   tile_rows=tile_rows)
     b_pad = b.gauss_aligned.shape[0]
     aligned = -(-instance_budget // binning_ops.ALIGN) * binning_ops.ALIGN
-    overflow = b.total_padded > b_pad
     profiling.count("num_rendered", b.num_rendered, aux=aligned)
     profiling.count("total_padded", b.total_padded, aux=b_pad - aligned)
     profiling.stage("composite", device)
-    # Overflow report: num_rendered > budget means truncation, and
-    # total_padded > b_pad means the instances and their alignment pads
-    # do not fit in the b_pad slots (K1 then keeps the JAX package's
-    # layout, which loses the last tiles' pads).  Both fold into one
-    # number the regrow loops understand: grow the budget and redo the
-    # frame.  Every layout with total_padded <= b_pad is whole.
-    nr_report = torch.where(
-        overflow, torch.clamp(b.num_rendered, min=instance_budget + 1),
-        b.num_rendered)
+    nr_report = overflow_report(b, instance_budget)
 
     if backend == "ref":
         from reduced3dgs_torch.ops.render_ref import render_ref

@@ -38,6 +38,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from reduced3dgs_torch.cameras import (
+    CAMERA_VEC, camera_from_vector, camera_vector,
+)
 from reduced3dgs_torch.config import OptimizationParams
 from reduced3dgs_torch.graphs import Captured, kernel_counters
 from reduced3dgs_torch.models.gaussians import (
@@ -46,16 +49,14 @@ from reduced3dgs_torch.models.gaussians import (
 )
 from reduced3dgs_torch.ops.losses import abs_jax, l1_loss, ssim
 from reduced3dgs_torch.ops.preprocess import CameraParams
-from reduced3dgs_torch.renderer import render
+from reduced3dgs_torch.renderer import fit, next_budget, render
 from reduced3dgs_torch.train import adam, densify
 from reduced3dgs_torch.train.adam import AdamState
 from reduced3dgs_torch.train.densify import WholeRows
 from reduced3dgs_torch.utils import profiling
 
-# A fused step's input vector: the camera (viewmatrix 16, projmatrix 16,
-# campos 3, tan_fovx, tan_fovy), the background 3, then the 13 Adam
-# scalars of Trainer._adam_scalars.
-CAMERA_VEC = 37  # camera_vector's length
+# A fused step's input vector: the camera (cameras.camera_vector), the
+# background 3, then the 13 Adam scalars of Trainer._adam_scalars.
 VEC_BG = slice(CAMERA_VEC, CAMERA_VEC + 3)
 VEC_ADAM = 40
 STEP_VEC = 53
@@ -185,24 +186,6 @@ def train_step(state: TrainState, cam: CameraParams, gt_image, background,
     if skip_update:
         return state, metrics, grads
     return state, metrics
-
-
-def camera_vector(camera) -> np.ndarray:
-    """The camera part of a fused step's input vector (float32,
-    CAMERA_VEC)."""
-    return np.concatenate([
-        np.asarray(camera.world_view_transform, np.float32).reshape(16),
-        np.asarray(camera.full_proj_transform, np.float32).reshape(16),
-        np.asarray(camera.camera_center, np.float32).reshape(3),
-        np.float32([camera.tan_fovx, camera.tan_fovy])])
-
-
-def camera_from_vector(vec, width: int, height: int) -> CameraParams:
-    """CameraParams as views of a step vector (no copy)."""
-    return CameraParams(
-        viewmatrix=vec[0:16].view(4, 4), projmatrix=vec[16:32].view(4, 4),
-        campos=vec[32:35], tan_fovx=vec[35], tan_fovy=vec[36],
-        width=width, height=height)
 
 
 def adam_scalars(t):
@@ -627,10 +610,10 @@ class Trainer:
                 needed = hist_i[:, 0].cpu().numpy()
             if int(needed.max()) <= budget:
                 break
+            # not renderer.fit: each camera climbs by its own need
             profiling.add("budget_redos")
             for c, n in zip(cams, needed):
-                if int(n) > self._budget_for(c.uid):
-                    self._budget_for(c.uid, int(n))
+                self._budget_for(c.uid, int(n))
         with profiling.span("r3dgs.step_group.unpack"):
             buf = runner.buf
             self.state = buf.advanced(self.state, k)
@@ -685,10 +668,10 @@ class Trainer:
         return graph
 
     def _budget_for(self, cam_uid, needed=None):
-        # {2^k, 3*2^(k-1)} ladder: slack stays below 25 %
-        b = self.budgets.get(cam_uid, self.initial_budget)
-        while needed is not None and needed > b:
-            b = b // 2 * 3 if b & (b - 1) == 0 else b // 3 * 4
+        """The camera's budget, first climbed up renderer.next_budget's
+        ladder to cover `needed`."""
+        b = next_budget(self.budgets.get(cam_uid, self.initial_budget),
+                        needed or 0)
         self.budgets[cam_uid] = b
         return b
 
@@ -748,8 +731,9 @@ class Trainer:
             background = torch.as_tensor(self.rng.uniform(0.0, 1.0, 3),
                                          dtype=torch.float32,
                                          device=self.device)
-        while True:
-            budget = self._budget_for(camera.uid)
+
+        def attempt(budget):
+            # a redo is this step exactly: same camera, same background
             out = train_step(
                 self.state, cp, gt, background, iteration,
                 width=camera.width, height=camera.height, budget=budget,
@@ -758,18 +742,13 @@ class Trainer:
                 skip_update=surgery or final, grad_reduce=self.grad_reduce,
                 adam_scalars=scalars)
             profiling.stage(profiling.END, self.device)
-            st, metrics = out[0], out[1]
-            grads = out[2] if len(out) == 3 else None
-            needed = int(metrics["num_rendered"])
-            if needed <= budget:
-                break
-            # overflow: grow the bucket and redo this step exactly
-            # (same camera, same background)
-            profiling.add("budget_redos")
-            self._budget_for(camera.uid, needed)
-        self.state = st
-        self._surgery(iteration, grads, final)
-        return metrics
+            return out, int(out[1]["num_rendered"])
+
+        out, budget = fit(attempt, self._budget_for(camera.uid))
+        self._budget_for(camera.uid, budget)
+        self.state = out[0]
+        self._surgery(iteration, out[2] if len(out) == 3 else None, final)
+        return out[1]
 
     def _surgery(self, iteration: int, pending, final: bool):
         """What step() does after the backward: the densify / reset /

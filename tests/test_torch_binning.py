@@ -71,11 +71,11 @@ def _scene_prep(eye=(0.3, -0.2, -3.2)):
                             cam.params())
 
 
-def _slack_prep():
-    """One 1-tile splat per tile of an 8x8 grid: the K-alignment slack
+def _slack_prep(gx=8, gy=8):
+    """One 1-tile splat per tile of a gx x gy grid: the K-alignment slack
     need exceeds the statistical pool (total_padded > b_pad)."""
-    n = 64
-    ys, xs = np.meshgrid(np.arange(8), np.arange(8), indexing="ij")
+    n = gx * gy
+    ys, xs = np.meshgrid(np.arange(gy), np.arange(gx), indexing="ij")
     rmin = np.stack([xs.reshape(-1), ys.reshape(-1)], 1).astype(np.int32)
     z = np.zeros((n, 2), np.float32)
     return jprep.PreprocessOut(

@@ -71,6 +71,17 @@ def test_a_pose_over_the_budget_is_redone_once(pv, cams):
     assert int(out.num_rendered) == int(want.num_rendered) <= server.budget
 
 
+def test_settling_counts_its_redos(pv, cams):
+    """settle_budget redoes through renderer.fit, which counts the climb
+    from 1024 to 1536 as one budget redo."""
+    server = FrameServer(pv, W, H, torch.zeros(3), 1024)
+    with profiling.enable():
+        assert server.settle(cams[:2]) == 1536
+        snap = profiling.snapshot()
+    assert snap["counters"]["budget_redos"]["sum"] == 1
+    assert snap["spans"]["r3dgs.render.settle_budget"]["calls"] == 1
+
+
 def test_spans_and_pads_spilled_reach_the_snapshot(pv, cams):
     bg = torch.zeros(3)
     server = FrameServer(pv, W, H, bg, BUDGET)

@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 from test_tile_render import BUDGET, H, W, make_scene
-from test_torch_binning import CASES
+from test_torch_binning import CASES, _slack_prep
 
 from reduced3dgs_torch import renderer as trenderer
 from reduced3dgs_torch.ops import binning as tbin
@@ -268,6 +268,32 @@ def test_renderer_strip_arguments(prep_np):
     with pytest.raises(NotImplementedError):
         trenderer.render(*args, width=W, height=H, instance_budget=BUDGET,
                          backend="ref", strip_r0=0, strip_rows=1)
+
+
+@pytest.mark.parametrize("tile_rows,report", [((2, 4), 129), ((1, 2), 32)])
+def test_overflow_report_of_a_strip_equals_the_renders(tile_rows, report,
+                                                       monkeypatch):
+    """renderer.overflow_report, the sharded step's strip demand, equals
+    what render() reports for the strip: one splat a tile of a 16x8 grid
+    at budget 128, whose strip (2, 4) holds 64 instances and 8,192
+    aligned slots against 7,168 (past the budget), strip (1, 2) 4,096
+    against 4,096 (whole: its true count)."""
+    prep = tprep.PreprocessOut(*(torch.as_tensor(a)
+                                 for a in _slack_prep(16, 8)))
+    b = tbin.bin_gaussians(prep, 256, 128, 128, tile_rows=tile_rows)
+    assert int(b.num_rendered) <= 128
+    assert int(trenderer.overflow_report(b, 128)) == report
+    monkeypatch.setattr(tprep, "preprocess", lambda *a, **k: prep)
+    from reduced3dgs_torch.cameras import Camera
+
+    cp = Camera.look_at(eye=EYE, target=(0, 0, 0), width=256,
+                        height=128).params("cpu")
+    with torch.no_grad():
+        out = trenderer.render(*(None,) * 6, cp, torch.as_tensor(BG),
+                               width=256, height=128, instance_budget=128,
+                               strip_r0=tile_rows[0],
+                               strip_rows=tile_rows[1])
+    assert int(out.num_rendered) == report
 
 
 def test_ssim_band_sum_matches_jax():

@@ -154,6 +154,21 @@ def test_budget_ladder_growth():
     assert tr._budget_for(1) == 1 << 17
 
 
+@pytest.mark.parametrize("needed", [None, (1 << 17) + 1, (3 << 16) + 1,
+                                    1_500_000])
+def test_budget_for_lands_on_next_budgets_rung(needed):
+    """One ladder: Trainer._budget_for climbs renderer.next_budget, which
+    render.py names too."""
+    from reduced3dgs_torch import render as R, renderer
+
+    assert R.next_budget is renderer.next_budget
+    tr = Trainer.__new__(Trainer)
+    tr.budgets = {}
+    tr.initial_budget = 1 << 17
+    assert tr._budget_for(0, needed) == renderer.next_budget(1 << 17,
+                                                             needed or 0)
+
+
 def test_unported_trainer_options_raise():
     """step_group refuses an iteration that is not fusible (here the SH
     degree step at 1000); mercy_points and cull_sh_iterations are accepted
