@@ -849,8 +849,9 @@ def bench_scene(n, scales, seed):
 def kernel_inputs(device, width, height, n, scales, budget, seed=0,
                   eye=(0.0, 0.0, -RING_RADIUS), fast=False, tile_rows=None):
     """Run preprocess + binning of a bench-style scene on `device` and
-    return (prep, binning, K2's (feat, ranges, limit)); fast: the bf16x2
-    feature table; tile_rows: the binning of that window of tile rows."""
+    return (prep, binning, K2's (WalkFeatures, ranges, limit)); fast: the
+    bf16x2 table's values; tile_rows: the binning of that window of tile
+    rows."""
     import torch
 
     from reduced3dgs_torch.cameras import Camera
@@ -866,9 +867,14 @@ def kernel_inputs(device, width, height, n, scales, budget, seed=0,
             cam.params(device))
         b = binning.bin_gaussians(prep, width, height, budget,
                                   tile_rows=tile_rows)
-        feat, b_pad = tile_render._pack_features(b, fast)
-    limit = torch.clamp(b.total_padded, max=b_pad).to(torch.int32)
-    return prep, b, (feat, b.tile_ranges.contiguous(), limit)
+        walk_in = tile_render._walk_inputs(b, width, fast)[:3]
+    return prep, b, walk_in
+
+
+def plain_inputs(walk_in):
+    """A walk's inputs with the plain versions' feature-major table in
+    place of the WalkFeatures the kernels stage from."""
+    return (walk_in[0].table(), *walk_in[1:])
 
 
 def walk_ops(pairs, blend, walked=K2_OPS_WALKED):
@@ -933,9 +939,12 @@ def walked_slots(ranges, limit, b_pad):
 def synthetic_walk_inputs(device, lens, width, height, limit=None, seed=0):
     """K2 / K3 inputs made by hand: tile t owns `lens[t]` instances (a
     multiple of 128, as binning aligns them) scattered over its own
-    pixels.  Returns (feat (9, B_pad) f32, ranges (2, T) int32, limit ()
-    int32); `limit` defaults to the number of slots."""
+    pixels, their rows shuffled in the depth-rank table.  Returns
+    (WalkFeatures, ranges (2, T) int32, limit () int32); `limit` defaults
+    to the number of slots."""
     import torch
+
+    from reduced3dgs_torch.ops import tile_render
 
     rng = np.random.default_rng(seed)
     gx = -(-width // 16)
@@ -957,17 +966,59 @@ def synthetic_walk_inputs(device, lens, width, height, limit=None, seed=0):
         feat[6:9, s:e] = rng.uniform(0, 1, (3, n))
     ranges = np.stack([starts, ends]).astype(np.int32)
     lim = int(ends[-1]) if limit is None else limit
-    return (torch.as_tensor(feat, device=device),
-            torch.as_tensor(ranges, device=device),
+    # slot s reads table row rank[s]; slots past the last tile are pads
+    rank = rng.permutation(total).astype(np.int32)
+    rank[int(ends[-1]):] = np.iinfo(np.int32).max
+    table = np.zeros((total, 9), np.float32)
+    live = rank != np.iinfo(np.int32).max
+    table[rank[live]] = feat.T[live]
+    src = tile_render.WalkFeatures(torch.as_tensor(table, device=device),
+                                   torch.as_tensor(rank, device=device))
+    return (src, torch.as_tensor(ranges, device=device),
             torch.tensor(lim, dtype=torch.int32, device=device))
 
 
+def overflow_binning(device, width=200, height=136, per_tile=3, seed=0):
+    """A binning whose alignment pads do not fit: `per_tile` small splats
+    at different depths in every tile of a width x height frame, each
+    tile's range padded to 128 slots, past the slack pool and B_pad
+    (total_padded > B_pad: renderer.fit redoes such a frame at a larger
+    budget, but walks it once).  Opacities reach past 0.5."""
+    import torch
+
+    from reduced3dgs_torch.ops import binning, preprocess
+
+    gx, gy = preprocess.tile_grid(width, height)
+    rng = np.random.default_rng(seed)
+    ty, tx = np.meshgrid(np.arange(gy), np.arange(gx), indexing="ij")
+    tiles = np.repeat(np.stack([tx.ravel(), ty.ravel()], 1), per_tile, 0)
+    n = tiles.shape[0]
+    inv = 1.0 / rng.uniform(2.0, 5.0, n) ** 2
+    f32 = np.float32
+    prep = preprocess.PreprocessOut(
+        means2d=(tiles * 16 + rng.uniform(2, 14, (n, 2))).astype(f32),
+        depths=rng.uniform(1, 9, n).astype(f32),
+        conic=np.stack([inv, inv * rng.uniform(-0.2, 0.2, n), inv],
+                       1).astype(f32),
+        opacity=rng.uniform(0.2, 0.95, n).astype(f32),
+        color=rng.uniform(0, 1, (n, 3)).astype(f32),
+        radii=np.full(n, 8, np.int32), rect_min=tiles.astype(np.int32),
+        rect_max=(tiles + 1).astype(np.int32),
+        tiles_touched=np.ones(n, np.int32))
+    prep = preprocess.PreprocessOut(*(torch.as_tensor(a, device=device)
+                                      for a in prep))
+    b = binning.bin_gaussians(prep, width, height, 1024)
+    check(int(b.total_padded) > b.gauss_aligned.shape[0],
+          "overflow binning: the pads fit")
+    return b
+
+
 def walk_edge_cases(device, seed=0):
-    """[(name, (feat, ranges, limit), width, height)] at small size: a
-    binned scene whose width and height are no multiples of 16, tiles
-    whose ranges are exactly 128 and 256 instances (and an empty one), a
-    limit that cuts a range in the middle of a batch, an all-empty
-    frame."""
+    """[(name, (WalkFeatures, ranges, limit), width, height)] at small
+    size: a binned scene whose width and height are no multiples of 16,
+    tiles whose ranges are exactly 128 and 256 instances (and an empty
+    one), a limit that cuts a range in the middle of a batch, an
+    all-empty frame."""
     _, _, ragged = kernel_inputs(device, 200, 136, 20000, (0.01, 0.05),
                                  1 << 17, seed)
     lens = [128, 256, 0, 384, 128, 256]  # 3 x 2 tiles of a 40 x 24 frame
@@ -998,7 +1049,7 @@ def k2_edge_cases(device, seed=0):
         gx = -(-w // 16)
         got = ttr._tile_fwd_cuda(*k2in, gx, w, h)
         again = ttr._tile_fwd_cuda(*k2in, gx, w, h)
-        want = ttr.tile_fwd_plain(*k2in, gx, w, h)
+        want = ttr.tile_fwd_plain(*plain_inputs(k2in), gx, w, h)
         check(torch.equal(got, again), f"K2 {name}: two launches differ")
         err, share = compare_k2(got, want)
         check(err <= 5e-3 and share >= 0.999,
@@ -1025,16 +1076,16 @@ def k3_edge_cases(device, seed=0):
     from reduced3dgs_torch.ops import tile_render as ttr
 
     worst = 0.0
-    for name, (feat, ranges, limit), w, h in walk_edge_cases(device, seed):
+    for name, (src, ranges, limit), w, h in walk_edge_cases(device, seed):
         gx = -(-w // 16)
-        packed = ttr._tile_fwd_cuda(feat, ranges, limit, gx, w, h)
-        k3in = (feat, ranges, limit, gx, w, h, k3_cotangent(packed, seed),
+        packed = ttr._tile_fwd_cuda(src, ranges, limit, gx, w, h)
+        k3in = (src, ranges, limit, gx, w, h, k3_cotangent(packed, seed),
                 packed)
         got = ttr._tile_bwd_cuda(*k3in)
         again = ttr._tile_bwd_cuda(*k3in)
-        want = ttr.tile_bwd_plain(*k3in)
+        want = ttr.tile_bwd_plain(*plain_inputs(k3in))
         check(torch.equal(got, again), f"K3 {name}: two launches differ")
-        walked = walked_slots(ranges, limit, feat.shape[1])
+        walked = walked_slots(ranges, limit, src.b_pad)
         check(bool((got[:, ~walked] == 0).all()),
               f"K3 {name}: a slot outside the walked ranges is not 0")
         if bool(walked.any()):
@@ -1064,9 +1115,9 @@ def k4_edge_cases(device, seed=0):
         gx = -(-w // 16)
         got = ttr._tile_trans_cuda(*k4in, gx, w, h)
         again = ttr._tile_trans_cuda(*k4in, gx, w, h)
-        want = ttr.tile_trans_plain(*k4in, gx, w, h)
+        want = ttr.tile_trans_plain(*plain_inputs(k4in), gx, w, h)
         check(torch.equal(got, again), f"K4 {name}: two launches differ")
-        walked = walked_slots(k4in[1], k4in[2], k4in[0].shape[1])
+        walked = walked_slots(k4in[1], k4in[2], k4in[0].b_pad)
         check(bool((got[:, ~walked] == 0).all()),
               f"K4 {name}: a slot outside the walked ranges is not 0")
         c = compare_k4(got, want)
@@ -1296,12 +1347,12 @@ def exp2_frames(pv, views, budget, k2_expf):
     pixels = 0
     tile_fwd = ttr.tile_fwd
 
-    def spy(feat, ranges, limit, gx, w, h, base=0):
+    def spy(src, ranges, limit, gx, w, h, base=0):
         nonlocal sq, pixels
-        out = tile_fwd(feat, ranges, limit, gx, w, h, base)
+        out = tile_fwd(src, ranges, limit, gx, w, h, base)
         with swapped(ttr, "TILE_FWD", k2_expf):
-            alt = ttr._tile_fwd_cuda(feat, ranges, limit, gx, w, h, base)
-        ref = ttr.tile_fwd_plain(feat, ranges, limit, gx, w, h, base)
+            alt = ttr._tile_fwd_cuda(src, ranges, limit, gx, w, h, base)
+        ref = ttr.tile_fwd_plain(src.table(), ranges, limit, gx, w, h, base)
         gy = ranges.shape[1] // gx
         img = {}
         for name, packed in (("ex2", out), ("expf", alt), ("plain", ref)):
@@ -1437,7 +1488,8 @@ def main(argv=None):
     gx = -(-s["width"] // 16)
     got = ttr._tile_fwd_cuda(*k2in, gx, s["width"], s["height"])
     again = ttr._tile_fwd_cuda(*k2in, gx, s["width"], s["height"])
-    want = ttr.tile_fwd_plain(*k2in, gx, s["width"], s["height"])
+    want = ttr.tile_fwd_plain(*plain_inputs(k2in), gx, s["width"],
+                              s["height"])
     torch.cuda.synchronize()
     err, share = compare_k2(got, want)
     print(f"phase 3: K2 512p num_rendered={int(b512.num_rendered)}: max abs "
@@ -1757,16 +1809,17 @@ def _report_k2(k2in, w, h, launches, ttr):
     got = ttr._tile_fwd_cuda(*k2in, gx, w, h)
     again = ttr._tile_fwd_cuda(*k2in, gx, w, h)
     layout = ttr.walk_layout("tile_fwd")
-    want, pairs = ttr.tile_fwd_plain(*k2in, gx, w, h, count_pairs=True,
+    plain_in = plain_inputs(k2in)
+    want, pairs = ttr.tile_fwd_plain(*plain_in, gx, w, h, count_pairs=True,
                                      **layout)
-    _, rows = ttr.tile_fwd_plain(*k2in, gx, w, h, count_pairs=True)
+    _, rows = ttr.tile_fwd_plain(*plain_in, gx, w, h, count_pairs=True)
     torch.cuda.synchronize()
     err, share = compare_k2(got, want)
     check(err <= 5e-3 and share >= 0.999,
           f"K2 main-path shapes: kernel != plain ({err:.3e}, {share:.6f})")
     check(torch.equal(got, again), "K2 main-path shapes: two launches differ")
     ms = time_ms(lambda: ttr._tile_fwd_cuda(*k2in, gx, w, h), 20)
-    plain_ms = time_ms(lambda: ttr.tile_fwd_plain(*k2in, gx, w, h), 2)
+    plain_ms = time_ms(lambda: ttr.tile_fwd_plain(*plain_in, gx, w, h), 2)
     ranges = k2in[1]
     inst = int((ranges[1] - ranges[0]).sum())
     num_tiles = ranges.shape[1]
@@ -1941,19 +1994,20 @@ def k3_case(dev, scene, budget, seed, fast):
     from reduced3dgs_torch.ops import tile_render as ttr
 
     w, h = scene["width"], scene["height"]
-    _, b, (feat, ranges, limit) = kernel_inputs(
+    _, b, (src, ranges, limit) = kernel_inputs(
         dev, w, h, scene["n"], scene["scales"], budget, seed, fast=fast)
     gx = -(-w // 16)
-    packed = ttr._tile_fwd_cuda(feat, ranges, limit, gx, w, h)
+    packed = ttr._tile_fwd_cuda(src, ranges, limit, gx, w, h)
     g = k3_cotangent(packed, seed)
-    got = ttr._tile_bwd_cuda(feat, ranges, limit, gx, w, h, g, packed)
-    again = ttr._tile_bwd_cuda(feat, ranges, limit, gx, w, h, g, packed)
-    want = ttr.tile_bwd_plain(feat, ranges, limit, gx, w, h, g, packed)
+    got = ttr._tile_bwd_cuda(src, ranges, limit, gx, w, h, g, packed)
+    again = ttr._tile_bwd_cuda(src, ranges, limit, gx, w, h, g, packed)
+    want = ttr.tile_bwd_plain(src.table(), ranges, limit, gx, w, h, g,
+                              packed)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     check(torch.equal(got, again), f"K3 {w}x{h} fast={fast}: two launches "
                                    "differ")
-    walked = walked_slots(ranges, limit, feat.shape[1])
+    walked = walked_slots(ranges, limit, src.b_pad)
     check(bool((got[:, ~walked] == 0).all()),
           "K3: a slot outside the walked ranges is not exactly 0")
     err, rel, share = compare_k3(got, want)
@@ -1964,7 +2018,7 @@ def k3_case(dev, scene, budget, seed, fast):
           f"largest error / row max {rel:.3e}, share within 1e-4 of the "
           f"row max {share:.6f}; {int((~walked).sum())} unwalked slots "
           "exactly 0; two launches bit-identical", flush=True)
-    return dict(binning=b, k3in=(feat, ranges, limit, gx, w, h, g, packed),
+    return dict(binning=b, k3in=(src, ranges, limit, gx, w, h, g, packed),
                 dfeat=got, err=err)
 
 
@@ -1972,17 +2026,18 @@ def report_k3(case, launches):
     """K3's times at the main path's shapes, its bound and the JSON row."""
     from reduced3dgs_torch.ops import tile_render as ttr
 
-    feat, ranges, limit, gx, w, h, g, packed = case["k3in"]
+    src, ranges, limit, gx, w, h, g, packed = case["k3in"]
     ms = time_ms(lambda: ttr._tile_bwd_cuda(*case["k3in"]), 20)
-    plain_ms = time_ms(lambda: ttr.tile_bwd_plain(*case["k3in"]), 1)
+    plain_in = plain_inputs(case["k3in"])
+    plain_ms = time_ms(lambda: ttr.tile_bwd_plain(*plain_in), 1)
     layout = ttr.walk_layout("tile_bwd")
-    _, pairs = ttr.tile_fwd_plain(feat, ranges, limit, gx, w, h,
+    _, pairs = ttr.tile_fwd_plain(plain_in[0], ranges, limit, gx, w, h,
                                   count_pairs=True, **layout)
     inst = int((ranges[1] - ranges[0]).sum())
     tiles = ranges.shape[1]
     nbytes = (4 * ttr.TABLE_ROWS * inst + 8 * tiles
               + 2 * 4 * ttr.PIX_ROWS * ttr.NPIX * tiles
-              + 4 * ttr.TABLE_ROWS * feat.shape[1])
+              + 4 * ttr.TABLE_ROWS * src.b_pad)
     bms, by, b_ms, o_ms = bound(
         nbytes, walk_ops(pairs, K3_OPS_BLEND + K3_OPS_REDUCE))
     former = former_text(nbytes, walk_ops(
@@ -2481,17 +2536,17 @@ def k4_case(dev, scene, budget, seed):
     from reduced3dgs_torch.ops import tile_render as ttr
 
     w, h = scene["width"], scene["height"]
-    _, b, (feat, ranges, limit) = kernel_inputs(
+    _, b, (src, ranges, limit) = kernel_inputs(
         dev, w, h, scene["n"], scene["scales"], budget, seed)
     gx = -(-w // 16)
-    got = ttr._tile_trans_cuda(feat, ranges, limit, gx, w, h)
-    again = ttr._tile_trans_cuda(feat, ranges, limit, gx, w, h)
-    want = ttr.tile_trans_plain(feat, ranges, limit, gx, w, h)
+    got = ttr._tile_trans_cuda(src, ranges, limit, gx, w, h)
+    again = ttr._tile_trans_cuda(src, ranges, limit, gx, w, h)
+    want = ttr.tile_trans_plain(src.table(), ranges, limit, gx, w, h)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     check(torch.equal(got, again), f"K4 {w}x{h}: two launches differ")
-    walked = walked_slots(ranges, limit, feat.shape[1])
-    check(got.shape == (2, feat.shape[1]) and got.dtype == torch.float32,
+    walked = walked_slots(ranges, limit, src.b_pad)
+    check(got.shape == (2, src.b_pad) and got.dtype == torch.float32,
           "K4: output shape")
     check(bool((got[:, ~walked] == 0).all()),
           "K4: a slot outside the walked ranges is not exactly 0")
@@ -2514,7 +2569,7 @@ def k4_case(dev, scene, budget, seed):
           f"{p_share:.6f}, touched differs by at most {p_touch:.0f}; "
           f"{int((~walked).sum())} unwalked slots exactly 0; two launches "
           "bit-identical", flush=True)
-    return dict(k4in=(feat, ranges, limit, gx, w, h), err=c["err"],
+    return dict(k4in=(src, ranges, limit, gx, w, h), err=c["err"],
                 binning=b, out=got)
 
 
@@ -2522,16 +2577,17 @@ def report_k4(case, launches):
     """K4's times at the main path's shapes, its bound and the JSON row."""
     from reduced3dgs_torch.ops import tile_render as ttr
 
-    feat, ranges, limit, gx, w, h = case["k4in"]
+    src, ranges, limit, gx, w, h = case["k4in"]
     ms = time_ms(lambda: ttr._tile_trans_cuda(*case["k4in"]), 20)
     k2_ms = time_ms(lambda: ttr._tile_fwd_cuda(*case["k4in"]), 20)
-    plain_ms = time_ms(lambda: ttr.tile_trans_plain(*case["k4in"]), 1)
+    plain_in = plain_inputs(case["k4in"])
+    plain_ms = time_ms(lambda: ttr.tile_trans_plain(*plain_in), 1)
     layout = ttr.walk_layout("tile_trans")
-    _, pairs = ttr.tile_fwd_plain(*case["k4in"], count_pairs=True, **layout)
-    _, rows = ttr.tile_fwd_plain(*case["k4in"], count_pairs=True)
+    _, pairs = ttr.tile_fwd_plain(*plain_in, count_pairs=True, **layout)
+    _, rows = ttr.tile_fwd_plain(*plain_in, count_pairs=True)
     inst = int((ranges[1] - ranges[0]).sum())
     tiles = ranges.shape[1]
-    nbytes = 4 * 6 * inst + 8 * tiles + 4 * 2 * feat.shape[1]
+    nbytes = 4 * 6 * inst + 8 * tiles + 4 * 2 * src.b_pad
     bms, by, b_ms, o_ms = bound(nbytes, walk_ops(pairs, K4_OPS_BLEND))
     former = former_text(
         nbytes, walk_ops(pairs, K4_OPS_BLEND, FORMER_OPS_WALKED), ms)
@@ -3177,7 +3233,7 @@ def compress_and_metrics(tr, root, seed, smi, timeout=900):
 # ---------------------------------------------------------------------------
 
 def strip_edge_cases(device, seed=0):
-    """[(name, binning, (feat, ranges, limit), width, height, base)]:
+    """[(name, binning, (WalkFeatures, ranges, limit), width, height, base)]:
     windows of tile rows binned on their own, at the tile base
     r0 * grid_x: on the 200x136 scene (9 tile rows) one whose last rows
     lie past the image height and one past the last tile row (no
@@ -3211,11 +3267,12 @@ def strip_kernel_checks(device, seed=0):
 
     from reduced3dgs_torch.ops import tile_render as ttr
 
-    for name, b, (feat, ranges, limit), w, h, base in strip_edge_cases(
+    for name, b, (src, ranges, limit), w, h, base in strip_edge_cases(
             device, seed):
         gx = -(-w // 16)
-        got = ttr._tile_fwd_cuda(feat, ranges, limit, gx, w, h, base=base)
-        again = ttr._tile_fwd_cuda(feat, ranges, limit, gx, w, h, base=base)
+        feat = src.table()
+        got = ttr._tile_fwd_cuda(src, ranges, limit, gx, w, h, base=base)
+        again = ttr._tile_fwd_cuda(src, ranges, limit, gx, w, h, base=base)
         want = ttr.tile_fwd_plain(feat, ranges, limit, gx, w, h, base=base)
         check(torch.equal(got, again), f"K2 {name}: two launches differ")
         err2, share2 = compare_k2(got, want)
@@ -3229,9 +3286,9 @@ def strip_kernel_checks(device, seed=0):
               and bool((got[:, 0:3].permute(1, 0, 2)[:, past] == 0).all()),
               f"K2 {name}: a pixel past the height is not colour 0, T 1")
         g = k3_cotangent(got, seed)
-        d = ttr._tile_bwd_cuda(feat, ranges, limit, gx, w, h, g, got,
+        d = ttr._tile_bwd_cuda(src, ranges, limit, gx, w, h, g, got,
                                base=base)
-        d2 = ttr._tile_bwd_cuda(feat, ranges, limit, gx, w, h, g, got,
+        d2 = ttr._tile_bwd_cuda(src, ranges, limit, gx, w, h, g, got,
                                 base=base)
         dw = ttr.tile_bwd_plain(feat, ranges, limit, gx, w, h, g, got,
                                 base=base)
@@ -3243,8 +3300,8 @@ def strip_kernel_checks(device, seed=0):
                         else (float(d.abs().max()), 1.0))
         check(rel3 <= 5e-3 and share3 >= 0.999,
               f"K3 {name}: kernel != plain ({rel3:.3e}, {share3})")
-        t4 = ttr._tile_trans_cuda(feat, ranges, limit, gx, w, h, base=base)
-        t4b = ttr._tile_trans_cuda(feat, ranges, limit, gx, w, h, base=base)
+        t4 = ttr._tile_trans_cuda(src, ranges, limit, gx, w, h, base=base)
+        t4b = ttr._tile_trans_cuda(src, ranges, limit, gx, w, h, base=base)
         t4w = ttr.tile_trans_plain(feat, ranges, limit, gx, w, h, base=base)
         check(torch.equal(t4, t4b), f"K4 {name}: two launches differ")
         c = compare_k4(t4, t4w)

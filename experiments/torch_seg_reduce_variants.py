@@ -101,14 +101,14 @@ def main(argv=None):
 
     # K3 at the main path's shapes, per record width
     m = cs.MAIN
-    _, binning, (feat, ranges, limit) = cs.kernel_inputs(
+    _, binning, (src, ranges, limit) = cs.kernel_inputs(
         dev, m["width"], m["height"], m["n"], m["scales"], cs.BENCH_BUDGET,
         args.seed)
     gx = -(-m["width"] // 16)
-    packed_out = ttr._tile_fwd_cuda(feat, ranges, limit, gx, m["width"],
+    packed_out = ttr._tile_fwd_cuda(src, ranges, limit, gx, m["width"],
                                     m["height"])
     g = cs.k3_cotangent(packed_out, args.seed)
-    k3in = (feat, ranges, limit, gx, m["width"], m["height"], g, packed_out)
+    k3in = (src, ranges, limit, gx, m["width"], m["height"], g, packed_out)
     default_rec = ttr.GRAD_REC
     rows_by_rec = {}
     for turn in range(2):  # in turns: widths interleaved, twice

@@ -33,9 +33,10 @@ criteria), for exact zeros on unwalked slots (K3, K4) and for identical
 bits from two launches, and timed (CUDA events, chip_smoke.time_ms) at the
 1080p main-path inputs and at the 512p scene, in turns: the whole list is
 walked --turns times.  --parent DIR also builds DIR/reduced3dgs_torch/
-csrc/{tile_fwd,tile_bwd,tile_trans}.cu (an unpacked earlier commit), times
-them in the same turns, says whether each default gives the parent's bits
-(K2, K3, K4) and prints each library's SASS instruction count
+csrc/{tile_fwd,tile_bwd,tile_trans}.cu (an unpacked earlier commit; one
+whose walks stage from a feature-major table gets the plain versions'
+table), times them in the same turns, says whether each default gives
+the parent's bits (K2, K3, K4) and prints each library's SASS instruction count
 (cuobjdump -sass; the listings are written beside the built libraries,
 reduced3dgs_torch/_build/variants/*.sass).  The lane utilisation of each
 warp footprint and the instances staged per batch size are printed
@@ -154,17 +155,22 @@ def main(argv=None):
                 "tile_bwd")
     trans = build(_cuda.CSRC / "tile_trans.cu", chosen(K4_VARIANTS), _cuda,
                   "tile_trans")
-    # libraries of a parent whose walks take no tile base (before the
-    # strips of the multi-device path): their launches have no base
-    # argument, the sixth of the current ones
-    baseless = set()
+    # libraries of a parent whose walks stage from a feature-major table
+    # (their first two arguments: the table and its row stride, in place
+    # of the four staging arguments), and of one whose walks take no tile
+    # base either (before the strips of the multi-device path; the base is
+    # then the seventh argument of the table's launches)
+    tabled, baseless = set(), set()
     if args.parent:
         csrc = Path(args.parent) / "reduced3dgs_torch" / "csrc"
         for libs, src in ((fwd, "tile_fwd"), (bwd, "tile_bwd"),
                           (trans, "tile_trans")):
             got = build(csrc / f"{src}.cu", [dict(PARENT=1)], _cuda,
                         f"parent_{src}")
-            if b"int base" not in (csrc / f"{src}.cu").read_bytes():
+            text = (csrc / f"{src}.cu").read_bytes()
+            if b"long long stride" in text:
+                tabled |= {id(lib) for lib in got.values()}
+            if b"int base" not in text:
                 baseless |= {id(lib) for lib in got.values()}
             libs.update(got)
     for libs, sym, kern in ((fwd, "tile_fwd_launch", ttr.TILE_FWD),
@@ -173,44 +179,57 @@ def main(argv=None):
         for lib in libs.values():
             fn = getattr(lib, sym)
             fn.restype = ctypes.c_int
-            fn.argtypes = (kern.argtypes[:6] + kern.argtypes[7:]
-                           if id(lib) in baseless else kern.argtypes)
+            types = list(kern.argtypes)
+            if id(lib) in tabled:
+                types = [ctypes.c_void_p, ctypes.c_longlong] + types[4:]
+            if id(lib) in baseless:
+                del types[6]
+            fn.argtypes = types
+
+    tables = {}
+
+    def staging(lib, src):
+        """The staging arguments lib takes for src, a WalkFeatures."""
+        if id(lib) not in tabled:
+            return ttr._stage_args(src)
+        if id(src) not in tables:
+            tables[id(src)] = src.table()
+        return _cuda.ptr(tables[id(src)]), tables[id(src)].stride(0)
 
     def base0(lib):
         """The tile base argument (0: the whole frame), if lib takes one."""
         return () if id(lib) in baseless else (0,)
 
     def run_fwd(lib, k2in, gx, w, h):
-        feat, ranges, limit = k2in
+        src, ranges, limit = k2in
         out = torch.empty((ranges.shape[1], ttr.PIX_ROWS, ttr.NPIX),
                           dtype=torch.float32, device=dev)
         err = lib.tile_fwd_launch(
-            _cuda.ptr(feat), feat.stride(0), _cuda.ptr(ranges),
+            *staging(lib, src), _cuda.ptr(ranges),
             ranges.shape[1], _cuda.ptr(limit), gx, *base0(lib), w, h,
-            _cuda.ptr(out), _cuda.stream_of(feat))
+            _cuda.ptr(out), _cuda.stream_of(ranges))
         assert err == 0, err
         return out
 
     def run_bwd(lib, k2in, gx, w, h, g, packed):
-        feat, ranges, limit = k2in
-        rec = torch.zeros((feat.shape[1], ttr.GRAD_REC), dtype=torch.float32,
+        src, ranges, limit = k2in
+        rec = torch.zeros((src.b_pad, ttr.GRAD_REC), dtype=torch.float32,
                           device=dev)
         err = lib.tile_bwd_launch(
-            _cuda.ptr(feat), feat.stride(0), _cuda.ptr(ranges),
+            *staging(lib, src), _cuda.ptr(ranges),
             ranges.shape[1], _cuda.ptr(limit), gx, *base0(lib), w, h,
             _cuda.ptr(g), _cuda.ptr(packed), _cuda.ptr(rec), ttr.GRAD_REC,
-            _cuda.stream_of(feat))
+            _cuda.stream_of(ranges))
         assert err == 0, err
         return rec.T[:ttr.TABLE_ROWS]
 
     def run_trans(lib, k2in, gx, w, h):
-        feat, ranges, limit = k2in
-        out = torch.zeros((2, feat.shape[1]), dtype=torch.float32,
-                          device=dev)
+        src, ranges, limit = k2in
+        out = torch.zeros((2, src.b_pad), dtype=torch.float32, device=dev)
         err = lib.tile_trans_launch(
-            _cuda.ptr(feat), feat.stride(0), _cuda.ptr(ranges),
+            *staging(lib, src), _cuda.ptr(ranges),
             ranges.shape[1], _cuda.ptr(limit), gx, *base0(lib), w, h,
-            _cuda.ptr(out), out.stride(0), _cuda.stream_of(feat))
+            _cuda.ptr(out), out.stride(0), _cuda.stream_of(ranges))
         assert err == 0, err
         return out
 
@@ -221,25 +240,27 @@ def main(argv=None):
         _, _, k2in = cs.kernel_inputs(dev, w, h, sc["n"], sc["scales"],
                                       budget, args.seed)
         gx = -(-w // 16)
-        want = ttr.tile_fwd_plain(*k2in, gx, w, h)
+        plain_in = cs.plain_inputs(k2in)
+        want = ttr.tile_fwd_plain(*plain_in, gx, w, h)
         g = cs.k3_cotangent(want, args.seed)
-        dwant = ttr.tile_bwd_plain(*k2in, gx, w, h, g, want)
-        walked = cs.walked_slots(k2in[1], k2in[2], k2in[0].shape[1])
+        dwant = ttr.tile_bwd_plain(*plain_in, gx, w, h, g, want)
+        walked = cs.walked_slots(k2in[1], k2in[2], k2in[0].b_pad)
         scenes[name] = dict(k2in=k2in, gx=gx, w=w, h=h, want=want, g=g,
                             dwant=dwant, unwalked=~walked,
-                            twant=ttr.tile_trans_plain(*k2in, gx, w, h))
+                            twant=ttr.tile_trans_plain(*plain_in, gx, w, h))
         inst = int((k2in[1][1] - k2in[1][0]).sum())
         for shape in ((16, 2), (8, 4), (4, 8)):
             for ppt in (1, 2, 4):
                 _, pairs = ttr.tile_fwd_plain(
-                    *k2in, gx, w, h, count_pairs=True, warp_shape=shape,
+                    *plain_in, gx, w, h, count_pairs=True, warp_shape=shape,
                     pixels_per_thread=ppt)
                 print(f"{name}: instances {inst}, pairs walked "
                       f"{pairs['walked']}, blended {pairs['blended']}; "
                       f"{ppt} pixel(s) per thread on blocks of "
                       f"{shape[0]}x{shape[1]}: "
                       f"{cs.lane_text(pairs, 32 * ppt)}", flush=True)
-        staged = {b: ttr.tile_fwd_plain(*k2in, gx, w, h, count_pairs=True,
+        staged = {b: ttr.tile_fwd_plain(*plain_in, gx, w, h,
+                                        count_pairs=True,
                                         batch=b)[1]["staged"]
                   for b in (32, 64, 128)}
         print(f"{name}: instances staged per batch size {staged}", flush=True)

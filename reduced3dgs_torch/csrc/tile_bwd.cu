@@ -1,15 +1,17 @@
 // K3 — backward tile walk (f32), for Hopper (sm_90a).
 //
 // Replaces reduced3dgs_tpu/ops/tile_render.py:468 _bwd_kernel (built at
-// :803 _build_bwd), in both feature-table modes: the fast (bf16x2) table
-// is unpacked to the same f32 rows outside, and on this card an f32 FFMA
-// costs what a bf16 one does, so the TPU kernel's one-pass bf16 MXU
-// products (dcol, gc, the fast-mode moments) become plain f32 sums here.
+// :803 _build_bwd), in both feature-table modes: the fast (bf16x2) values
+// are quantised as they are staged (csrc/tile_walk.cuh), and on this card
+// an f32 FFMA costs what a bf16 one does, so the TPU kernel's one-pass
+// bf16 MXU products (dcol, gc, the fast-mode moments) become plain f32
+// sums here.
 //
 // Layout as K2 (csrc/tile_fwd.cu, csrc/tile_walk.cuh): one block per
 // 16x16 tile, P pixels per thread, 32 lanes on a compact 8x4 pixel
 // block, the tile's depth-sorted instance range staged through
-// shared memory in batches, instance-major as float4 with the conic
+// shared memory in batches, gathered from binning's depth-rank table
+// through the slots' ranks, instance-major as float4 with the conic
 // pre-scaled by log2(e).  Each pixel re-walks its instances front to back,
 // exactly as the forward did, carrying T before the instance and the
 // running prefix `incl` of w * gc:
@@ -60,7 +62,7 @@
 // are not written and keep the zeros the wrapper allocated.
 //
 // What bounds it on the card (measured on an H100, PERF.md).  Neither
-// bytes (36 B read and 36 B written per instance, 64 B per pixel) nor f32
+// bytes (40 B read and 48 B written per instance, 64 B per pixel) nor f32
 // arithmetic as the operation bound counts it (chip_smoke.py K3_OPS_*),
 // and not the shuffle unit either (with one pixel per thread nine
 // separate trees, 45 shuffles, cost 0.5 ms more than the butterfly, not
@@ -176,10 +178,10 @@ __device__ __forceinline__ bool all_done(const bool (&done)[kPpt]) {
 }
 
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-tile_bwd_kernel(const float* __restrict__ feat, long long stride,
-                const int* __restrict__ ranges, int num_tiles,
-                const int* __restrict__ limit, int grid_x, int base,
-                int width, int height, const float* __restrict__ gpix,
+tile_bwd_kernel(const Rows rows, const int* __restrict__ ranges,
+                int num_tiles, const int* __restrict__ limit, int grid_x,
+                int base, int width, int height,
+                const float* __restrict__ gpix,
                 const float* __restrict__ spix, float* __restrict__ dfeat,
                 int rec) {
   __shared__ float4 sm[3][kBatch];
@@ -239,7 +241,7 @@ tile_bwd_kernel(const float* __restrict__ feat, long long stride,
     // partials) alive until every thread has finished with it
     if (__syncthreads_count(all_done(done)) == kThreads) break;
     const int n = min(kBatch, end - b0);
-    Stager::load(regs, feat, stride, b0, n, tid);
+    Stager::load(regs, rows, b0, n, tid);
     for (int k = lane; k < kRows * kBatch; k += 32) mine[k] = 0.0f;
     Stager::store(sm, regs, n, tid);
     __syncthreads();
@@ -350,7 +352,8 @@ tile_bwd_kernel(const float* __restrict__ feat, long long stride,
 
 }  // namespace
 
-extern "C" int tile_bwd_launch(const void* feat, long long stride,
+extern "C" int tile_bwd_launch(const void* feat, const void* rank,
+                               int num_p, int quantised,
                                const void* ranges, int num_tiles,
                                const void* limit, int grid_x, int base,
                                int width, int height, const void* gpix,
@@ -359,7 +362,8 @@ extern "C" int tile_bwd_launch(const void* feat, long long stride,
   if (num_tiles > 0) {
     tile_bwd_kernel<<<num_tiles, kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(feat), stride,
+        walk::Rows{static_cast<const float*>(feat),
+                   static_cast<const int*>(rank), num_p, quantised},
         static_cast<const int*>(ranges), num_tiles,
         static_cast<const int*>(limit), grid_x, base, width, height,
         static_cast<const float*>(gpix), static_cast<const float*>(spix),

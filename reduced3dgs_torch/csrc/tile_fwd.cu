@@ -9,8 +9,9 @@
 // one block per 16x16 tile, one thread per pixel, and the tile's
 // depth-sorted instance range staged through shared memory in batches
 // (the range is a multiple of 128 instances, the binning alignment, so a
-// batch never crosses tiles).  Each pixel blends its batch sequentially
-// in f32:
+// batch never crosses tiles), each instance gathered from binning's
+// depth-rank feature table through its slot's rank as it is staged.
+// Each pixel blends its batch sequentially in f32:
 //
 //   power = -0.5 (cxx dx^2 + cyy dy^2) - cxy dx dy,  d = mean - pixel
 //   skip if power > POWER_EPS (1e-3); alpha = min(0.99, op e^min(power,0))
@@ -26,13 +27,14 @@
 // *limit (min(total_padded, B_pad)) are never read.
 //
 // Output (num_tiles, 8, 256) f32 rows [r, g, b, T_final, 0, 0, 0, 0],
-// indexed by the pixel.  Accumulation is f32 in both feature-table modes.
+// indexed by the pixel.  Accumulation is f32 in both staging modes
+// (exact, and quantised as the bf16x2 table: csrc/tile_walk.cuh).
 //
 // What bounds it on the card (measured on an H100, PERF.md): neither
-// bytes (36 B per instance, read once per tile) nor f32 arithmetic as
-// such, but the SM's scheduler slots.  A warp dispatches every
-// instruction of a (warp, instance) pair while any of its 32 pixels is
-// alive, so the cost is warp pairs times instructions per pair; the
+// bytes (a 4 B rank and a 36 B row an instance, read once per tile) nor
+// f32 arithmetic as such, but the SM's scheduler slots.  A warp dispatches
+// every instruction of a (warp, instance) pair while any of its 32 pixels
+// is alive, so the cost is warp pairs times instructions per pair; the
 // operation bound in chip_smoke.py (K2_OPS_*: pixel pairs times the
 // arithmetic of the walk) would be reached only with every lane live and
 // nothing dispatched but arithmetic.  Lane utilisation is high already
@@ -78,10 +80,9 @@ static_assert(128 % kBatch == 0, "a batch must not cross a 128-slot chunk");
 using Stager = Stage<kBatch, kThreads>;
 
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-tile_fwd_kernel(const float* __restrict__ feat, long long stride,
-                const int* __restrict__ ranges, int num_tiles,
-                const int* __restrict__ limit, int grid_x, int base,
-                int width, int height, float* __restrict__ out) {
+tile_fwd_kernel(const Rows rows, const int* __restrict__ ranges,
+                int num_tiles, const int* __restrict__ limit, int grid_x,
+                int base, int width, int height, float* __restrict__ out) {
   __shared__ float4 sm[3][kBatch];
   const int t = blockIdx.x;
   // the tile's place in the image, unsigned as blockIdx.x: the
@@ -105,7 +106,7 @@ tile_fwd_kernel(const float* __restrict__ feat, long long stride,
     // thread has finished reading it
     if (__syncthreads_count(done) == kThreads) break;
     const int n = min(kBatch, end - b0);
-    Stager::load(regs, feat, stride, b0, n, tid);
+    Stager::load(regs, rows, b0, n, tid);
     Stager::store(sm, regs, n, tid);
     __syncthreads();
     if (done) continue;
@@ -139,7 +140,8 @@ tile_fwd_kernel(const float* __restrict__ feat, long long stride,
 
 }  // namespace
 
-extern "C" int tile_fwd_launch(const void* feat, long long stride,
+extern "C" int tile_fwd_launch(const void* feat, const void* rank,
+                               int num_p, int quantised,
                                const void* ranges, int num_tiles,
                                const void* limit, int grid_x, int base,
                                int width, int height, void* out,
@@ -147,7 +149,8 @@ extern "C" int tile_fwd_launch(const void* feat, long long stride,
   if (num_tiles > 0) {
     tile_fwd_kernel<<<num_tiles, kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(feat), stride,
+        walk::Rows{static_cast<const float*>(feat),
+                   static_cast<const int*>(rank), num_p, quantised},
         static_cast<const int*>(ranges), num_tiles,
         static_cast<const int*>(limit), grid_x, base, width, height,
         static_cast<float*>(out));

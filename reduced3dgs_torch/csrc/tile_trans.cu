@@ -13,7 +13,8 @@
 // shared csrc/tile_walk.cuh): one 256-thread block per 16x16 tile, one
 // pixel per thread, 32 lanes on a compact 8x4 pixel block (walk::pixel_of),
 // the tile's depth-sorted instance range staged through shared memory in
-// batches, instance-major as two float4 per instance ((x, y, a, b) and
+// batches, gathered from binning's depth-rank table through the slots'
+// ranks, instance-major as two float4 per instance ((x, y, a, b) and
 // (c, op, ...): no colours), the conic pre-scaled by log2(e), and per pixel
 // the blend decision of K2 itself (walk::pair_alpha: the power, one
 // ex2.approx under WALK_EXP2, the merged skip test), then
@@ -46,10 +47,11 @@
 // the slots after a warp's exit get its zeroed partials.
 //
 // Output (2, B_pad) f32 rows [trans_sum, touched]; a count is at most 256
-// and exact in f32.  Only feature rows 0..5 are read (no colours).
+// and exact in f32.  Only feature columns 0..5 are read (no colours); the
+// culling statistics take the exact values (quantised 0).
 //
 // What bounds it on the card (measured on an H100, PERF.md): as K2, the
-// SM's scheduler slots, not bytes (24 B of features read per instance, 8 B
+// SM's scheduler slots, not bytes (28 B read per instance, 8 B
 // written per slot) and not the f32 arithmetic the operation bound counts
 // (chip_smoke.py K4_OPS_*: the walk's 14 operations per walked pair, 5 per
 // blended pair).  A walked warp pair dispatches K2's decision plus the T
@@ -109,10 +111,9 @@ __device__ __forceinline__ unsigned warp_sum(float v) {
 }
 
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-tile_trans_kernel(const float* __restrict__ feat, long long stride,
-                  const int* __restrict__ ranges, int num_tiles,
-                  const int* __restrict__ limit, int grid_x, int base,
-                  int width, int height, float* __restrict__ out,
+tile_trans_kernel(const Rows rows, const int* __restrict__ ranges,
+                  int num_tiles, const int* __restrict__ limit, int grid_x,
+                  int base, int width, int height, float* __restrict__ out,
                   long long ostride) {
   __shared__ float4 sm[2][kBatch];
   __shared__ Part part[kWarps][kBatch];
@@ -138,7 +139,7 @@ tile_trans_kernel(const float* __restrict__ feat, long long stride,
     // partials) alive until every thread has finished with it
     if (__syncthreads_count(done) == kThreads) break;
     const int n = min(kBatch, end - b0);
-    Stager::load(regs, feat, stride, b0, n, tid);
+    Stager::load(regs, rows, b0, n, tid);
     for (int k = lane; k < kBatch; k += 32) part[warp][k] = Part{0u, 0};
     Stager::store(sm, regs, n, tid);
     __syncthreads();
@@ -186,7 +187,8 @@ tile_trans_kernel(const float* __restrict__ feat, long long stride,
 
 }  // namespace
 
-extern "C" int tile_trans_launch(const void* feat, long long stride,
+extern "C" int tile_trans_launch(const void* feat, const void* rank,
+                                 int num_p, int quantised,
                                  const void* ranges, int num_tiles,
                                  const void* limit, int grid_x, int base,
                                  int width, int height, void* out,
@@ -195,7 +197,8 @@ extern "C" int tile_trans_launch(const void* feat, long long stride,
   if (num_tiles > 0) {
     tile_trans_kernel<<<num_tiles, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(feat), stride,
+        walk::Rows{static_cast<const float*>(feat),
+                   static_cast<const int*>(rank), num_p, quantised},
         static_cast<const int*>(ranges), num_tiles,
         static_cast<const int*>(limit), grid_x, base, width, height,
         static_cast<float*>(out), ostride);

@@ -15,10 +15,12 @@
 // then serves P pixels.  Outputs and per-pixel inputs are indexed by the
 // pixel (py * 16 + px), not by the thread.
 //
-// Staging.  The feature table is feature-major ((9, B_pad) rows x, y, cxx,
-// cxy, cyy, op, r, g, b); the walk wants everything one instance needs in
-// as few shared-memory loads as possible.  A batch is staged
-// instance-major as up to three float4 per instance,
+// Staging.  An instance's features live in binning's depth-rank table
+// ((P, 9) f32 rows x, y, cxx, cxy, cyy, op, r, g, b, `feat_rank`), and slot
+// s of the aligned layout holds depth rank gauss_aligned[s]; no
+// slot-ordered copy of the table is made.  The walk wants everything one
+// instance needs in as few shared-memory loads as possible, so a batch is
+// staged instance-major as up to three float4 per instance,
 //
 //   sm[0][j] = (x, y, a, b)       a = -L/2 cxx, b = -L cxy
 //   sm[1][j] = (c, op, cxx, cxy)  c = -L/2 cyy
@@ -27,11 +29,20 @@
 // so a walked pair costs one LDS.128 and one LDS.64 (all lanes of a warp
 // read the same address: a broadcast) where six LDS.32 were dispatched before,
 // and a blended pair of K2 / K3 one more LDS.128 (K4, which needs no
-// colour, stages only the first two).  Each staging thread gathers the
-// four values of one float4 with four coalesced global loads and writes
-// them with one conflict-free 16-byte store, so the transposition costs no
-// bank conflicts.  L = log2(e) (kExp2) folds the exponent's change of base
-// into the conic once per instance:
+// colour, stages only the first two).  Each staging thread stages one
+// float4 of one slot: it reads the slot's rank (neighbouring threads,
+// neighbouring slots: one coalesced load a warp), then the four values
+// from that row of the table (__ldg: the three float4 of a row come from
+// the same sectors), and writes them with one conflict-free 16-byte store.
+// A rank outside [0, P) (the pad sentinel 2^31 - 1) reads row 0, as
+// BinningOut.gauss_id() does; a walk reads only slots inside the tiles'
+// ranges, but under slack overflow (total_padded > B_pad, redone by the
+// host) those may hold pads.  With `quantised` (grad_reduce bf16x2) the
+// opacity and blue are staged as the packed table of the JAX package
+// carries them: opacity as u16 fixed point, rint(op 65535) clamped to
+// [0, 65535] times 1/65535, blue rounded to bf16 (nearest even) and
+// widened; the other columns pass through.  L = log2(e) (kExp2) folds the
+// exponent's change of base into the conic once per instance:
 //
 //   L power = dx (a dx + b dy) + c dy^2,   e^power = 2^(L power)
 //
@@ -42,6 +53,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -129,35 +141,67 @@ __device__ __forceinline__ bool pair_alpha(const float4 a, const float2 b,
   return !(power > kPowerEps || alpha < kAlphaMin);
 }
 
-// One of the three float4 of instance `slot`, gathered from the
-// feature-major table.
-__device__ __forceinline__ float4 stage_load(const float* __restrict__ feat,
-                                             long long stride, int slot,
+// Where a walk stages its instances from: row rank[slot] of the
+// depth-rank table feat (num_p rows of kRows f32), quantised or not.
+struct Rows {
+  const float* feat;
+  const int* rank;
+  int num_p;
+  int quantised;
+};
+
+// The table row of slot `slot`: its rank, or 0 for a rank outside [0, P).
+__device__ __forceinline__ int row_of(const Rows& rows, int slot) {
+  const int r = __ldg(rows.rank + slot);
+  return static_cast<unsigned>(r) < static_cast<unsigned>(rows.num_p) ? r
+                                                                     : 0;
+}
+
+// The opacity the bf16x2 table carries: u16 fixed point, through the
+// integer (so -0.0 becomes 0), with no FMA contraction, as the torch ops
+// of the table's plain twin.
+__device__ __forceinline__ float quantised_opacity(float op) {
+  const float r =
+      fminf(fmaxf(rintf(__fmul_rn(op, 65535.0f)), 0.0f), 65535.0f);
+  return __fmul_rn(static_cast<float>(static_cast<int>(r)),
+                   static_cast<float>(1.0 / 65535.0));
+}
+
+// Blue as the bf16x2 table carries it: rounded to bf16, widened.
+__device__ __forceinline__ float quantised_blue(float b) {
+  return __bfloat162float(__float2bfloat16_rn(b));
+}
+
+// One of the three float4 of the instance in table row `row`.
+__device__ __forceinline__ float4 stage_load(const Rows& rows, int row,
                                              int which) {
-  const float* p = feat + slot;
+  const float* p = rows.feat + static_cast<size_t>(row) * kRows;
   float4 v;
   if (which == 0) {
     v.x = __ldg(p);
-    v.y = __ldg(p + stride);
-    v.z = (-0.5f * kScale) * __ldg(p + 2 * stride);
-    v.w = -kScale * __ldg(p + 3 * stride);
+    v.y = __ldg(p + 1);
+    v.z = (-0.5f * kScale) * __ldg(p + 2);
+    v.w = -kScale * __ldg(p + 3);
   } else if (which == 1) {
-    v.x = (-0.5f * kScale) * __ldg(p + 4 * stride);
-    v.y = __ldg(p + 5 * stride);
-    v.z = __ldg(p + 2 * stride);
-    v.w = __ldg(p + 3 * stride);
+    v.x = (-0.5f * kScale) * __ldg(p + 4);
+    const float op = __ldg(p + 5);
+    v.y = rows.quantised ? quantised_opacity(op) : op;
+    v.z = __ldg(p + 2);
+    v.w = __ldg(p + 3);
   } else {
-    v.x = __ldg(p + 6 * stride);
-    v.y = __ldg(p + 7 * stride);
-    v.z = __ldg(p + 8 * stride);
-    v.w = __ldg(p + 4 * stride);
+    v.x = __ldg(p + 6);
+    v.y = __ldg(p + 7);
+    const float b = __ldg(p + 8);
+    v.z = rows.quantised ? quantised_blue(b) : b;
+    v.w = __ldg(p + 4);
   }
   return v;
 }
 
 // Staging of the first kVecs float4 of each of a batch of kBatch instances
-// by a block of kThreads: first every global load of a thread (into
-// registers, all in flight together), then its shared-memory stores.
+// by a block of kThreads: first every rank load of a thread, then every
+// feature load (into registers, each group in flight together), then its
+// shared-memory stores.
 template <int kBatch, int kThreads, int kVecs = 3>
 struct Stage {
   static_assert(kBatch % 32 == 0, "a warp stages one kind of float4");
@@ -165,17 +209,23 @@ struct Stage {
   static constexpr int kItems = kVecs * kBatch;
   static constexpr int kIters = (kItems + kThreads - 1) / kThreads;
 
-  // instances [b0, b0 + n) of the table, n <= kBatch
-  static __device__ __forceinline__ void load(
-      float4 (&regs)[kIters], const float* __restrict__ feat,
-      long long stride, int b0, int n, int tid) {
+  // slots [b0, b0 + n) of the aligned layout, n <= kBatch
+  static __device__ __forceinline__ void load(float4 (&regs)[kIters],
+                                              const Rows& rows, int b0,
+                                              int n, int tid) {
+    int row[kIters];
+#pragma unroll
+    for (int i = 0; i < kIters; ++i) {
+      const int k = tid + i * kThreads;
+      const int j = k % kBatch;
+      if (k < kItems && j < n) row[i] = row_of(rows, b0 + j);
+    }
 #pragma unroll
     for (int i = 0; i < kIters; ++i) {
       const int k = tid + i * kThreads;
       const int which = k / kBatch;
       const int j = k - which * kBatch;
-      if (k < kItems && j < n)
-        regs[i] = stage_load(feat, stride, b0 + j, which);
+      if (k < kItems && j < n) regs[i] = stage_load(rows, row[i], which);
     }
   }
 

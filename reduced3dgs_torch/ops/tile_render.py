@@ -8,10 +8,13 @@ compositing semantics:
   stop the pixel before a blend that would push T below 1e-4
   C += c * alpha * T;  T *= 1 - alpha
 
-Instance features are feature-major (9, B_pad) rows [x, y, cxx, cxy, cyy,
-op, r, g, b] gathered in binning's K-aligned slot order; the per-pixel
-result is (num_tiles, 8, 256) rows [r, g, b, T_final, 0...], empty tiles
-colour 0 and T 1.  The background is added outside.
+Instance features are binning's depth-rank table (P, 9) f32 rows [x, y,
+cxx, cxy, cyy, op, r, g, b], read for slot s of the K-aligned layout
+through its rank gauss_aligned[s] (WalkFeatures): the kernels gather each
+instance as they stage it, the plain versions walk the feature-major (9,
+B_pad) table WalkFeatures.table() builds.  The per-pixel result is
+(num_tiles, 8, 256) rows [r, g, b, T_final, 0...], empty tiles colour 0
+and T 1.  The background is added outside.
 
 Kernels, each with its plain version beside it (the CPU runs the plain
 version; a CUDA tensor launches the kernel or raises):
@@ -38,6 +41,7 @@ versions alike.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -71,6 +75,46 @@ GRAD_REC = 12
 def _argtypes(*names):
     return [ctypes.c_void_p if n == "p" else ctypes.c_longlong if n == "l"
             else ctypes.c_int for n in names]
+
+
+class WalkFeatures(NamedTuple):
+    """What K2, K3 and K4 stage each instance from: row gauss_aligned[s]
+    of the depth-rank table for slot s (a rank outside [0, P), the pad
+    sentinel 2^31 - 1, reads row 0, as BinningOut.gauss_id()).  quantised
+    (grad_reduce="bf16x2"): the opacity and blue as the JAX package's
+    packed table carries them, u16 fixed point and bf16.  The kernels
+    gather in their staging loads (csrc/tile_walk.cuh); table() is the
+    plain twin of that staging."""
+
+    feat_rank: torch.Tensor  # (P, 9) f32, depth-rank order
+    gauss_aligned: torch.Tensor  # (B_pad,) int32 rank per slot
+    quantised: bool = False
+
+    @property
+    def device(self):
+        return self.feat_rank.device
+
+    @property
+    def b_pad(self) -> int:
+        return self.gauss_aligned.shape[0]
+
+    def table(self):
+        """The feature-major (9, B_pad) f32 table the walks see: each
+        slot's row, its opacity rint(op 65535) clamped to [0, 65535] times
+        1/65535 and its blue rounded to bf16 (nearest even) when
+        quantised, the other columns as they are."""
+        rank = self.gauss_aligned.long()
+        rank = torch.where((rank >= 0) & (rank < self.feat_rank.shape[0]),
+                           rank, 0)
+        rows = self.feat_rank[rank]
+        if self.quantised:
+            # through the u16 integer the packed column holds (-0.0 -> 0)
+            opq = torch.clamp(torch.round(rows[:, 5] * OP_FIX), 0.0, OP_FIX)
+            op = opq.to(torch.int32).to(torch.float32) * (1.0 / OP_FIX)
+            blue = rows[:, 8].to(torch.bfloat16).to(torch.float32)
+            rows = torch.cat([rows[:, 0:5], op[:, None], rows[:, 6:8],
+                              blue[:, None]], dim=1)
+        return rows.T.contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -133,9 +177,12 @@ def _busy_tiles(ranges, limit):
 # K2: forward compositing
 # ---------------------------------------------------------------------------
 
+# the staging arguments of K2 / K3 / K4: feat_rank, gauss_aligned, P, and
+# whether to quantise
+_STAGE_ARGS = ("p", "p", "i", "i")
 TILE_FWD = _cuda.Kernel("tile_fwd", "tile_fwd_launch",
-                        _argtypes("p", "l", "p", "i", "p", "i", "i", "i", "i",
-                                  "p", "p"))
+                        _argtypes(*_STAGE_ARGS, "p", "i", "p", "i", "i", "i",
+                                  "i", "p", "p"))
 
 
 def warp_pixels(warp_shape=(16, 2), pixels_per_thread: int = 1):
@@ -243,44 +290,53 @@ def tile_fwd_plain(feat, ranges, limit, grid_x: int, width: int,
     return out
 
 
-def _check_walk_inputs(name, feat, ranges, limit):
-    if feat.dtype != torch.float32 or feat.ndim != 2 \
-            or feat.shape[0] < TABLE_ROWS or feat.stride(1) != 1:
-        raise ValueError(f"{name}: feat must be (>=9, B_pad) f32 rows")
+def _check_walk_inputs(name, src: WalkFeatures, ranges, limit):
+    fr, ga = src.feat_rank, src.gauss_aligned
+    if fr.dtype != torch.float32 or fr.ndim != 2 \
+            or fr.shape[1] != TABLE_ROWS or not fr.is_contiguous():
+        raise ValueError(f"{name}: feat_rank must be contiguous (P, 9) f32")
+    if ga.dtype != torch.int32 or ga.ndim != 1 or not ga.is_contiguous():
+        raise ValueError(f"{name}: gauss_aligned must be contiguous (B_pad,) "
+                         "int32")
     if ranges.dtype != torch.int32 or not ranges.is_contiguous() \
             or ranges.shape[0] != 2:
         raise ValueError(f"{name}: ranges must be contiguous (2, T) int32")
     if limit.dtype != torch.int32 or limit.numel() != 1:
         raise ValueError(f"{name}: limit must be one int32")
-    for t in (ranges, limit):
-        if t.device != feat.device:
+    for t in (ga, ranges, limit):
+        if t.device != fr.device:
             raise ValueError(f"{name}: inputs must share one device")
 
 
-def _tile_fwd_cuda(feat, ranges, limit, grid_x: int, width: int,
-                   height: int, base: int = 0):
-    _check_walk_inputs("tile_fwd", feat, ranges, limit)
+def _stage_args(src: WalkFeatures):
+    return (_cuda.ptr(src.feat_rank), _cuda.ptr(src.gauss_aligned),
+            src.feat_rank.shape[0], int(src.quantised))
+
+
+def _tile_fwd_cuda(src: WalkFeatures, ranges, limit, grid_x: int,
+                   width: int, height: int, base: int = 0):
+    _check_walk_inputs("tile_fwd", src, ranges, limit)
     num_tiles = ranges.shape[1]
     out = torch.empty((num_tiles, PIX_ROWS, NPIX), dtype=torch.float32,
-                      device=feat.device)
-    with torch.cuda.device(feat.device):
-        TILE_FWD(_cuda.ptr(feat), feat.stride(0), _cuda.ptr(ranges),
-                 num_tiles, _cuda.ptr(limit), grid_x, base, width, height,
-                 _cuda.ptr(out), _cuda.stream_of(feat))
+                      device=src.device)
+    with torch.cuda.device(src.device):
+        TILE_FWD(*_stage_args(src), _cuda.ptr(ranges), num_tiles,
+                 _cuda.ptr(limit), grid_x, base, width, height,
+                 _cuda.ptr(out), _cuda.stream_of(src.feat_rank))
     return out
 
 
-def tile_fwd(feat, ranges, limit, grid_x: int, width: int, height: int,
-             base: int = 0):
-    """K2 dispatch: the CUDA kernel on a CUDA tensor, the plain version on
-    a CPU tensor (no fallback between them)."""
-    if feat.device.type == "cuda":
-        return _tile_fwd_cuda(feat, ranges, limit, grid_x, width, height,
+def tile_fwd(src: WalkFeatures, ranges, limit, grid_x: int, width: int,
+             height: int, base: int = 0):
+    """K2 dispatch: the CUDA kernel on CUDA tensors, the plain version on
+    src.table() on the CPU (no fallback between them)."""
+    if src.device.type == "cuda":
+        return _tile_fwd_cuda(src, ranges, limit, grid_x, width, height,
                               base)
-    if feat.device.type == "cpu":
-        return tile_fwd_plain(feat, ranges, limit, grid_x, width, height,
-                              base)
-    raise ValueError(f"tile_fwd: unsupported device {feat.device}")
+    if src.device.type == "cpu":
+        return tile_fwd_plain(src.table(), ranges, limit, grid_x, width,
+                              height, base)
+    raise ValueError(f"tile_fwd: unsupported device {src.device}")
 
 
 # ---------------------------------------------------------------------------
@@ -288,8 +344,8 @@ def tile_fwd(feat, ranges, limit, grid_x: int, width: int, height: int,
 # ---------------------------------------------------------------------------
 
 TILE_BWD = _cuda.Kernel("tile_bwd", "tile_bwd_launch",
-                        _argtypes("p", "l", "p", "i", "p", "i", "i", "i", "i",
-                                  "p", "p", "p", "i", "p"))
+                        _argtypes(*_STAGE_ARGS, "p", "i", "p", "i", "i", "i",
+                                  "i", "p", "p", "p", "i", "p"))
 
 
 def tile_bwd_plain(feat, ranges, limit, grid_x: int, width: int,
@@ -352,40 +408,40 @@ def tile_bwd_plain(feat, ranges, limit, grid_x: int, width: int,
     return dfeat
 
 
-def _tile_bwd_cuda(feat, ranges, limit, grid_x: int, width: int,
-                   height: int, g_packed, packed, base: int = 0):
-    _check_walk_inputs("tile_bwd", feat, ranges, limit)
+def _tile_bwd_cuda(src: WalkFeatures, ranges, limit, grid_x: int,
+                   width: int, height: int, g_packed, packed, base: int = 0):
+    _check_walk_inputs("tile_bwd", src, ranges, limit)
     num_tiles = ranges.shape[1]
     shape = (num_tiles, PIX_ROWS, NPIX)
     for name, t in (("g_packed", g_packed), ("packed", packed)):
         if t.dtype != torch.float32 or tuple(t.shape) != shape \
-                or not t.is_contiguous() or t.device != feat.device:
+                or not t.is_contiguous() or t.device != src.device:
             raise ValueError(f"tile_bwd: {name} must be contiguous "
                              f"{shape} f32 on the features' device")
     # zeros: slots the walk never reaches must read exactly 0.  One record
     # per slot (the layout K5 / K6 read); the caller sees its (9, B_pad)
     # transposed view, the same values as the plain version's rows.
-    records = torch.zeros((feat.shape[1], GRAD_REC), dtype=torch.float32,
-                          device=feat.device)
-    with torch.cuda.device(feat.device):
-        TILE_BWD(_cuda.ptr(feat), feat.stride(0), _cuda.ptr(ranges),
-                 num_tiles, _cuda.ptr(limit), grid_x, base, width, height,
+    records = torch.zeros((src.b_pad, GRAD_REC), dtype=torch.float32,
+                          device=src.device)
+    with torch.cuda.device(src.device):
+        TILE_BWD(*_stage_args(src), _cuda.ptr(ranges), num_tiles,
+                 _cuda.ptr(limit), grid_x, base, width, height,
                  _cuda.ptr(g_packed), _cuda.ptr(packed), _cuda.ptr(records),
-                 GRAD_REC, _cuda.stream_of(feat))
+                 GRAD_REC, _cuda.stream_of(src.feat_rank))
     return records.T[:TABLE_ROWS]
 
 
-def tile_bwd(feat, ranges, limit, grid_x: int, width: int, height: int,
-             g_packed, packed, base: int = 0):
-    """K3 dispatch: the CUDA kernel on a CUDA tensor, the plain version on
-    a CPU tensor (no fallback between them)."""
-    if feat.device.type == "cuda":
-        return _tile_bwd_cuda(feat, ranges, limit, grid_x, width, height,
+def tile_bwd(src: WalkFeatures, ranges, limit, grid_x: int, width: int,
+             height: int, g_packed, packed, base: int = 0):
+    """K3 dispatch: the CUDA kernel on CUDA tensors, the plain version on
+    src.table() on the CPU (no fallback between them)."""
+    if src.device.type == "cuda":
+        return _tile_bwd_cuda(src, ranges, limit, grid_x, width, height,
                               g_packed, packed, base)
-    if feat.device.type == "cpu":
-        return tile_bwd_plain(feat, ranges, limit, grid_x, width, height,
-                              g_packed, packed, base)
-    raise ValueError(f"tile_bwd: unsupported device {feat.device}")
+    if src.device.type == "cpu":
+        return tile_bwd_plain(src.table(), ranges, limit, grid_x, width,
+                              height, g_packed, packed, base)
+    raise ValueError(f"tile_bwd: unsupported device {src.device}")
 
 
 # ---------------------------------------------------------------------------
@@ -393,8 +449,8 @@ def tile_bwd(feat, ranges, limit, grid_x: int, width: int, height: int,
 # ---------------------------------------------------------------------------
 
 TILE_TRANS = _cuda.Kernel("tile_trans", "tile_trans_launch",
-                          _argtypes("p", "l", "p", "i", "p", "i", "i", "i",
-                                    "i", "p", "l", "p"))
+                          _argtypes(*_STAGE_ARGS, "p", "i", "p", "i", "i",
+                                    "i", "i", "p", "l", "p"))
 
 
 def tile_trans_plain(feat, ranges, limit, grid_x: int, width: int,
@@ -431,51 +487,50 @@ def tile_trans_plain(feat, ranges, limit, grid_x: int, width: int,
     return out
 
 
-def _tile_trans_cuda(feat, ranges, limit, grid_x: int, width: int,
-                     height: int, base: int = 0):
-    _check_walk_inputs("tile_trans", feat, ranges, limit)
+def _tile_trans_cuda(src: WalkFeatures, ranges, limit, grid_x: int,
+                     width: int, height: int, base: int = 0):
+    _check_walk_inputs("tile_trans", src, ranges, limit)
     # zeros: slots the walk never reaches must read exactly 0
-    out = torch.zeros((2, feat.shape[1]), dtype=torch.float32,
-                      device=feat.device)
-    with torch.cuda.device(feat.device):
-        TILE_TRANS(_cuda.ptr(feat), feat.stride(0), _cuda.ptr(ranges),
-                   ranges.shape[1], _cuda.ptr(limit), grid_x, base, width,
-                   height, _cuda.ptr(out), out.stride(0),
-                   _cuda.stream_of(feat))
+    out = torch.zeros((2, src.b_pad), dtype=torch.float32,
+                      device=src.device)
+    with torch.cuda.device(src.device):
+        TILE_TRANS(*_stage_args(src), _cuda.ptr(ranges), ranges.shape[1],
+                   _cuda.ptr(limit), grid_x, base, width, height,
+                   _cuda.ptr(out), out.stride(0),
+                   _cuda.stream_of(src.feat_rank))
     return out
 
 
-def tile_trans(feat, ranges, limit, grid_x: int, width: int, height: int,
-               base: int = 0):
-    """K4 dispatch: the CUDA kernel on a CUDA tensor, the plain version on
-    a CPU tensor (no fallback between them)."""
-    if feat.device.type == "cuda":
-        return _tile_trans_cuda(feat, ranges, limit, grid_x, width, height,
+def tile_trans(src: WalkFeatures, ranges, limit, grid_x: int, width: int,
+               height: int, base: int = 0):
+    """K4 dispatch: the CUDA kernel on CUDA tensors, the plain version on
+    src.table() on the CPU (no fallback between them)."""
+    if src.device.type == "cuda":
+        return _tile_trans_cuda(src, ranges, limit, grid_x, width, height,
                                 base)
-    if feat.device.type == "cpu":
-        return tile_trans_plain(feat, ranges, limit, grid_x, width, height,
-                                base)
-    raise ValueError(f"tile_trans: unsupported device {feat.device}")
+    if src.device.type == "cpu":
+        return tile_trans_plain(src.table(), ranges, limit, grid_x, width,
+                                height, base)
+    raise ValueError(f"tile_trans: unsupported device {src.device}")
 
 
 @torch.no_grad()
 def transmittance_by_primitive(binning: BinningOut, width: int, height: int,
                                base: int = 0):
     """(trans_sum (P,) f32, touched (P,) int32) in original primitive
-    order: K4 on the exact f32 feature table (whatever grad_reduce is),
-    then a scatter-add per primitive.  The accumulators are all positive,
-    so a direct sum per primitive keeps the precision the culling
-    statistics need; padding slots and slots at or past total_padded go
-    to a dump row.  base: as K2's (a strip's binning)."""
-    feat, ranges, limit, grid_x = _walk_inputs(binning, width, fast=False)
-    acc = tile_trans(feat, ranges, limit, grid_x, width, height, base)
-    b_pad = feat.shape[1]
+    order: K4 on the exact f32 features (whatever grad_reduce is), then a
+    scatter-add per primitive.  The accumulators are all positive, so a
+    direct sum per primitive keeps the precision the culling statistics
+    need; padding slots and slots at or past total_padded go to a dump
+    row.  base: as K2's (a strip's binning)."""
+    src, ranges, limit, grid_x = _walk_inputs(binning, width, fast=False)
+    acc = tile_trans(src, ranges, limit, grid_x, width, height, base)
     num_p = binning.prim_inv.shape[0]
-    slot = torch.arange(b_pad, device=feat.device)
+    slot = torch.arange(src.b_pad, device=acc.device)
     seg_id = torch.where(binning.pad_mask | (slot >= binning.total_padded),
                          num_p, binning.gauss_aligned).long()
     asum = torch.zeros((num_p + 1, 2), dtype=torch.float32,
-                       device=feat.device).index_add_(0, seg_id, acc.T)
+                       device=acc.device).index_add_(0, seg_id, acc.T)
     asum = asum[:num_p][binning.prim_inv.long()]  # depth rank -> original id
     return asum[:, 0], asum[:, 1].to(torch.int32)
 
@@ -615,34 +670,13 @@ def segment_reduce_by_src(dfeat, binning: BinningOut, grad_reduce="f32"):
 # ---------------------------------------------------------------------------
 
 def _pack_features(binning: BinningOut, fast: bool = False):
-    """Gather aligned instances into a feature-major (9, B_pad) f32 array
-    from binning's depth-rank feature table.  Padding slots pull rank 0's
-    row but sit outside every tile's [start, end) range.
-
-    fast (grad_reduce="bf16x2"): the gathered table is 8 int32 columns —
-    [x, y, cxx, cxy, cyy, r, g] bitcast f32 and one column of (u16
-    fixed-point opacity << 16 | bf16 blue) — unpacked after the gather to
-    the same f32 rows, so the kernels are the same in both modes.  The
-    packed column's sign bit is set for opacity >= 0.5, so its opacity is
-    shifted out and masked (torch's >> on int32 is arithmetic).
-    """
-    per = binning.feat_rank
-    gid = binning.gauss_id().long()
-    b_pad = gid.shape[0]
-    if not fast:
-        return per[gid].T.contiguous(), b_pad
-    # columns 0-4, 6, 7 (slices: an index list would be a host copy)
-    f32cols = torch.cat([per[:, 0:5], per[:, 6:8]], dim=1).view(torch.int32)
-    opq = torch.clamp(torch.round(per[:, 5] * OP_FIX), 0.0, OP_FIX)
-    bbits = per[:, 8].to(torch.bfloat16).view(torch.int16).to(torch.int32)
-    col7 = (opq.to(torch.int32) << 16) | (bbits & 0xFFFF)
-    g8 = torch.cat([f32cols, col7[:, None]], dim=1)[gid].T  # (8, B_pad)
-    r7 = g8[7]
-    op_row = ((r7 >> 16) & 0xFFFF).to(torch.float32) * (1.0 / OP_FIX)
-    f32rows = g8[0:7].contiguous().view(torch.float32)
-    feat = torch.cat([f32rows[0:5], op_row[None], f32rows[5:7],
-                      unpack_bf16x2(r7)[1][None]])
-    return feat, b_pad
+    """The feature-major (9, B_pad) f32 table the walks see for a binning,
+    and B_pad: the plain twin of the kernels' staging (WalkFeatures.table;
+    fast: the bf16x2 table's values), bit for bit the JAX package's
+    _pack_features.  Padding slots pull rank 0's row but sit outside every
+    tile's [start, end) range."""
+    src = WalkFeatures(binning.feat_rank, binning.gauss_aligned, fast)
+    return src.table(), src.b_pad
 
 
 def _packed_to_images(packed, grid_x, grid_y, width, height):
@@ -655,26 +689,29 @@ def _packed_to_images(packed, grid_x, grid_y, width, height):
 
 
 def _walk_inputs(binning: BinningOut, width: int, fast: bool):
+    """(WalkFeatures, ranges, limit, grid_x) of a binning: no table is
+    built here, the walks stage from feat_rank themselves."""
     grid_x, _ = tile_grid(width, 1)
-    feat, b_pad = _pack_features(binning, fast)
+    src = WalkFeatures(binning.feat_rank, binning.gauss_aligned, fast)
     # clamp: under slack overflow total_padded may exceed b_pad (the host
     # redoes the frame, see renderer.py); nothing past b_pad is read
-    limit = torch.clamp(binning.total_padded, max=b_pad).to(torch.int32)
-    return feat, binning.tile_ranges.contiguous(), limit, grid_x
+    limit = torch.clamp(binning.total_padded, max=src.b_pad).to(torch.int32)
+    return src, binning.tile_ranges.contiguous(), limit, grid_x
 
 
 def _core_fwd(binning: BinningOut, width: int, height: int,
               fast: bool = False):
     """Packed (num_tiles, 8, 256) tile output of K2 for one binning."""
-    feat, ranges, limit, grid_x = _walk_inputs(binning, width, fast)
-    return tile_fwd(feat, ranges, limit, grid_x, width, height)
+    src, ranges, limit, grid_x = _walk_inputs(binning, width, fast)
+    return tile_fwd(src, ranges, limit, grid_x, width, height)
 
 
 class _RasterizeCore(torch.autograd.Function):
     """Packed tile rows with K3 + K5/K6 as the backward (the JAX package's
     custom VJP, tile_render.py:952).  The values come from
-    binning.feat_rank (built from detached tensors); the gradients go to
-    the four differentiable inputs.  The backward marks the stage
+    binning.feat_rank (built from detached tensors), which both walks
+    stage from, so no per-slot table is saved; the gradients go to the
+    four differentiable inputs.  The backward marks the stage
     boundaries "tile_bwd" (K3), "reduce" (the key sort and K5 / K6) and
     "preprocess_bwd" (the rest of autograd, utils/profiling.py)."""
 
@@ -682,19 +719,19 @@ class _RasterizeCore(torch.autograd.Function):
     def forward(ctx, means2d, conic, opacity, color, binning, width, height,
                 grad_reduce, base):
         fast = grad_reduce == "bf16x2"
-        feat, ranges, limit, grid_x = _walk_inputs(binning, width, fast)
-        packed = tile_fwd(feat, ranges, limit, grid_x, width, height, base)
-        ctx.save_for_backward(feat, ranges, limit, packed)
-        ctx.meta = (binning, grid_x, width, height, grad_reduce, base)
+        src, ranges, limit, grid_x = _walk_inputs(binning, width, fast)
+        packed = tile_fwd(src, ranges, limit, grid_x, width, height, base)
+        ctx.save_for_backward(ranges, limit, packed)
+        ctx.meta = (binning, src, grid_x, width, height, grad_reduce, base)
         return packed
 
     @staticmethod
     def backward(ctx, g_packed):
-        feat, ranges, limit, packed = ctx.saved_tensors
-        binning, grid_x, width, height, grad_reduce, base = ctx.meta
+        ranges, limit, packed = ctx.saved_tensors
+        binning, src, grid_x, width, height, grad_reduce, base = ctx.meta
         device = g_packed.device
         profiling.stage("tile_bwd", device)
-        dfeat = tile_bwd(feat, ranges, limit, grid_x, width, height,
+        dfeat = tile_bwd(src, ranges, limit, grid_x, width, height,
                          g_packed.contiguous(), packed, base)
         profiling.stage("reduce", device)
         sums = segment_reduce_by_src(dfeat, binning, grad_reduce)

@@ -43,6 +43,13 @@ def _counting(fn, kernel):
     return run
 
 
+def _from_table(plain):
+    """A walk's plain version taking the kernel's WalkFeatures."""
+    def run(src, *a, **kw):
+        return plain(src.table(), *a, **kw)
+    return run
+
+
 def plain_counting(setattr):
     """The kernels' plain versions in place of the CUDA wrappers, each
     counting a launch as its kernel does, and the FPS ring and the
@@ -51,10 +58,10 @@ def plain_counting(setattr):
     setattr(trender, "FPS_MIN_FRAMES", 1)
     setattr(bench, "ITERS", 2)
     setattr(bench, "WINDOWS", 1)
-    setattr(ttr, "_tile_fwd_cuda", ttr.tile_fwd_plain)
-    setattr(ttr, "_tile_bwd_cuda", ttr.tile_bwd_plain)
+    setattr(ttr, "_tile_fwd_cuda", _from_table(ttr.tile_fwd_plain))
+    setattr(ttr, "_tile_bwd_cuda", _from_table(ttr.tile_bwd_plain))
     setattr(ttr, "_seg_reduce_cuda", ttr.seg_reduce_plain)
-    setattr(ttr, "_tile_trans_cuda", ttr.tile_trans_plain)
+    setattr(ttr, "_tile_trans_cuda", _from_table(ttr.tile_trans_plain))
     setattr(tbin, "_bin_keys_cuda", tbin.bin_keys_plain)
     setattr(tbin, "_tile_counts_cuda", tbin.tile_counts_plain)
     setattr(tbin, "tile_counts_plain", _counting(tbin.tile_counts_plain,

@@ -91,8 +91,9 @@ def test_lane_text():
 
 def test_phase10_and_11_rehearsal(cpu_card, capsys):
     case = cs.k4_case(cpu_card, cs.MAIN, 1 << 15, 0)
-    assert case["err"] == 0.0 and case["k4in"][0].shape[0] == 9
-    assert torch.equal(case["out"], ttr.tile_trans_plain(*case["k4in"]))
+    assert case["err"] == 0.0 and case["k4in"][0].feat_rank.shape[1] == 9
+    assert torch.equal(case["out"],
+                       ttr.tile_trans_plain(*cs.plain_inputs(case["k4in"])))
     row = cs.report_k4(case, 16)
     assert row["name"] == "tile_trans" and row["launches"] == 16
     assert row["bound_by"] == "operations" and row["library_ms"] is None

@@ -14,7 +14,9 @@ version, the largest by 1.9e-3), so a sequential walk and the vectorised
 plain version may flip one blend at a threshold; also on the
 edge cases (frames that are no multiples of 16, ranges of exactly 128 and
 256, a limit inside a batch, an empty frame), and bit for bit between two
-launches, as K3; the whole
+launches, as K3; K2 / K3 / K4 on a binning whose pads do not fit
+(total_padded > B_pad, pad slots inside the walked ranges) without a
+fault, repeatable, K2 / K3 within their criteria; the whole
 render on the card within atol 2e-5 / rtol 1e-4 of the CPU render.  K3
 holds to the same criterion relative to each gradient row's max, with
 exact zeros outside the walked ranges, written as slot-major records;
@@ -122,7 +124,7 @@ def test_tile_fwd_kernel_matches_plain(cuda):
     before = tile_render.TILE_FWD.launches
     got = tile_render.tile_fwd(*k2in, 13, 200, 136)
     assert tile_render.TILE_FWD.launches == before + 1
-    want = tile_render.tile_fwd_plain(*k2in, 13, 200, 136)
+    want = tile_render.tile_fwd_plain(*cs.plain_inputs(k2in), 13, 200, 136)
     torch.cuda.synchronize()
     err, share = cs.compare_k2(got, want)
     assert err <= 5e-3 and share >= 0.999, (err, share)
@@ -176,16 +178,55 @@ def test_tile_walk_two_launches_bit_identical(cuda, fast):
     import chip_smoke as cs
     from reduced3dgs_torch.ops import tile_render
 
-    _, _, (feat, ranges, limit) = cs.kernel_inputs(
+    _, _, (src, ranges, limit) = cs.kernel_inputs(
         cuda, 200, 136, 20000, (0.01, 0.05), 1 << 17, fast=fast)
-    a = tile_render.tile_fwd(feat, ranges, limit, 13, 200, 136)
-    b = tile_render.tile_fwd(feat, ranges, limit, 13, 200, 136)
+    a = tile_render.tile_fwd(src, ranges, limit, 13, 200, 136)
+    b = tile_render.tile_fwd(src, ranges, limit, 13, 200, 136)
     assert torch.equal(a, b)
     g = cs.k3_cotangent(a, 0)
-    da = tile_render.tile_bwd(feat, ranges, limit, 13, 200, 136, g, a)
-    db = tile_render.tile_bwd(feat, ranges, limit, 13, 200, 136, g, a)
+    da = tile_render.tile_bwd(src, ranges, limit, 13, 200, 136, g, a)
+    db = tile_render.tile_bwd(src, ranges, limit, 13, 200, 136, g, a)
     torch.cuda.synchronize()
     assert torch.equal(da, db) and float(da.abs().max()) > 0
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_tile_walk_pads_past_b_pad_in_bounds(cuda, fast):
+    """A binning whose alignment pads do not fit (total_padded > B_pad,
+    chip_smoke.overflow_binning): its walked ranges hold pad slots, whose
+    rank 2^31 - 1 K2 / K3 / K4 must read as row 0.  The launches finish
+    without a fault, two of each give the same bits, and K2 / K3 hold to
+    their plain versions on the same table (compare_k2 / compare_k3)."""
+    import chip_smoke as cs
+    from reduced3dgs_torch.ops import tile_render
+
+    b = cs.overflow_binning(cuda)
+    src, ranges, limit, gx = tile_render._walk_inputs(b, 200, fast)
+    s, e = ranges.long()
+    e = torch.minimum(e, limit.long())
+    walked = torch.cat([b.gauss_aligned[i:j]
+                        for i, j in zip(s.tolist(), e.tolist())])
+    assert bool((walked == torch.iinfo(torch.int32).max).any())
+    a = tile_render.tile_fwd(src, ranges, limit, gx, 200, 136)
+    g = cs.k3_cotangent(a, 0)
+    da = tile_render.tile_bwd(src, ranges, limit, gx, 200, 136, g, a)
+    ta = tile_render.tile_trans(src, ranges, limit, gx, 200, 136)
+    torch.cuda.synchronize()
+    assert torch.equal(a, tile_render.tile_fwd(src, ranges, limit, gx, 200,
+                                               136))
+    assert torch.equal(da, tile_render.tile_bwd(src, ranges, limit, gx, 200,
+                                                136, g, a))
+    assert torch.equal(ta, tile_render.tile_trans(src, ranges, limit, gx,
+                                                  200, 136))
+    feat = src.table()
+    err, share = cs.compare_k2(
+        a, tile_render.tile_fwd_plain(feat, ranges, limit, gx, 200, 136))
+    assert err <= 5e-3 and share >= 0.999, (err, share)
+    _, rel, share = cs.compare_k3(
+        da, tile_render.tile_bwd_plain(feat, ranges, limit, gx, 200, 136, g,
+                                       a))
+    assert rel <= 5e-3 and share >= 0.999, (rel, share)
+    torch.cuda.synchronize()
 
 
 def test_tile_trans_kernel_matches_plain(cuda):

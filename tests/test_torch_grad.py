@@ -24,6 +24,7 @@ import pytest
 import torch
 from test_tile_render import BUDGET, H, W, make_scene
 
+import chip_smoke as cs
 from chip_smoke import ragged_segments
 
 from reduced3dgs_torch import renderer as trenderer
@@ -230,6 +231,81 @@ def test_packed_feature_table_roundtrip():
     np.testing.assert_allclose(q[5], e[5], atol=0.5 / ttr.OP_FIX + 1e-7,
                                rtol=0)
     np.testing.assert_allclose(q[8], e[8], rtol=2 ** -8, atol=0)
+
+
+def _staging_ties():
+    """A hand-made binning for the staging's roundings: opacities at
+    exact u16 half-steps (op 65535 = q + 0.5 in f32, q even and odd),
+    at 0, 1 and past the clamp, most >= 0.5 (the packed column's sign
+    bit); blues at bf16 ties (low 16 bits 0x8000, even and odd), -0.0
+    and 0.0; random ranks with pad slots among them."""
+    rng = np.random.default_rng(5)
+    ops = []
+    for q in rng.integers(0, 65535, 4000):
+        for d in (-1, 0, 1):
+            op = np.nextafter(np.float32((q + 0.5) / 65535.0),
+                              np.float32(d * 2.0), dtype=np.float32) \
+                if d else np.float32((q + 0.5) / 65535.0)
+            if np.float32(op) * np.float32(65535.0) == q + 0.5:
+                ops.append(op)
+                break
+    ops = np.asarray(ops, np.float32)
+    assert len(ops) > 1000
+    p = ops.size + 6
+    feat = rng.normal(0, 3, (p, 9)).astype(np.float32)
+    feat[:ops.size, 5] = ops
+    feat[ops.size:, 5] = [0.0, 1.0, 1.0 + 2 ** -10, 0.5, -0.0, 2.0]
+    hi = rng.integers(0, 1 << 15, p).astype(np.uint32)
+    blue = ((hi << 16) | 0x8000).view(np.float32)
+    blue[::7] = -0.0
+    blue[3::7] = 0.0
+    feat[:, 8] = blue
+    b_pad = 2 * p
+    gauss = rng.integers(0, p, b_pad).astype(np.int32)
+    gauss[rng.random(b_pad) < 0.1] = np.iinfo(np.int32).max
+    return dict(gauss_aligned=gauss, tile_id=np.zeros(b_pad, np.int32),
+                tile_ranges=np.zeros((2, 1), np.int32),
+                num_rendered=np.int32(b_pad), total_padded=np.int32(b_pad),
+                seg_bounds=np.zeros(p + 1, np.int32),
+                prim_order=np.zeros(p, np.int32),
+                prim_inv=np.zeros(p, np.int32), feat_rank=feat)
+
+
+def _staging_binning(case):
+    """The fields of a binning of one staging case."""
+    if case == "ties":
+        return _staging_ties()
+    if case == "spilled":
+        import test_torch_pad_spill as spill
+
+        _, b = spill._binning(spill.make_witness())
+        assert int(b.total_padded) - int(b.num_rendered) \
+            > b.gauss_aligned.shape[0] - spill.BUDGET  # past the pool
+    else:
+        b = cs.overflow_binning(torch.device("cpu"))
+    return {k: np.asarray(getattr(b, k)) for k in b._fields}
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("case", ["ties", "spilled", "overflow"])
+def test_walk_staging_twin_matches_jax_pack_features(case, fast):
+    """WalkFeatures.table(), the plain twin of the walks' staging (each
+    slot's row of feat_rank through its rank, the bf16x2 table's
+    opacity and blue when quantised), bit for bit the JAX package's
+    _pack_features (int32 views) on rounding ties, on the pad-spill
+    witness's layout (tests/test_torch_pad_spill.py) and on a layout
+    whose pads do not fit (total_padded > B_pad)."""
+    fields = _staging_binning(case)
+    src = ttr.WalkFeatures(torch.as_tensor(fields["feat_rank"]),
+                           torch.as_tensor(fields["gauss_aligned"]), fast)
+    got = src.table().numpy()
+    jb = jbin.BinningOut(**{k: jnp.asarray(v) for k, v in fields.items()})
+    want, b_pad = jtr._pack_features(None, None, None, None, jb, fast=fast)
+    assert got.shape == (9, b_pad) and b_pad == src.b_pad
+    pads = fields["gauss_aligned"] == np.iinfo(np.int32).max
+    assert pads.any() and (~pads).any()
+    np.testing.assert_array_equal(got.view(np.int32),
+                                  np.asarray(want)[:9].view(np.int32))
 
 
 def _render_grads(pkg, grad_reduce, arrs, cams):

@@ -48,8 +48,8 @@ def _config():
     return cfg
 
 
-@pytest.fixture(scope="module")
-def witness():
+def make_witness():
+    """The witness's config, pool, pose and camera."""
     cfg = _config()
     leaves = scene.primitives(cfg, SEED, CPU)
     pool = GaussianPool(
@@ -63,6 +63,11 @@ def witness():
                  fov_y=scene.fov_y(cfg), image=None, image_name="witness",
                  width=W, height=H)
     return dict(cfg=cfg, pool=pool, pose=pose, cam=cam)
+
+
+@pytest.fixture(scope="module")
+def witness():
+    return make_witness()
 
 
 def _binning(w):

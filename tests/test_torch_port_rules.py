@@ -112,14 +112,17 @@ def test_kernel_wrappers_never_fall_back():
     with pytest.raises(ValueError, match="unsupported device"):
         binning.tile_counts(meta, meta, meta, meta[:1], 4, 3)
     feat = torch.empty((9, 128), device="meta")
+    src = tile_render.WalkFeatures(
+        torch.empty((5, 9), device="meta"),
+        torch.empty(128, dtype=torch.int32, device="meta"))
     ranges = torch.empty((2, 1), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        tile_render.tile_fwd(feat, ranges, meta[:1], 1, 16, 16)
+        tile_render.tile_fwd(src, ranges, meta[:1], 1, 16, 16)
     with pytest.raises(ValueError, match="unsupported device"):
-        tile_render.tile_trans(feat, ranges, meta[:1], 1, 16, 16)
+        tile_render.tile_trans(src, ranges, meta[:1], 1, 16, 16)
     pix = torch.empty((1, 8, 256), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        tile_render.tile_bwd(feat, ranges, meta[:1], 1, 16, 16, pix, pix)
+        tile_render.tile_bwd(src, ranges, meta[:1], 1, 16, 16, pix, pix)
     order = torch.empty(128, dtype=torch.int64, device="meta")
     for packed in (False, True):
         with pytest.raises(ValueError, match="unsupported device"):
@@ -182,8 +185,8 @@ def test_chip_smoke_kernel_inputs_and_cases():
             assert past.numel() == budget
     assert {"truncate", "empty", "P=0", "P=1"} <= set(names)
     _, b, k2in = cs.kernel_inputs("cpu", 64, 48, 2000, (0.02, 0.08), 8192)
-    out, pairs = tile_render.tile_fwd_plain(*k2in, 4, 64, 48,
-                                            count_pairs=True)
+    out, pairs = tile_render.tile_fwd_plain(*cs.plain_inputs(k2in), 4, 64,
+                                            48, count_pairs=True)
     assert cs.k2_ops(pairs) >= cs.K2_OPS_WALKED * pairs["walked"] > 0
     assert cs.compare_k2(out, out) == (0.0, 1.0)
     assert cs.bound(3.35e9, 0)[1] == "bytes"

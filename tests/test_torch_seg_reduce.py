@@ -22,7 +22,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import kernel_inputs, ragged_segments, skewed_lens
+from chip_smoke import (
+    kernel_inputs, plain_inputs, ragged_segments, skewed_lens,
+)
 
 from reduced3dgs_torch.ops import binning as tbin
 from reduced3dgs_torch.ops import tile_render as ttr
@@ -183,8 +185,9 @@ def _packed_rows_route(dfeat, binning):
 def test_bf16x2_reduction_is_bitwise_the_packed_rows_route():
     """segment_reduce_by_src(bf16x2) on K3's gradients of a small scene,
     and on a ragged layout, against the packed-rows route it replaces."""
-    _, b, (feat, ranges, limit) = kernel_inputs("cpu", 96, 64, 3000,
-                                                (0.02, 0.08), 1 << 15)
+    _, b, walk_in = kernel_inputs("cpu", 96, 64, 3000, (0.02, 0.08),
+                                  1 << 15)
+    feat, ranges, limit = plain_inputs(walk_in)
     packed = ttr.tile_fwd_plain(feat, ranges, limit, 6, 96, 64)
     g = torch.as_tensor(np.random.default_rng(4).normal(
         0, 1, tuple(packed.shape)).astype(np.float32))

@@ -126,7 +126,8 @@ def _walk_inputs(arrs, budget=BUDGET):
     prep = tprep.preprocess(a[0], a[2], a[3], a[4], a[1], a[5],
                             cam.params("cpu"))
     b = tbin.bin_gaussians(prep, W, H, budget)
-    return b, ttr._walk_inputs(b, W, fast=False)
+    src, ranges, limit, gx = ttr._walk_inputs(b, W, fast=False)
+    return b, (src.table(), ranges, limit, gx)
 
 
 def test_plain_k4_is_zero_off_the_walked_ranges():
@@ -197,6 +198,9 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
     class Fake:
         def __init__(self, kind):
             self.device = torch.device(kind)
+
+        def table(self):
+            return self
 
     ttr.tile_trans(Fake("cuda"), None, None, 1, 16, 16)
     ttr.tile_trans(Fake("cpu"), None, None, 1, 16, 16)
