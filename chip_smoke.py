@@ -470,9 +470,13 @@ def blocked_rungs():
         tknn._blocked_knn_step = step
 
 
-def search_of(rungs):
-    """What a kNN call did, from its blocked_rungs: ("exact", None) without
-    a rung, else ("blocked" or "brute_fallback", the last rung's m)."""
+def search_of(rungs, kernel_launches=0):
+    """What a kNN call did, from its blocked_rungs and the launches of
+    csrc/knn.cu it made: ("kernel", None) where it launched the kernel (a
+    card above EXACT_LIMIT), ("exact", None) without a rung, else
+    ("blocked" or "brute_fallback", the last rung's m)."""
+    if kernel_launches and not rungs:
+        return "kernel", None
     if not rungs:
         return "exact", None
     m, ok = rungs[-1]
@@ -1665,6 +1669,10 @@ def main(argv=None):
 
     # --- phase 24: binning's per-tile counts -------------------------------
     counts_kernel = tile_counts_path(dev, args.seed, smi)
+
+    # --- phase 25: the compression iteration at the m360_full size --------
+    torch.cuda.empty_cache()
+    knn_kernel = compress_path(dev, args.seed, smi)
     for k in kernels:
         k["launches_phase18"] = launches18[k["name"]]
         k["launches_phase19"] = launches19.get(k["name"], 0)
@@ -1678,6 +1686,7 @@ def main(argv=None):
     kernels.append(dict(prep_kernel, **prep_launches))
     kernels.append(dict(counts_kernel,
                         launches_phase4=launches["tile_counts"]))
+    kernels.append(knn_kernel)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2721,7 +2730,6 @@ def compression_main_path(dev, tr, it, root, smi, keep=False):
     mercy_it = -(-it // 4) * 4
     cull_it = mercy_it + 2
     tr.grad_reduce = "bf16x2"
-    tr.scene = scene
     tr.opt_cfg = dataclasses.replace(
         tr.opt_cfg, densify_until_iter=it, densification_interval=4,
         mercy_interval=1, mercy_points=True, std_threshold=0.04,
@@ -2749,16 +2757,19 @@ def compression_main_path(dev, tr, it, root, smi, keep=False):
 
     step_s = []
     alive_before = int(tr.state.pool.num_alive)
-    searches = []  # (seconds, rows, blocked rungs) of the mercy's kNN
+    # (seconds, rows, blocked rungs, kernel launches) of the mercy's kNN
+    searches = []
     knn_indices = redundancy.knn_indices
 
     def timed_knn(points, k, **kw):
         torch.cuda.synchronize()
+        launches = tknn.KNN.launches
         t0 = time.perf_counter()
         with blocked_rungs() as rungs:
             out = knn_indices(points, k, **kw)
         torch.cuda.synchronize()
-        searches.append((time.perf_counter() - t0, points.shape[0], rungs))
+        searches.append((time.perf_counter() - t0, points.shape[0], rungs,
+                         tknn.KNN.launches - launches))
         return out
 
     redundancy.knn_indices = timed_knn
@@ -2771,13 +2782,17 @@ def compression_main_path(dev, tr, it, root, smi, keep=False):
                 st = tr.stats
                 check("n_points_mercied" in st and len(searches) == 1,
                       "the mercy pass did not run, or not one kNN")
-                knn_s, rows, rungs = searches[0]
-                want = ("blocked" if rows > tknn.EXACT_LIMIT
-                        else "exact")  # knn's auto-select
-                method, m_cert = search_of(rungs)
-                check(method == want,
+                knn_s, rows, rungs, kl = searches[0]
+                # knn's auto-select: above the limit csrc/knn.cu (one
+                # launch) on a card, the blocked ladder on the CPU
+                want = "exact"
+                if rows > tknn.EXACT_LIMIT:
+                    want = "kernel" if dev.type == "cuda" else "blocked"
+                method, _ = search_of(rungs, kl)
+                check(method == want and kl == (want == "kernel"),
                       f"the mercy's 30-NN search was not the {want} one: "
-                      f"{method}, rungs {[m for m, _ in rungs]}")
+                      f"{method}, rungs {[m for m, _ in rungs]}, {kl} "
+                      "launches of csrc/knn.cu")
                 print(f"phase 12: mercy at iteration {i}: {alive_before} "
                       f"alive, {st['n_points_mercied']} mercied (redundancy "
                       f"threshold {st['redundancy_threshold']:.4f}, opacity "
@@ -2785,10 +2800,8 @@ def compression_main_path(dev, tr, it, root, smi, keep=False):
                       f"lambda_mercy {tr.opt_cfg.lambda_mercy}, "
                       f"mercy_minimum {tr.opt_cfg.mercy_minimum}); step "
                       f"{dt:.3f} s, of which the 30-NN search "
-                      f"{knn_s:.3f} s over {rows} rows ({want} "
-                      f"search; certified at shortlist m = {m_cert}, "
-                      f"rung {len(rungs)} of {len(tknn._M_LADDER)}); "
-                      f"{smi}", flush=True)
+                      f"{knn_s:.3f} s over {rows} rows ({want} search, "
+                      f"{kl} launch of csrc/knn.cu); {smi}", flush=True)
             if i == cull_it:
                 check_cull(d, "cull")
                 after = degree_histogram(tr.state.pool)
@@ -2823,7 +2836,8 @@ def compression_main_path(dev, tr, it, root, smi, keep=False):
     dt, _ = step(i)  # the culled pool trains on
     print(f"phase 12: one more step on the culled pool {dt:.3f} s",
           flush=True)
-    # did a cull render overflow the shared budget? (it is not redone)
+    # did a cull render overflow the shared budget? (renderer.fit redoes
+    # it at the next rung)
     budget = max(tr.budgets.values())
     pool = tr.state.pool
     bg = torch.zeros(3, device=dev)
@@ -2831,7 +2845,7 @@ def compression_main_path(dev, tr, it, root, smi, keep=False):
                                budget).num_rendered) for c in views)
     print(f"phase 12: the cull's shared budget {budget} against the views' "
           f"largest instance count {need}: "
-          f"{'OVERFLOW (truncated, not redone)' if need > budget else 'fits'}",
+          f"{'overflow (redone up the ladder)' if need > budget else 'fits'}",
           flush=True)
     launches = {n: k.launches for n, k in kernels.items()}
 
@@ -3691,10 +3705,12 @@ def scaling_line(smi):
 
 
 def knn_subset_check(dev, seed, smi):
-    """Part 5: the certified blocked 30-NN search against knn_exact on the
-    first MULTI['knn_points'] points of the bench scene: the same
-    neighbour sets (a near tie at the 30th may swap, then the distances
-    agree), distances within rtol 1e-5 / atol 2e-6."""
+    """Part 5: knn()'s 30-NN search above EXACT_LIMIT on the first
+    MULTI['knn_points'] points of the bench scene: on a card one launch of
+    csrc/knn.cu and no rung of the blocked ladder, bit for bit its plain
+    version; on the CPU the certified blocked ladder.  Against knn_exact
+    the same neighbour sets (a near tie at the 30th may swap, then the
+    distances agree), distances within rtol 1e-5 / atol 2e-6."""
     import torch
 
     from reduced3dgs_torch.ops import knn as tknn
@@ -3710,11 +3726,23 @@ def knn_subset_check(dev, seed, smi):
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
+    launches = tknn.KNN.launches
     with blocked_rungs() as rungs:
         (d2, idx), t_b = timed(lambda: tknn.knn(pts, k))
-    method, m_cert = search_of(rungs)
-    check(method == "blocked", f"kNN subset: {method}, rungs "
-          f"{[m for m, _ in rungs]}")
+    kl = tknn.KNN.launches - launches
+    on_card = dev.type == "cuda"
+    method, m_cert = search_of(rungs, kl)
+    check(method == ("kernel" if on_card else "blocked")
+          and kl == on_card, f"kNN subset: {method}, rungs "
+          f"{[m for m, _ in rungs]}, {kl} launches of csrc/knn.cu")
+    if on_card:
+        d2p, idxp = tknn.knn_sorted_plain(pts, k)
+        check(torch.equal(d2, d2p) and torch.equal(idx, idxp),
+              "kNN subset: csrc/knn.cu differs from knn_sorted_plain")
+        how = "csrc/knn.cu (one launch, bit for bit knn_sorted_plain)"
+    else:
+        how = (f"blocked search (certified at m = {m_cert}, rung "
+               f"{len(rungs)})")
     (d2e, idxe), t_e = timed(lambda: tknn.knn_exact(pts, k))
     same = (torch.sort(idx, 1).values == torch.sort(idxe, 1).values).all(1)
     direct = ((pts[idx] - pts[:, None, :]) ** 2).sum(-1)
@@ -3725,9 +3753,8 @@ def knn_subset_check(dev, seed, smi):
           f"kNN subset: distances off ({ex:.3e}, {ex2:.3e})")
     check(float(same.double().mean()) >= 0.999,
           f"kNN subset: {int((~same).sum())} neighbour sets differ")
-    print(f"phase 15: 30-NN of {pts.shape[0]} points of the scene: blocked "
-          f"search {t_b:.3f} s (certified at m = {m_cert}, rung "
-          f"{len(rungs)}) against knn_exact {t_e:.3f} s; neighbour sets "
+    print(f"phase 15: 30-NN of {pts.shape[0]} points of the scene: {how} "
+          f"{t_b:.3f} s against knn_exact {t_e:.3f} s; neighbour sets "
           f"equal on {int(same.sum())} of {same.numel()} points (the rest "
           f"swap a near tie: their distances agree), distances at most "
           f"{ex:.3e} past rtol 1e-5 (atol 2e-6); {smi}", flush=True)
@@ -4579,7 +4606,7 @@ def surgery_iterations(dev, seed, mesh, cams, leaves, acc, budget):
         kw = (dict(cls=ShardedTrainer, mesh=mesh, param_shard=True)
               if who == "sharded" else {})
         tr = make_trainer(student_pool(dev, leaves, seed), cams, seed,
-                          scene=RingScene(cams), cull_sh_iterations=(3,),
+                          cull_sh_iterations=(3,),
                           **kw)
         tr.opt_cfg = cfg
         tr.budgets = {c.uid: budget for c in cams}
@@ -5965,6 +5992,211 @@ def tile_counts_path(dev, seed, smi):
             "bound_by": "bytes", "library_ms": m360["library_ms"],
             "cases": cases, "timing_ms": timing,
             "launches_phase24": tbin.TILE_COUNTS.launches - before}
+
+
+# ---------------------------------------------------------------------------
+# phase 25: the compression iteration at the m360_full size (mercy with
+# csrc/knn.cu, the SH-band cull through renderer.fit)
+# ---------------------------------------------------------------------------
+
+def knn_cases():
+    """(name, points (numpy), k) cases for csrc/knn.cu: a clustered mix
+    with a knot of duplicates (ties by row), blocks of 32 cut mid-way,
+    fewer points than k + 1 and one point."""
+    rng = np.random.default_rng(25)
+    mix = np.concatenate([rng.normal(0, 0.15, (3000, 3)),
+                          rng.uniform(-2, 2, (2000, 3)),
+                          rng.normal([1.0, -0.5, 0.3], 0.01, (900, 3)),
+                          np.zeros((77, 3))]).astype(np.float32)
+    line = np.stack([np.linspace(0, 1, 1001)] * 3, 1).astype(np.float32)
+    return [("clustered", mix, 30), ("clustered", mix, 3),
+            ("collinear", line, 30), ("few", mix[:20], 30),
+            ("one", mix[:1], 3)]
+
+
+def knn_checks(dev, say=_say):
+    """csrc/knn.cu against knn_sorted_plain on knn_cases, bit for bit
+    (distances and rows), and two launches bit for bit.  Returns the
+    cases checked."""
+    import torch
+
+    from reduced3dgs_torch.ops import knn as tknn
+
+    for name, pts, k in knn_cases():
+        t = torch.as_tensor(pts, device=dev)
+        got = tknn._knn_cuda(t, k)
+        again = tknn._knn_cuda(t, k)
+        want = tknn.knn_sorted_plain(t, k)
+        for g, a, w, what in zip(got, again, want, ("distances", "rows")):
+            check(torch.equal(g, w), f"knn {name} k={k}: {what} != plain")
+            check(torch.equal(g, a), f"knn {name} k={k}: two launches")
+        say(f"phase 25: knn {name} ({len(pts)} points, k={k}) bit for bit")
+    return len(knn_cases())
+
+
+def compress_event(dev, seed, cfg, say=_say):
+    """One Trainer.step at full_final's compression iteration on the
+    benchmark's seeded `cfg` state (splatbench's train traffic at
+    iteration 15,000): each part's stage time, the counters held to the
+    host's own count (mercy_pruned, sh_demoted by pass and degree,
+    budget_redos), the kNN's blocks or rungs and its fallback rows, the
+    peak memory.  Returns the readings."""
+    import torch
+
+    from reduced3dgs_torch.utils import profiling
+    from splatbench.generators.train import Train
+
+    traffic = dict(first_iteration=15000, budget_headroom=1.1)
+    drv = Train(cfg, traffic, seed, dev)
+    tr = drv.trainer
+    check(tr.events_at(15000) == ("prune_dead", "mercy", "cull"),
+          f"phase 25: iteration 15000 runs {tr.events_at(15000)}")
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    profiling.reset()
+    with profiling.enable():
+        t0 = time.perf_counter()
+        tr.step(15000)
+        if cuda:
+            torch.cuda.synchronize(dev)
+        step_s = time.perf_counter() - t0
+    snap = profiling.snapshot()
+    profiling.reset()
+    pool = tr.state.pool
+    stages, counters = snap["stages"], snap["counters"]
+    cams = len(tr.cameras)
+    for n in profiling.MERCY_STAGES:
+        check(stages[n]["count"] == 1, f"phase 25: stage {n} not once")
+    for n in profiling.CULL_STAGES:
+        check(stages[n]["count"] == 2 * cams,
+              f"phase 25: stage {n} not twice a camera")
+    check(snap["stages_open"] == 0 and snap["stamps_dropped"] == 0,
+          "phase 25: a stage left open or a stamp dropped")
+    alive = pool.alive
+    hist = torch.bincount(pool.degrees[alive].long(), minlength=4).tolist()
+    c = {k: int(v["sum"]) for k, v in counters.items()}
+    mercied = tr.stats["n_points_mercied"]
+    check(c["mercy_pruned"] == mercied,
+          f"phase 25: mercy_pruned {c['mercy_pruned']} != {mercied}")
+    # every row starts at degree 3: the variance pass makes the degree-0
+    # rows, the distance pass's step to 1 the degree-1 rows, its step to 2
+    # the degree-2 rows and some of those
+    demoted = {k.split(".")[1]: v for k, v in c.items()
+               if k.startswith("sh_demoted.")}
+    check(demoted.get("variance_d0", 0) == hist[0]
+          and demoted.get("distance_d1", 0) == hist[1]
+          and hist[2] <= demoted.get("distance_d2", 0) <= hist[2] + hist[1]
+          and c.get("sh_demoted", 0) == sum(demoted.values()),
+          f"phase 25: sh_demoted {demoted} against degrees {hist}")
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    ms = {n: 1e3 * stages[n]["s"] for n in
+          profiling.MERCY_STAGES + profiling.CULL_STAGES}
+    knn = {k: v for k, v in c.items() if k.startswith("knn_")}
+    out = dict(step_s=step_s, stages_ms=ms, pruned=tr.stats[
+        "n_points_pruned"], mercy_pruned=c["mercy_pruned"],
+        sh_demoted=demoted, degrees=hist, knn=knn,
+        budget_redos=c.get("budget_redos", 0), peak_bytes=peak,
+        alive=int(alive.sum()))
+    say(f"phase 25: iteration 15000 at {cfg['width']}x{cfg['height']}, "
+        f"{cams} cameras, {cfg['primitives']} primitives: {step_s:.3f} s; "
+        f"stages ms {json.dumps({k: round(v, 3) for k, v in ms.items()})}; "
+        f"dead-pruned {out['pruned']}, mercy_pruned {out['mercy_pruned']}, "
+        f"sh_demoted {demoted} (degrees 0..3 {hist}), kNN {knn} (a card "
+        f"searches with csrc/knn.cu: no ladder, no fallback rows), "
+        f"budget_redos {out['budget_redos']}, peak {peak} B")
+    drv.close()
+    return out
+
+
+def knn_full_size(dev, seed, pts, k=30, plain_chunks=4, rows=64):
+    """csrc/knn.cu at the m360_full pool's alive rows `pts`: its lists on
+    splatbench's seeded sample of query rows against the reference's
+    brute force over every row (splatbench.generators.compress.
+    knn_mismatches: sets, ties by (distance, row); must be 0), its
+    distances there bit for bit sq_dist to the listed rows; its ms (CUDA
+    events, best of 5, with its Morton sort and boxes); the plain
+    version's ms (knn_sorted_plain, brute force) from `plain_chunks`
+    chunks of `rows` queries scaled to every row; and the least time
+    (splatbench/roofline_compress.py).  Returns those readings."""
+    import torch
+
+    from reduced3dgs_torch.ops import knn as tknn
+    from splatbench.generators import compress as gen
+    from splatbench.reference import full_precision
+    from splatbench.roofline_compress import knn_least_seconds
+
+    def timed(fn):
+        a, b = torch.cuda.Event(True), torch.cuda.Event(True)
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return out, a.elapsed_time(b)
+
+    d2, idx = tknn._knn_cuda(pts, k)
+    with full_precision():
+        wrong, n_q = gen.knn_mismatches(pts, idx, seed, dev)
+    g = torch.Generator(device=dev).manual_seed(int(seed) % (1 << 62) + 7)
+    q = torch.randperm(pts.shape[0], generator=g, device=dev)[:n_q]
+    direct = tknn.sq_dist(pts[q][:, None, :], pts[idx[q]])
+    check(wrong == 0, f"phase 25: csrc/knn.cu lists differ from brute force "
+          f"on {wrong} of {n_q} sampled rows at {pts.shape[0]} rows")
+    check(torch.equal(direct, d2[q]), "phase 25: csrc/knn.cu distances are "
+          "not sq_dist to its listed rows")
+    times = [timed(lambda: tknn._knn_cuda(pts, k))[1] for _ in range(5)]
+    plain = []
+    for c in range(plain_chunks + 1):  # the first warms up
+        _, t = timed(lambda: tknn.sorted_rows(pts, c * rows,
+                                              (c + 1) * rows, k))
+        plain.append(t)
+    plain_ms = sorted(plain[1:])[len(plain[1:]) // 2] * pts.shape[0] / rows
+    return dict(rows=pts.shape[0], sampled=n_q, mismatches=wrong,
+                ms=min(times), times_ms=sorted(times), plain_ms=plain_ms,
+                bound_ms=1e3 * knn_least_seconds(pts.shape[0], k))
+
+
+def compress_path(dev, seed, smi):
+    """Phase 25: knn_checks; csrc/knn.cu at the m360_full pool's alive
+    rows (knn_full_size: held to brute force on sampled rows, timed
+    against its bound and its plain version); then compress_event at the
+    m360_full_final configuration (the m360_full scene under full_final's
+    schedule), whose launches of the kernel are counted alone.
+    Returns the kNN kernel's entry of the kernels line."""
+    from reduced3dgs_torch.ops import knn as tknn
+    from splatbench import scene
+
+    t0 = time.perf_counter()
+    cases = knn_checks(dev)
+    with open(os.path.join(REPO, "splatbench", "configs",
+                           "m360_full_final.json")) as f:
+        cfg = json.load(f)
+    leaves = scene.primitives(cfg, seed, dev)
+    pts = leaves["xyz"][leaves["alive"]].contiguous()
+    del leaves
+    full = knn_full_size(dev, seed, pts)
+    del pts
+    print(f"phase 25: csrc/knn.cu at {full['rows']} rows, k 30: lists equal "
+          f"brute force on {full['sampled']} sampled rows; {full['ms']:.3f} "
+          f"ms (Morton order, boxes and the launch; of 5: "
+          f"{full['times_ms']}), bound {full['bound_ms']:.4f} ms, plain "
+          f"version {full['plain_ms']:.1f} ms (scaled from 64-row chunks); "
+          f"{smi}", flush=True)
+    tknn.KNN.launches = 0
+    event = compress_event(dev, seed, cfg)
+    launches = tknn.KNN.launches
+    check(launches == 1, f"phase 25: the compression iteration launched "
+          f"csrc/knn.cu {launches} times, not once (mercy's search)")
+    print(f"phase 25: {time.perf_counter() - t0:.3f} s", flush=True)
+    return {"name": "knn", "route": "cuda",
+            "source": "reduced3dgs_torch/csrc/knn.cu",
+            "replaces": "reduced3dgs_tpu/ops/knn.py:_blocked_knn",
+            "max_abs_err": 0.0, "ms": full["ms"],
+            "plain_ms": full["plain_ms"], "bound_ms": full["bound_ms"],
+            "bound_by": "bytes", "cases": cases,
+            "full_size": full, "event": event, "launches_phase25": launches}
+
 
 if __name__ == "__main__":
     sys.exit(main())

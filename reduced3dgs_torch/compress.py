@@ -70,7 +70,7 @@ def finetune(pool, scene, start, iters, stats=None):
         opacity_reset_interval=10 ** 9)
     tr = Trainer(pool, cfg, scene.get_train_cameras(),
                  spatial_lr_scale=scene.cameras_extent,
-                 background=np.zeros(3, np.float32), scene=scene,
+                 background=np.zeros(3, np.float32),
                  grad_reduce="bf16x2")
     tr.extent = scene.cameras_extent
     t0 = time.perf_counter()

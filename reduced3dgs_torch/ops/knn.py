@@ -14,10 +14,18 @@ distCUDA2 for the scale init, distIndex2 for the redundancy metric):
     neighbour, and the host reruns with the next shortlist size of
     _M_LADDER until every query is certified (one host read per rung),
     then falls back to brute force with a RuntimeWarning;
-  * ``_window_knn``: the approximate Morton-window sweep (opt-in).
+  * ``_window_knn``: the approximate Morton-window sweep (opt-in);
+  * on a card, above EXACT_LIMIT, ``_knn_cuda``: csrc/knn.cu, an exact
+    search over Morton-ordered blocks of 32 points in one launch (the
+    ladder's rungs took 3.5-10 s each at the 2.94M rows of a 2^22 pool and
+    none certified); distances by direct subtraction, ties to the lower
+    row, as its plain version ``knn_sorted_plain`` (brute force).  It is
+    built for k = 3 (distCUDA2) and 30 (the redundancy metric) and refuses
+    any other k with a RuntimeError.
 
-``knn(points, k)`` auto-selects as the JAX package does: brute force up to
-EXACT_LIMIT points, the certified blocked search above.  Rows with
+``knn(points, k)`` auto-selects: brute force up to EXACT_LIMIT points,
+above it the kernel on a card and the certified blocked search (the JAX
+package's rule) elsewhere.  Rows with
 non-finite coordinates are "absent" (the padding of a compacted pool):
 both exact searches run on the real rows only, so an absent row is never
 a neighbour while a real other point is left, and its own lists mean
@@ -28,13 +36,30 @@ copy that.
 The blocked search takes a chunk of query blocks per torch operation
 (batched (blocks, box, (m+1) box) distance tensors sized by device type)
 where the JAX package scans one block per step.
+
+Where the card's search departs from the JAX package's arithmetic: the
+JAX brute force (and its blocked search) chooses the neighbours on the
+expanded form |q|^2 - 2 q.c + |c|^2 and then recomputes the chosen
+ones' distances by direct subtraction; csrc/knn.cu (and
+knn_sorted_plain) chooses on (dx dx + dy dy) + dz dz itself, rounded
+after every operation.  So the two lists differ only where the k-th and
+(k+1)-th distances lie within the expanded form's cancellation, about
+2^-23 |q|^2 apart: such a row swaps one near tie for another at the
+list's end, and its distances agree within float32 rounding.  Exact ties
+go to the lower row on the card; JAX's top_k breaks them by position in
+its candidate order.  tests/test_torch_knn.py holds the plain version to
+the JAX package on points without near ties.
 """
 
 from __future__ import annotations
 
+import ctypes
 import warnings
 
 import torch
+
+from reduced3dgs_torch.ops import _cuda
+from reduced3dgs_torch.utils import profiling
 
 EXACT_LIMIT = 32768  # brute force up to this many points
 K_NEAREST = 3
@@ -285,16 +310,114 @@ def _blocked_knn_step(points, k: int, m: int, box: int):
 def _blocked_knn(points, k: int, box: int = _BOX):
     """Certified-exact blocked search: rerun with the next shortlist size
     until certified (one host read per rung), else brute force with a
-    RuntimeWarning."""
+    RuntimeWarning.  Host counters: knn_certified_blocks.m<m>, the query
+    blocks the certifying rung (shortlist size m) certified (the
+    certificate is the whole search's, so every block certifies at one
+    rung), or knn_fallback_rows, the rows brute force answers."""
     for m in _M_LADDER:
         d2, idx, ok = _blocked_knn_step(points, k, m, box)
         if bool(ok):
+            profiling.add(f"knn_certified_blocks.m{m}",
+                          -(-points.shape[0] // box))
             return d2, idx
+    profiling.add("knn_fallback_rows", points.shape[0])
     warnings.warn(
         f"blocked KNN shortlist ladder {_M_LADDER} exhausted without an "
         f"exactness certificate for {points.shape[0]} points; falling "
         "back to O(P^2) brute force", RuntimeWarning, stacklevel=2)
     return _knn_real(points, k)
+
+
+# ---------------------------------------------------------------------------
+# the card's exact search (csrc/knn.cu)
+# ---------------------------------------------------------------------------
+
+KNN = _cuda.Kernel("knn", "knn_launch", [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4)
+_KERNEL_BOX = 32  # points a block of the kernel, blocks a super-block
+
+
+def sq_dist(a, b):
+    """Squared distances (dx dx + dy dy) + dz dz, rounded after every
+    operation: csrc/knn.cu's arithmetic (broadcasting a against b)."""
+    d = a - b
+    return (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) \
+        + d[..., 2] * d[..., 2]
+
+
+def sorted_rows(points, q0: int, q1: int, k: int):
+    """knn_sorted_plain's queries q0:q1: their k least sq_dist to every
+    other point and those points' rows, ascending by (distance, row)."""
+    d2 = sq_dist(points[q0:q1, None, :], points[None, :, :])
+    q = torch.arange(d2.shape[0], device=d2.device)
+    d2[q, q + q0] = torch.inf
+    # ascending by distance; a stable sort keeps ties in row order
+    d2, by = torch.sort(d2, dim=1, stable=True)
+    return d2[:, :k], by[:, :k]
+
+
+def knn_sorted_plain(points, k: int, rows: int = 1024):
+    """Plain version of csrc/knn.cu on finite points: (P, k) squared
+    distances (sq_dist) and int64 rows of the k nearest other points,
+    ascending by (distance, row); +inf and -1 where fewer than k exist.
+    Brute force, `rows` queries at a time."""
+    p = points.shape[0]
+    ids = torch.arange(p, device=points.device)
+    d_out, i_out = [], []
+    for q0 in range(0, p, rows):
+        d2, by = sorted_rows(points, q0, q0 + rows, k)
+        d_out.append(d2)
+        i_out.append(by)
+    d2 = torch.cat(d_out) if d_out else points.new_zeros((0, k))
+    idx = torch.cat(i_out) if i_out else ids.new_zeros((0, k))
+    if d2.shape[1] < k:  # fewer than k other points
+        pad = k - d2.shape[1]
+        d2 = torch.cat([d2, d2.new_full((p, pad), torch.inf)], 1)
+        idx = torch.cat([idx, idx.new_full((p, pad), -1)], 1)
+    return d2, torch.where(torch.isinf(d2), -1, idx)
+
+
+def _boxes(blocks):
+    """(n, 6) min xyz, max xyz of each (n, m, 3) group's finite points
+    (+inf, -inf where it has none)."""
+    fin = torch.isfinite(blocks[..., :1])
+    return torch.cat([torch.where(fin, blocks, torch.inf).amin(dim=1),
+                      torch.where(fin, blocks, -torch.inf).amax(dim=1)], 1)
+
+
+def _knn_cuda(points, k: int):
+    """csrc/knn.cu on finite points: the Morton order, its blocks' and
+    super-blocks' boxes, one launch; the blocks the warps scanned go to
+    the device counter knn_scanned_blocks.  k other than 3 or 30 is
+    refused (RuntimeError from the launch)."""
+    p = points.shape[0]
+    dev = points.device
+    box = _KERNEL_BOX
+    order = torch.sort(morton_codes(points), stable=True).indices
+    pad = (-p) % box
+    sp = torch.cat([points[order].float(),
+                    points.new_full((pad, 3), torch.inf)]).contiguous()
+    orig = torch.cat([order.to(torch.int32),
+                      torch.full((pad,), -1, dtype=torch.int32,
+                                 device=dev)])
+    nb = sp.shape[0] // box
+    boxes = _boxes(sp.reshape(nb, box, 3))
+    ns = -(-nb // box)
+    spare = torch.tensor([torch.inf] * 3 + [-torch.inf] * 3, device=dev)
+    grouped = torch.cat([boxes, spare.expand(ns * box - nb, 6)])
+    grouped = grouped.reshape(ns, box, 6)
+    sboxes = torch.cat([grouped[..., :3].amin(dim=1),
+                        grouped[..., 3:].amax(dim=1)], 1).contiguous()
+    boxes = boxes.contiguous()
+    d2 = torch.empty((p, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((p, k), dtype=torch.int64, device=dev)
+    scanned = torch.zeros(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        KNN(_cuda.ptr(sp), _cuda.ptr(orig), _cuda.ptr(boxes),
+            _cuda.ptr(sboxes), nb, ns, k, _cuda.ptr(d2), _cuda.ptr(idx),
+            _cuda.ptr(scanned), _cuda.stream_of(sp))
+    profiling.count("knn_scanned_blocks", scanned[0])
+    return d2, idx
 
 
 # ---------------------------------------------------------------------------
@@ -304,11 +427,12 @@ def _blocked_knn(points, k: int, box: int = _BOX):
 def knn(points, k: int, window: int = 64, exact: bool | None = None):
     """(P, k) squared distances and int64 indices of the k nearest
     neighbours.  exact=None auto-selects: brute force up to EXACT_LIMIT
-    points, the certified blocked search above (both on the real rows
-    only); exact=True is brute force, exact=False the approximate Morton
-    window sweep."""
+    points, above it csrc/knn.cu on a card and the certified blocked
+    search elsewhere (each on the real rows only); exact=True is brute
+    force, exact=False the approximate Morton window sweep."""
     if exact is None and points.shape[0] > EXACT_LIMIT:
-        return _on_real_rows(points, k, _blocked_knn)
+        search = _knn_cuda if points.device.type == "cuda" else _blocked_knn
+        return _on_real_rows(points, k, search)
     if exact is False:
         return _window_knn(points, k, window)
     return knn_exact(points, k)

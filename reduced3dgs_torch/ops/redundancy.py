@@ -10,19 +10,41 @@ Counterpart of reduced3dgs_tpu/ops/redundancy.py:
      neighbour (``scatter_reduce_`` "amin" for the reference's atomicMin).
 
 The neighbours come from ops/knn.py:knn_indices (brute force up to
-EXACT_LIMIT rows, the certified blocked search above) on a compacted
-alive-rows-first view padded with +inf "absent" rows to a power-of-two
-bucket, as the JAX package searches it.
+EXACT_LIMIT rows; above it csrc/knn.cu on a card, the certified blocked
+search elsewhere) on a compacted alive-rows-first view padded with +inf
+"absent" rows to a power-of-two bucket, as the JAX package searches it.
+
+The cameras are any with the reference's full and inverse projection
+matrices and image size (``camera_stack``): the trainer's own, or a
+dataset Scene's.  The parts are the stages pixel_size, knn, intersect and
+allocate of utils/profiling.py (with their spans r3dgs.mercy.<part>); the
+caller marks what follows.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from reduced3dgs_torch.ops.knn import knn_indices
 from reduced3dgs_torch.ops.transforms import quat_to_rotmat
+from reduced3dgs_torch.utils import profiling
+
+
+def camera_stack(cameras, device):
+    """(projmatrices, inv_projmatrices, heights, widths) of `cameras`
+    (cameras.Camera: full_proj_transform, inverse_full_proj_transform,
+    height, width) on `device`: what redundancy_metric reads of them."""
+    def t(arrs, dtype):
+        return torch.as_tensor(np.stack(arrs), dtype=dtype, device=device)
+
+    return (t([c.full_proj_transform for c in cameras], torch.float32),
+            t([c.inverse_full_proj_transform for c in cameras],
+              torch.float32),
+            t([c.height for c in cameras], torch.int32),
+            t([c.width for c in cameras], torch.int32))
 
 
 def min_projected_pixel_size(xyz, projmatrices, inv_projmatrices, heights,
@@ -84,26 +106,35 @@ def allocate_min_redundancy(red_values, neighbours, mask, num_points):
     return out[:num_points]
 
 
+def _finite(pts, absent):
+    """absent rows carry inf coordinates; keep the projection finite for
+    them (their outputs are masked)"""
+    return torch.where(absent[:, None], 0.0, pts)
+
+
 def _redundancy_core(pts, scales, rotations_norm, absent, neighbours,
                      projmatrices, inv_projmatrices, heights, widths,
-                     pixel_scale):
+                     pixel_scale, cube_size=None):
+    """cube_size: min_projected_pixel_size of the rows, when the caller
+    has it already."""
     p = pts.shape[0]
-    # absent rows carry inf coordinates; keep the projection finite for
-    # them (their outputs are masked below)
-    safe = torch.where(absent[:, None], 0.0, pts)
-    cube_size = min_projected_pixel_size(
-        safe, projmatrices, inv_projmatrices, heights, widths)
-    half_diag = cube_size * pixel_scale * math.sqrt(3.0) / 2.0
-    counts, mask = sphere_ellipsoid_intersection(
-        safe, scales, rotations_norm, neighbours, half_diag)
-    # absent rows intersect nothing, scatter nothing and are never a
-    # valid neighbour
-    mask = mask & ~absent[:, None] & ~absent[neighbours]
-    counts = torch.where(absent, 0, counts + 1).to(torch.int32)  # + self
-    self_idx = torch.arange(p, device=pts.device)[:, None]
-    neighbours = torch.cat([self_idx, neighbours], dim=1)
-    mask = torch.cat([~absent[:, None], mask], dim=1)
-    min_red = allocate_min_redundancy(counts, neighbours, mask, p)
+    safe = _finite(pts, absent)
+    if cube_size is None:
+        cube_size = min_projected_pixel_size(
+            safe, projmatrices, inv_projmatrices, heights, widths)
+    with profiling.part("intersect", pts.device):
+        half_diag = cube_size * pixel_scale * math.sqrt(3.0) / 2.0
+        counts, mask = sphere_ellipsoid_intersection(
+            safe, scales, rotations_norm, neighbours, half_diag)
+        # absent rows intersect nothing, scatter nothing and are never a
+        # valid neighbour
+        mask = mask & ~absent[:, None] & ~absent[neighbours]
+        counts = torch.where(absent, 0, counts + 1).to(torch.int32)  # self
+        self_idx = torch.arange(p, device=pts.device)[:, None]
+        neighbours = torch.cat([self_idx, neighbours], dim=1)
+        mask = torch.cat([~absent[:, None], mask], dim=1)
+    with profiling.part("allocate", pts.device):
+        min_red = allocate_min_redundancy(counts, neighbours, mask, p)
     return min_red, cube_size
 
 
@@ -125,13 +156,19 @@ def redundancy_metric(xyz, scales, rotations_norm, alive, projmatrices,
     sel = order[:m]
     absent = torch.arange(m, device=dev) >= n_alive
     xyz_c = torch.where(absent[:, None], torch.inf, xyz[sel])
-    if neighbours_fn is None:
-        neighbours = knn_indices(xyz_c, num_neighbours)
-    else:
-        neighbours = neighbours_fn(xyz_c, num_neighbours)
+    with profiling.part("pixel_size", dev):
+        cube_c = min_projected_pixel_size(
+            _finite(xyz_c, absent), projmatrices, inv_projmatrices, heights,
+            widths)
+    with profiling.part("knn", dev):
+        if neighbours_fn is None:
+            neighbours = knn_indices(xyz_c, num_neighbours)
+        else:
+            neighbours = neighbours_fn(xyz_c, num_neighbours)
     red_c, cube_c = _redundancy_core(
         xyz_c, scales[sel], rotations_norm[sel], absent, neighbours.long(),
-        projmatrices, inv_projmatrices, heights, widths, float(pixel_scale))
+        projmatrices, inv_projmatrices, heights, widths, float(pixel_scale),
+        cube_c)
     red = torch.zeros(cap, dtype=torch.int32, device=dev)
     red[sel] = torch.where(absent, 0, red_c).to(torch.int32)
     cube = torch.zeros(cap, dtype=torch.float32, device=dev)

@@ -16,10 +16,17 @@ weighted_variance (P,1,3), weighted_mean (P,1,3)) with the reference's
 division by the weight sum: NaN where a primitive never blended, which
 the culling passes turn into 0 (so such primitives are demoted).
 
-Every render of one cull shares one instance budget and an overflowing
-render is not redone, as in the JAX package.  The statistics run under
-torch.inference_mode; the two passes build the new pool under no_grad, so
-its tensors can go on training.
+Every render of one cull starts at one instance budget; an overflowing
+render is redone up the ladder by renderer.fit (counted in budget_redos),
+so its statistics are those of a whole render, where the JAX package
+keeps the truncated one.  The statistics run under torch.inference_mode;
+the two passes build the new pool under no_grad, so its tensors can go on
+training.
+
+Tracing (utils/profiling.py): each camera's transmittance render is the
+stage cull_render (its own boundaries muted) and its statistics the stage
+cull_stats, then END; the device counter sh_demoted takes the rows each
+pass demotes, keyed by the pass and the degree they go to.
 """
 
 from __future__ import annotations
@@ -30,7 +37,8 @@ from reduced3dgs_torch.models.gaussians import GaussianPool
 from reduced3dgs_torch.ops import sh as sh_ops
 from reduced3dgs_torch.ops import transforms as tf
 from reduced3dgs_torch.ops.preprocess import CameraParams
-from reduced3dgs_torch.renderer import render
+from reduced3dgs_torch.renderer import fit, render
+from reduced3dgs_torch.utils import profiling
 
 # band of each features_rest coefficient (rest index i is coefficient i+1)
 _REST_BAND = (1,) * 3 + (2,) * 5 + (3,) * 7
@@ -39,13 +47,19 @@ _REST_BAND = (1,) * 3 + (2,) * 5 + (3,) * 7
 def render_transmittance(pool: GaussianPool, features, cam: CameraParams, *,
                          budget, backend):
     """One transmittance render of the whole pool (features: its (C, 16,
-    3) coefficients): (radii, trans_sum, touched) per primitive."""
-    out = render(
-        pool.params.xyz, features, pool.params.scaling, pool.params.rotation,
-        pool.params.opacity[:, 0], pool.degrees, cam,
-        torch.zeros(3, device=features.device), width=cam.width,
-        height=cam.height, instance_budget=budget, alive_mask=pool.alive,
-        backend=backend, want_transmittance=True)
+    3) coefficients): (radii, trans_sum, touched) per primitive.  Starts
+    at `budget` and redoes an overflow up the ladder (renderer.fit: one
+    host read of num_rendered a render)."""
+    def attempt(b):
+        out = render(
+            pool.params.xyz, features, pool.params.scaling,
+            pool.params.rotation, pool.params.opacity[:, 0], pool.degrees,
+            cam, torch.zeros(3, device=features.device), width=cam.width,
+            height=cam.height, instance_budget=b, alive_mask=pool.alive,
+            backend=backend, want_transmittance=True)
+        return out, int(out.num_rendered)
+
+    out, _ = fit(attempt, budget)
     return out.radii, out.transmittance_sum, out.pixels_touched
 
 
@@ -99,11 +113,24 @@ def calculate_colours_variance(pool: GaussianPool, cameras, *,
     feats = pool.features()
     for cam in cameras:
         cp = cam.params(dev) if hasattr(cam, "params") else cam
-        seen = transmittance(pool, feats, cp, budget=budget, backend=backend)
-        acc = _accumulate_camera(acc, pool.params.xyz, feats, pool.degrees,
-                                 cp, *seen, max_sh_degree=max_sh_degree)
+        with profiling.part("cull_render", dev), profiling.muted():
+            seen = transmittance(pool, feats, cp, budget=budget,
+                                 backend=backend)
+        with profiling.part("cull_stats", dev):
+            acc = _accumulate_camera(acc, pool.params.xyz, feats,
+                                     pool.degrees, cp, *seen,
+                                     max_sh_degree=max_sh_degree)
+        profiling.stage(profiling.END, dev)
     wsum, dist_accum, mean, var = acc
     return dist_accum / wsum, var / wsum[:, :, None], mean
+
+
+def _demoted(rows, pass_index: int, degree: int):
+    """The device counter sh_demoted: the rows a pass (0 variance, 1
+    distance) lowers to `degree`."""
+    if profiling.on():
+        profiling.count("sh_demoted", rows.sum().to(torch.int32),
+                        aux=pass_index << 2 | degree)
 
 
 @torch.no_grad()
@@ -115,6 +142,7 @@ def low_variance_colour_culling(pool: GaussianPool, std_threshold,
     std = torch.nan_to_num(torch.sqrt(weighted_variance))  # (P,1,3)
     std = std.mean(dim=2)[:, 0]  # (P,)
     mask = pool.alive & (std < std_threshold)
+    _demoted(mask & (pool.degrees > 0), 0, 0)
     m3 = mask[:, None, None]
     f_dc = torch.where(m3, (weighted_mean - 0.5) / sh_ops.SH_C0,
                        pool.params.features_dc)
@@ -135,6 +163,7 @@ def low_distance_colour_culling(pool: GaussianPool, threshold,
     band = torch.tensor(_REST_BAND, device=pool.device)
     for d in range(active_sh_degree - 1, 0, -1):
         mask = pool.alive & (dists[:, d] < threshold)
+        _demoted(mask & (degrees > d), 1, d)
         degrees = torch.where(mask, torch.clamp(degrees, max=d), degrees)
         kill = mask[:, None] & (band[None, :] > d)  # bands above d
         f_rest = torch.where(kill[:, :, None], 0.0, f_rest)

@@ -162,27 +162,19 @@ class Scene:
     def calculate_redundancy_metric(self, pixel_scale=1.0,
                                     num_neighbours=30, columns=None):
         """(min_redundancy (C,) int32, cube_size (C,)) of ``self.pool``
-        over the training cameras (ops/redundancy.py).  columns: the
-        (xyz, activated scales, normalised rotations, alive) to read in
-        place of ``self.pool``'s (a sharded trainer's gathered ones)."""
-        import torch
+        over the training cameras (ops/redundancy.py, as a Trainer
+        computes it from its own cameras).  columns: the (xyz, activated
+        scales, normalised rotations, alive) to read in place of
+        ``self.pool``'s (a sharded trainer's gathered ones)."""
+        from reduced3dgs_torch.ops.redundancy import (
+            camera_stack, redundancy_metric,
+        )
 
-        from reduced3dgs_torch.ops.redundancy import redundancy_metric
-
-        cams = self.get_train_cameras()
         if columns is None:
             pool = self.pool
             columns = (pool.params.xyz, pool.get_scaling(),
                        pool.get_rotation(), pool.alive)
-        dev = columns[0].device
-
-        def t(arrs, dtype):
-            return torch.as_tensor(np.stack(arrs), dtype=dtype, device=dev)
-
         return redundancy_metric(
-            *columns,
-            t([c.full_proj_transform for c in cams], torch.float32),
-            t([c.inverse_full_proj_transform for c in cams], torch.float32),
-            t([c.height for c in cams], torch.int32),
-            t([c.width for c in cams], torch.int32),
+            *columns, *camera_stack(self.get_train_cameras(),
+                                    columns[0].device),
             pixel_scale=pixel_scale, num_neighbours=num_neighbours)

@@ -169,7 +169,7 @@ def main(argv=None):
         scene.pool, opt, scene.get_train_cameras(),
         spatial_lr_scale=scene.cameras_extent, background=background,
         backend=backend, max_sh_degree=dataset.sh_degree, seed=args.seed,
-        cull_sh_iterations=args.cull_SH, scene=scene,
+        cull_sh_iterations=args.cull_SH,
         white_background=dataset.white_background,
         grad_reduce=pipe.grad_reduce)
     trainer.extent = scene.cameras_extent

@@ -10,8 +10,9 @@ Trainer does: the random camera order and backgrounds (numpy's
 default_rng(seed), drawn at the same points), the SH-degree schedule,
 the densify / prune / opacity-reset cadence, the store_grads ordering of
 backward -> surgery -> optimizer step, mercy culling by the redundancy
-metric, adaptive SH-band culling at the given iterations, pool-capacity
-growth and the per-camera instance budget on the {2^k, 3*2^(k-1)} ladder.
+metric of its own training cameras, adaptive SH-band culling at the given
+iterations, pool-capacity growth and the per-camera instance budget on the
+{2^k, 3*2^(k-1)} ladder.
 
 Loss:
   (1-lambda_dssim) L1 + lambda_dssim (1-SSIM)
@@ -49,6 +50,7 @@ from reduced3dgs_torch.models.gaussians import (
 )
 from reduced3dgs_torch.ops.losses import abs_jax, l1_loss, ssim
 from reduced3dgs_torch.ops.preprocess import CameraParams
+from reduced3dgs_torch.ops.redundancy import camera_stack, redundancy_metric
 from reduced3dgs_torch.renderer import fit, next_budget, render
 from reduced3dgs_torch.train import adam, densify
 from reduced3dgs_torch.train.adam import AdamState
@@ -407,29 +409,33 @@ def mercy_step(state: TrainState, splat_counts, *, lambda_mercy,
     """mercy_points on the redundancy metric's per-primitive values (the
     whole capacity's, mercy_counts); the coin flips of
     "redundancy_random" come from the state's generator (or `uniform`,
-    see densify.mercy_points)."""
+    see densify.mercy_points).  The stage mercy_select (utils/profiling.py)
+    and the device counter mercy_pruned, the rows it removes."""
     pool, opt, gen = state
-    pool, opt, stats = densify.mercy_points(
-        pool, opt, splat_counts, lambda_mercy=lambda_mercy,
-        mercy_minimum=mercy_minimum, mercy_type=mercy_type, generator=gen,
-        uniform=uniform, rows=rows)
+    with profiling.part("mercy_select", pool.device):
+        pool, opt, stats = densify.mercy_points(
+            pool, opt, splat_counts, lambda_mercy=lambda_mercy,
+            mercy_minimum=mercy_minimum, mercy_type=mercy_type,
+            generator=gen, uniform=uniform, rows=rows)
+        profiling.count("mercy_pruned",
+                        stats["n_points_mercied"].to(torch.int32))
     return TrainState(pool, opt, gen), stats
 
 
 @torch.no_grad()
-def mercy_counts(state: TrainState, scene, *, pixel_scale,
+def mercy_counts(state: TrainState, cameras, *, pixel_scale,
                  rows=densify.WHOLE):
-    """The redundancy metric of the whole pool over the scene's training
-    cameras (Scene.calculate_redundancy_metric) on the whole columns it
-    reads: xyz, activated scale, normalised rotation and alive (41 B a
-    row; on a row shard gathered, and every tile member computes the
-    whole (C,) result)."""
+    """The redundancy metric of the whole pool over `cameras`' training
+    cameras (a Trainer's or a dataset Scene's calculate_redundancy_metric)
+    on the whole columns it reads: xyz, activated scale, normalised
+    rotation and alive (41 B a row; on a row shard gathered, and every
+    tile member computes the whole (C,) result)."""
     pool = state.pool
     cols = tuple(rows.column(x) for x in (
         pool.params.xyz, pool.get_scaling(), pool.get_rotation(),
         pool.alive))
-    return scene.calculate_redundancy_metric(pixel_scale=pixel_scale,
-                                             columns=cols)[0]
+    return cameras.calculate_redundancy_metric(pixel_scale=pixel_scale,
+                                               columns=cols)[0]
 
 
 @torch.no_grad()
@@ -457,8 +463,8 @@ class Trainer:
                  cameras, *, spatial_lr_scale: float, background,
                  backend: str = "tile", max_sh_degree: int = 3,
                  seed: int = 0, initial_budget: int = 1 << 17,
-                 cull_sh_iterations=(), scene=None,
-                 white_background: bool = False, grad_reduce: str = "f32"):
+                 cull_sh_iterations=(), white_background: bool = False,
+                 grad_reduce: str = "f32"):
         self.opt_cfg = opt_cfg
         self.white_background = white_background
         self.cameras = list(cameras)
@@ -475,7 +481,7 @@ class Trainer:
         self.rng = np.random.default_rng(seed)
         self.initial_budget = initial_budget
         self.cull_sh_iterations = tuple(cull_sh_iterations)
-        self.scene = scene  # the redundancy metric (mercy) needs it
+        self._cameras_stacked = None  # the redundancy metric's, made once
         # the state's row layout, which the surgery's events run on
         self.rows = WholeRows()
         # start of the compression fine-tune phase: no mercy after it
@@ -507,6 +513,24 @@ class Trainer:
     def next_camera(self):
         return self.cameras[self._next_camera_idx()]
 
+    def calculate_redundancy_metric(self, pixel_scale=1.0,
+                                    num_neighbours=30, columns=None):
+        """(min_redundancy (C,) int32, cube_size (C,)) of the state's pool
+        over the training cameras, as Scene.calculate_redundancy_metric
+        computes it (ops/redundancy.py): the cameras' projections and
+        sizes stacked on the device once.  columns: the (xyz, activated
+        scales, normalised rotations, alive) to read in place of the
+        pool's (a sharded trainer's gathered ones).  Mercy reads it."""
+        if columns is None:
+            pool = self.state.pool
+            columns = (pool.params.xyz, pool.get_scaling(),
+                       pool.get_rotation(), pool.alive)
+        if self._cameras_stacked is None:
+            self._cameras_stacked = camera_stack(self.cameras, self.device)
+        return redundancy_metric(*columns, *self._cameras_stacked,
+                                 pixel_scale=pixel_scale,
+                                 num_neighbours=num_neighbours)
+
     def gt_image(self, camera):
         """The camera's ground truth as a device tensor (cached)."""
         img = self._gt.get(camera.uid)
@@ -530,13 +554,21 @@ class Trainer:
         will_prune_dead = (iteration >= cfg.densify_until_iter
                            and cfg.prune_dead_points
                            and iteration % cfg.densification_interval == 0)
-        will_mercy = (cfg.mercy_points and self.scene is not None
+        will_mercy = (cfg.mercy_points
                       and iteration % (cfg.mercy_interval
                                        * cfg.densification_interval) == 0
                       and iteration <= self.fine_tune_start
                       and (iteration >= cfg.densify_until_iter
                            or iteration % cfg.opacity_reset_interval != 0))
         return will_densify, will_reset, will_prune_dead, will_mercy
+
+    def events_at(self, iteration):
+        """The names (of EVENTS) of the surgeries step(iteration) runs, in
+        the order it runs them: "cull" where the iteration is listed in
+        cull_sh_iterations."""
+        ran = self._events(iteration) + (
+            iteration in self.cull_sh_iterations,)
+        return tuple(n for n, r in zip(EVENTS, ran) if r)
 
     def fusible(self, iteration):
         """True when `iteration` has no host boundary of the trainer (SH
@@ -759,11 +791,10 @@ class Trainer:
         in parallel/sharded.py:ShardedTrainer)."""
         cfg = self.opt_cfg
         rows = self.rows
-        events = self._events(iteration)
-        will_densify, will_reset, will_prune_dead, will_mercy = events
-        for name, ran in zip(EVENTS, events + (
-                iteration in self.cull_sh_iterations,)):
-            self.events[name] += int(ran)
+        will_densify, will_reset, will_prune_dead, will_mercy = (
+            self._events(iteration))
+        for name in self.events_at(iteration):
+            self.events[name] += 1
         if will_densify:
             with profiling.span("r3dgs.surgery.densify"):
                 pending = self.maybe_grow_pool(pending)
@@ -791,12 +822,13 @@ class Trainer:
 
         if will_mercy:
             with profiling.span("r3dgs.surgery.mercy"):
-                red = mercy_counts(self.state, self.scene,
+                red = mercy_counts(self.state, self,
                                    pixel_scale=cfg.box_size, rows=rows)
                 self.state, mstats = mercy_step(
                     self.state, red, lambda_mercy=cfg.lambda_mercy,
                     mercy_minimum=cfg.mercy_minimum,
                     mercy_type=cfg.mercy_type, rows=rows)
+                profiling.stage(profiling.END, self.device)
                 self.stats["n_points_mercied"] = int(
                     mstats["n_points_mercied"])
                 self.stats["redundancy_threshold"] = float(
@@ -814,8 +846,10 @@ class Trainer:
         if iteration in self.cull_sh_iterations:
             from reduced3dgs_torch.ops.sh_culling import cull_sh_bands
 
-            # one budget for every render of the cull, the largest any
-            # camera has needed so far; an overflow is not redone
+            # every render of the cull starts at one budget, the largest
+            # any camera has needed so far; an overflowing render is redone
+            # up the ladder by renderer.fit (sh_culling.render_transmittance;
+            # a row shard's strips are not redone)
             with profiling.span("r3dgs.surgery.cull"):
                 pool = cull_sh_bands(
                     self.state.pool, self.cameras,

@@ -24,7 +24,14 @@ Three instruments, one switch and one read-out.
   budget and the pool.
   ``add(name, value)`` adds a host value.  Both record only while
   tracing is on; ``tally`` adds whatever the switch (graph captures,
-  which happen at set-up).
+  which happen at set-up).  A keyed counter (KEYED) is also tallied
+  under ``<name>.<key>``, its key read from `aux`.
+
+The compression events time their parts as stages too: mercy
+(MERCY_STAGES, then END) and each transmittance render of the SH-band
+cull (CULL_STAGES, then END).  Inside ``muted()`` no boundary is marked,
+so a stage can time a whole call whose own boundaries (a render's
+binning and composite) would split it.
 
 Tracing is on while an ``enable()`` is in force or a torch profiler
 records.  The switch is read where work is launched: at every eager
@@ -53,8 +60,14 @@ from reduced3dgs_torch.ops import _cuda
 VIEW_STAGES = ("shade", "preprocess", "binning", "composite")
 TRAIN_STAGES = ("preprocess", "binning", "composite", "loss", "loss_bwd",
                 "tile_bwd", "reduce", "preprocess_bwd", "adam", "store")
+# mercy (ops/redundancy.py, train/densify.py:mercy_points) and a
+# transmittance render of the SH-band cull with its statistics
+# (ops/sh_culling.py)
+MERCY_STAGES = ("pixel_size", "knn", "intersect", "allocate",
+                "mercy_select")
+CULL_STAGES = ("cull_render", "cull_stats")
 END = "end"
-STAGES = ("shade",) + TRAIN_STAGES + (END,)
+STAGES = ("shade",) + TRAIN_STAGES + MERCY_STAGES + CULL_STAGES + (END,)
 # device counters: the render's instances (tagged with its aligned
 # budget) and the padded slots its walk covers (tagged with its slack
 # pool, b_pad less that budget); the fold adds PAD_NEED, the pads K1 lays
@@ -65,9 +78,15 @@ STAGES = ("shade",) + TRAIN_STAGES + (END,)
 # stamped only where a render took that kernel (its count: those renders);
 # the rows that csrc/tile_counts.cu added to binning's difference array
 # (those that fit whole and the one the budget splits), stamped by every
-# binning on a card
+# binning on a card; the rows mercy removes, an event each; the rows an
+# SH-band cull pass demotes, keyed by the pass and the degree they are
+# demoted to; the blocks csrc/knn.cu scanned, a search each
 COUNTERS = ("num_rendered", "total_padded", "preprocess_fused",
-            "tile_counts_rows")
+            "tile_counts_rows", "mercy_pruned", "sh_demoted",
+            "knn_scanned_blocks")
+CULL_PASSES = ("variance", "distance")
+# keyed counters: each entry also tallied under "<name>.<key of its aux>"
+KEYED = {"sh_demoted": lambda aux: f"{CULL_PASSES[aux >> 2]}_d{aux & 3}"}
 PAD_NEED = "pad_need_permille"
 SPILLED = "pads_spilled"
 PAD_SPILL = "pad_spill_permille"
@@ -119,6 +138,7 @@ class _Registry:
 
     def __init__(self):
         self.enabled = 0  # enable() objects in force
+        self.muted = 0  # muted() blocks in force
         self.rings = {}  # card index -> _Ring
         self.host = []  # (tag, value) of the CPU's stamps and counters
         self.clear()
@@ -202,8 +222,22 @@ def _launch(device, tag, value=None):
     ring(device).stamp(tag, value)
 
 
+@contextlib.contextmanager
+def muted():
+    """No stage boundary is marked inside the block (counters and spans
+    still record): the stage open before it times the whole block."""
+    _REG.muted += 1
+    try:
+        yield
+    finally:
+        _REG.muted -= 1
+
+
 def stage(name: str, device) -> None:
-    """A stage boundary: `name` starts here (END: the step or frame ends)."""
+    """A stage boundary: `name` starts here (END: the step or frame ends).
+    Not marked inside muted()."""
+    if _REG.muted:
+        return
     device = torch.device(device)
     if device.type == "cuda":
         _launch(device, _ID[name])
@@ -211,11 +245,23 @@ def stage(name: str, device) -> None:
         _host(_ID[name], time.perf_counter_ns())
 
 
+@contextlib.contextmanager
+def part(name: str, device):
+    """A part of a compression event: the stage `name` starts at the
+    block's start, and the block runs inside the host span
+    "r3dgs.<event>.<name>" (<event>: mercy for MERCY_STAGES, cull for
+    CULL_STAGES; the "mercy_" or "cull_" of the stage's name dropped)."""
+    stage(name, device)
+    event = "mercy" if name in MERCY_STAGES else "cull"
+    with span(f"r3dgs.{event}.{name.removeprefix(event + '_')}"):
+        yield
+
+
 def count(name: str, value, aux: int = 0) -> None:
     """A device counter (one of COUNTERS): the int32 0-dim tensor `value`.
     aux: with num_rendered the render's aligned budget, with total_padded
     its slack pool (b_pad - budget), from which the fold works out
-    PAD_NEED, SPILLED and PAD_SPILL."""
+    PAD_NEED, SPILLED and PAD_SPILL; a keyed counter's key (KEYED)."""
     tag = _ID[name] | aux << _AUX
     if value.device.type == "cuda":
         _launch(value.device, tag, value)
@@ -302,6 +348,8 @@ def _fold(entries, source):
         if ident >= _COUNTER_BASE:
             name = COUNTERS[ident - _COUNTER_BASE]
             tally(name, value)
+            if name in KEYED:
+                tally(f"{name}.{KEYED[name](aux)}", value)
             if name == "num_rendered":
                 rendered, aligned = value, aux
             elif name == "total_padded" and aux > 0 \

@@ -41,7 +41,11 @@ the multi-device path) against their plain versions at that base, on a
 window past the image height and one with no instances, and at base 0
 the bits of a launch without it; strips of a view stitched, the full
 frame's pixels bit for bit.  The FPS ring and the bench step as replayed
-CUDA graphs against their eager runs, bit for bit.
+CUDA graphs against their eager runs, bit for bit.  The kNN (csrc/knn.cu)
+bit for bit against its plain version (knn_sorted_plain: distances and
+rows, ties to the lower row) on chip_smoke.knn_cases, two launches bit
+for bit, and knn() taking it above EXACT_LIMIT on a card, for every k
+(another k than 3 or 30 is refused).
 """
 
 import numpy as np
@@ -540,3 +544,39 @@ def test_graphed_ring_and_bench_step_match_eager(cuda):
     assert torch.equal(run.out[0], loss) and int(run.out[1]) == int(nr)
     assert all(torch.equal(a, b) for a, b in zip(run.out[2], grads))
     assert run.launches["tile_bwd"] == run.launches["seg_reduce_packed"] == 1
+
+
+def test_knn_kernel_matches_plain(cuda):
+    import chip_smoke as cs
+    from reduced3dgs_torch.ops import knn as tknn
+
+    assert cs.knn_checks(cuda, say=lambda *a: None) == len(cs.knn_cases())
+    rng = np.random.default_rng(3)
+    pts = np.full((tknn.EXACT_LIMIT + 4000, 3), np.inf, np.float32)
+    pts[:tknn.EXACT_LIMIT + 3000] = rng.normal(0, 1, (tknn.EXACT_LIMIT
+                                                       + 3000, 3))
+    t = torch.as_tensor(pts, device=cuda)
+    before = tknn.KNN.launches
+    d2, idx = tknn.knn(t, 30)
+    assert tknn.KNN.launches == before + 1
+    real = tknn.EXACT_LIMIT + 3000
+    want_d2, want_i = tknn.knn_sorted_plain(t[:real], 30, rows=256)
+    assert torch.equal(d2[:real], want_d2) and torch.equal(idx[:real],
+                                                          want_i)
+    assert bool(torch.isinf(d2[real:]).all())
+
+
+def test_knn_kernel_refuses_another_k(cuda):
+    """Above EXACT_LIMIT a card has one search: csrc/knn.cu, built for
+    k = 3 and 30; another k raises rather than falling back."""
+    from reduced3dgs_torch.ops import knn as tknn
+
+    rng = np.random.default_rng(5)
+    t = torch.as_tensor(rng.normal(0, 1, (tknn.EXACT_LIMIT + 100, 3)).astype(
+        np.float32), device=cuda)
+    before = tknn.KNN.launches
+    with pytest.raises(RuntimeError, match="knn_launch"):
+        tknn.knn(t, 5)
+    assert tknn.KNN.launches == before
+    d2, _ = tknn.knn(t, 3)
+    assert tknn.KNN.launches == before + 1 and d2.shape == (t.shape[0], 3)

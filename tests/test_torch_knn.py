@@ -10,7 +10,13 @@
   ties in another order in each framework, so indices are compared by
   the distances they give);
 * the ladder on the collinear case; auto-select above EXACT_LIMIT against
-  knn_exact; absent (+inf) rows never a neighbour on the blocked path.
+  knn_exact; absent (+inf) rows never a neighbour on the blocked path;
+* the card's search (knn_sorted_plain, which csrc/knn.cu equals bit for
+  bit, tests/test_torch_gpu.py) against the JAX package's knn: the same
+  neighbour sets on every row whose k-th and (k+1)-th float64 distances
+  are apart by more than float32 rounding (the two choose on different
+  arithmetic, ops/knn.py's docstring), distances within rtol 1e-5 /
+  atol 2e-6 on every row.
 """
 
 import warnings
@@ -200,3 +206,27 @@ def test_absent_rows_are_never_neighbours_on_the_blocked_path(searches):
         dq[q] = np.inf
         np.testing.assert_allclose(d2[q].numpy(), np.sort(dq)[:4],
                                    rtol=1e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("k", [3, 30])
+def test_the_card_search_matches_jax(k):
+    pts = _clustered()
+    d_j, i_j = jknn.knn(jnp.asarray(pts), k)
+    d_t, i_t = tknn.knn_sorted_plain(torch.as_tensor(pts), k)
+    d_j, i_j, d_t, i_t = (np.asarray(d_j), np.asarray(i_j), d_t.numpy(),
+                          i_t.numpy())
+    p64 = pts.astype(np.float64)
+    d64 = ((p64[:, None, :] - p64[None, :, :]) ** 2).sum(-1)
+    np.fill_diagonal(d64, np.inf)
+    d64 = np.sort(d64, 1)[:, :k + 1]
+    # apart by more than float32 rounding of |q|^2 (the expanded form's)
+    scale = (p64 ** 2).sum(1) + d64[:, k]
+    clear = d64[:, k] - d64[:, k - 1] > 1e-6 * scale
+    # the near ties are all in the tight knot off the origin (its last
+    # 400 rows), where the expanded form cancels: 65 rows at k = 3, 128
+    # at k = 30, of which 2 and 4 swap a neighbour
+    assert clear[:1600].all() and clear.mean() > 0.9
+    same = (np.sort(i_t, 1) == np.sort(i_j, 1)).all(1)
+    assert same[clear].all(), np.nonzero(clear & ~same)[0][:10]
+    np.testing.assert_allclose(d_t, d_j, rtol=1e-5, atol=2e-6)
+    np.testing.assert_allclose(d_t, d64[:, :k], rtol=1e-5, atol=2e-6)

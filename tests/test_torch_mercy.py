@@ -333,18 +333,6 @@ class _JScene:
             *_cam_arrays(self.cams), pixel_scale=pixel_scale)
 
 
-class _TScene:
-    def __init__(self, cams):
-        self.cams, self.pool = cams, None
-
-    def get_train_cameras(self):
-        return self.cams
-
-    calculate_redundancy_metric = (
-        __import__("reduced3dgs_torch.scene", fromlist=["Scene"])
-        .Scene.calculate_redundancy_metric)
-
-
 def test_trainer_schedule_with_mercy_matches_jax():
     """Iterations 1-3 with a mercy pass at 2 (mercy_interval 1 x
     densification_interval 2, inside the fine-tune limit): the step
@@ -376,7 +364,7 @@ def test_trainer_schedule_with_mercy_matches_jax():
         TG.pool_from_numpy(leaves, "cpu"),
         dataclasses.replace(TOpt(), **kw), tcams, spatial_lr_scale=3.0,
         background=torch.zeros(3), backend="tile", initial_budget=4096,
-        seed=1, scene=_TScene(tcams))
+        seed=1)
     jtr.extent = ttr.extent = 3.0
     assert ttr.fine_tune_start == jtr.fine_tune_start == 10
     assert [ttr._events(i)[3] for i in (1, 2, 3, 4, 12)] \

@@ -13,7 +13,11 @@ The cases marked `gpu` (run on a card: `python -m pytest
 tests/test_torch_tracing.py --noconftest -o addopts= -p no:cacheprovider`)
 hold the device ring: a replayed StepGraph and a graphs.runner frame
 stamp only while tracing is on, the tile counts' tile_counts_rows once a
-replayed frame, and a full ring counts what it drops.
+replayed frame, and a full ring counts what it drops.  A compression
+iteration (dead-prune, mercy, the SH-band cull) times mercy's parts and
+each transmittance render's render and statistics as stages, nests
+their spans in its surgery spans and counts mercy's and the cull's
+rows.
 This file imports no JAX.
 """
 
@@ -54,6 +58,20 @@ def _trainer(device, seed=0, budget=BUDGET):
                    spatial_lr_scale=3.0, background=torch.zeros(3),
                    initial_budget=budget, seed=seed, grad_reduce="bf16x2")
     tr.extent = 3.0
+    return tr
+
+
+def _compressing_trainer(device="cpu", seed=0):
+    """A trainer whose iteration PRUNE_AT is full_final's compression
+    iteration: the dead-prune, mercy and the SH-band cull."""
+    tr = _trainer(device, seed)
+    tr.opt_cfg = dataclasses.replace(
+        tr.opt_cfg, iterations=10_000, mercy_points=True, mercy_interval=1,
+        mercy_type="redundancy_opacity_opacity", std_threshold=0.04,
+        cdist_threshold=6.0)
+    tr.fine_tune_start = tr.opt_cfg.iterations - T.FINE_TUNE_ITERS
+    tr.cull_sh_iterations = (PRUNE_AT,)
+    assert tr.events_at(PRUNE_AT) == ("prune_dead", "mercy", "cull")
     return tr
 
 
@@ -299,6 +317,86 @@ def test_the_benchmark_reads_one_stage_a_unit_or_nothing(monkeypatch):
     monkeypatch.delattr(profiling, "snapshot")
     assert pt.snapshot() is None
     assert pt.stage_ms(record, "train", ("preprocess",)) is None
+
+
+def test_a_compression_step_times_its_parts_and_counts_its_rows(tmp_path):
+    """The eager step's stages, then mercy's (MERCY_STAGES, END), then per
+    transmittance render (two a camera) cull_render, cull_stats, END:
+    the render's own boundaries muted, nothing left open.  Their spans
+    nest in r3dgs.surgery.mercy / .cull; mercy_pruned and sh_demoted
+    equal the host's own counts."""
+    tr = _compressing_trainer()
+    before = tr.state.pool.degrees[tr.state.pool.alive].clone()
+    profiling.start_trace(str(tmp_path))
+    tr.step(PRUNE_AT)
+    path = profiling.stop_trace()
+    step = [ID[n] for n in profiling.TRAIN_STAGES] + [ID[profiling.END]]
+    mercy = [ID[n] for n in profiling.MERCY_STAGES] + [ID[profiling.END]]
+    cull = [ID[n] for n in profiling.CULL_STAGES] + [ID[profiling.END]]
+    views = 2 * len(tr.cameras)
+    assert _ids(profiling._REG.host) == step + mercy + cull * views
+    snap = profiling.snapshot()
+    counts = {n: s["count"] for n, s in snap["stages"].items()}
+    assert counts == {**dict.fromkeys(profiling.TRAIN_STAGES, 1),
+                      **dict.fromkeys(profiling.MERCY_STAGES, 1),
+                      **dict.fromkeys(profiling.CULL_STAGES, views)}
+    assert snap["stages_open"] == 0 and snap["stamps_dropped"] == 0
+    c = snap["counters"]
+    assert c["mercy_pruned"]["sum"] == tr.stats["n_points_mercied"] > 0
+    pool = tr.state.pool
+    after = pool.degrees[pool.alive]
+    assert bool((before == 3).all())
+    assert c["sh_demoted.variance_d0"]["sum"] == int((after == 0).sum())
+    assert c["sh_demoted.distance_d1"]["sum"] == int((after == 1).sum())
+    assert c["sh_demoted"]["count"] == 3  # the variance pass, two steps
+    events = [e for e in json.load(open(path))["traceEvents"]
+              if e.get("ph") == "X" and e.get("name", "").startswith("r3dgs.")]
+
+    def within(child, parent):
+        kids = [e for e in events if e["name"] == child]
+        dads = [e for e in events if e["name"] == parent]
+        assert kids and dads, (child, parent)
+        return all(any(d["ts"] <= k["ts"] and k["ts"] + k["dur"]
+                       <= d["ts"] + d["dur"] for d in dads) for k in kids)
+
+    for part in ("pixel_size", "knn", "intersect", "allocate", "select"):
+        assert within(f"r3dgs.mercy.{part}", "r3dgs.surgery.mercy")
+    for part in ("render", "stats"):
+        assert within(f"r3dgs.cull.{part}", "r3dgs.surgery.cull")
+        assert snap["spans"][f"r3dgs.cull.{part}"]["calls"] == views
+
+
+def test_a_compression_step_records_nothing_while_tracing_is_off():
+    off, on = _compressing_trainer(), _compressing_trainer()
+    off.step(PRUNE_AT)
+    snap = profiling.snapshot()
+    assert snap["stages"] == snap["spans"] == snap["counters"] == {}
+    assert snap["stages_open"] == 0
+    with profiling.enable():
+        on.step(PRUNE_AT)
+    assert profiling.snapshot()["counters"]["mercy_pruned"]["count"] == 1
+    for a, b in zip(T.carried(off.state), T.carried(on.state)):
+        assert torch.equal(a, b)
+    assert torch.equal(off.state.pool.degrees, on.state.pool.degrees)
+    assert torch.equal(off.state.pool.alive, on.state.pool.alive)
+
+
+def test_the_benchmark_reads_the_compression_stages_per_event():
+    from splatbench.event_trace import stage_ms
+
+    tr = _compressing_trainer()
+    with profiling.enable():
+        tr.step(PRUNE_AT)
+    views = 2 * len(tr.cameras)
+    record = {"kind": "train", "traced_events": 1,
+              "traced_cull_renders": views}
+    assert stage_ms(record, profiling.MERCY_STAGES, "traced_events") > 0
+    assert stage_ms(record, profiling.CULL_STAGES,
+                    "traced_cull_renders") > 0
+    assert stage_ms(dict(record, traced_cull_renders=views - 1),
+                    profiling.CULL_STAGES, "traced_cull_renders") is None
+    assert stage_ms(dict(record, kind="view"), ("knn",),
+                    "traced_events") is None
 
 
 # ---------------------------------------------------------------------------

@@ -172,15 +172,16 @@ def test_budget_for_lands_on_next_budgets_rung(needed):
 def test_unported_trainer_options_raise():
     """step_group refuses an iteration that is not fusible (here the SH
     degree step at 1000); mercy_points and cull_sh_iterations are accepted
-    and set the fine-tune limit (no mercy in the last 3000 iterations)."""
+    and set the fine-tune limit (no mercy in the last 3000 iterations).
+    Mercy needs no dataset Scene: the Trainer's own cameras give the
+    redundancy metric."""
     cams = target_scene(n=4)
     pool = G.empty_pool(1024, "cpu")
     tr = Trainer(pool, OptimizationParams(mercy_points=True), cams,
                  spatial_lr_scale=1.0, background=torch.zeros(3))
     assert tr.fine_tune_start == OptimizationParams().iterations - 3000
-    assert not tr._events(1000)[3]  # no scene: no redundancy metric
-    tr.scene = object()
     assert tr._events(1000)[3] and not tr._events(1001)[3]
+    assert tr.events_at(1000) == ("densify", "mercy")
     assert not tr._events(3000)[3]  # an opacity-reset iteration
     assert not tr._events(28000)[3]  # past the fine-tune limit
     tr = Trainer(pool, OptimizationParams(), cams, spatial_lr_scale=1.0,

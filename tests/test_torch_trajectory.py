@@ -44,7 +44,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
-from test_torch_mercy import _JScene, _TScene
+from test_torch_mercy import _JScene
 from test_torch_sh_culling import pool_leaves, torch_cams
 from test_training import target_scene
 
@@ -145,7 +145,7 @@ def test_trainer_loop_matches_jax_through_every_event(monkeypatch):
                     dataclasses.replace(TOpt(), **SCHEDULE), tcams,
                     spatial_lr_scale=3.0, background=torch.zeros(3),
                     backend="ref", initial_budget=BUDGET, seed=SEED,
-                    cull_sh_iterations=CULL, scene=_TScene(tcams))
+                    cull_sh_iterations=CULL)
     jtr.extent = ttr.extent = 3.0
     draws = _JaxDraws(SEED)
     draws.real_densify, draws.real_mercy = T.densify_step, T.mercy_step
@@ -211,8 +211,7 @@ def test_bf16x2_loop_matches_jax_around_a_densify(monkeypatch):
                    scene=_JScene(jcams), **kw)
     ttr = T.Trainer(TG.pool_from_numpy(leaves, "cpu"),
                     dataclasses.replace(TOpt(), **SCHEDULE), tcams,
-                    background=torch.zeros(3), backend="tile",
-                    scene=_TScene(tcams), **kw)
+                    background=torch.zeros(3), backend="tile", **kw)
     jtr.extent = ttr.extent = 3.0
     draws = _JaxDraws(SEED)
     draws.real_densify, draws.real_mercy = T.densify_step, T.mercy_step

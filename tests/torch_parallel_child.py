@@ -184,23 +184,11 @@ def trainer_run(rank, world, device, scene, leaves, cfg_kw, iters,
     """ShardedTrainer (param_shard, mesh (1, world)) or, with sharded
     False, the single-card Trainer for `iters` iterations; the losses, the
     events' statistics, the budgets and the whole final pool."""
-    from reduced3dgs_torch.scene import Scene
-
-    class MiniScene:
-        def __init__(self, cams_):
-            self._cams = cams_
-            self.pool = None
-
-        def get_train_cameras(self, scale=1.0):
-            return self._cams
-
-        calculate_redundancy_metric = Scene.calculate_redundancy_metric
-
     cams = cameras(scene)
     cfg = OptimizationParams(**cfg_kw)
     pool = G.pool_from_numpy(leaves, device)
     kw = dict(spatial_lr_scale=3.0, background=np.zeros(3), backend="tile",
-              seed=0, initial_budget=scene["budget"], scene=MiniScene(cams))
+              seed=0, initial_budget=scene["budget"])
     if sharded:
         mesh = make_mesh(1, world)
         t = ShardedTrainer(pool, cfg, cams, mesh=mesh, param_shard=True,

@@ -295,7 +295,7 @@ def trainer_run(rank, world, device, shape, seed, cfg_kw, iters,
         c.image = rng.uniform(0, 1, (32, 32, 3)).astype(np.float32)
     kw = dict(spatial_lr_scale=EXTENT, background=np.zeros(3),
               backend="tile", seed=0, initial_budget=1 << 12,
-              scene=MiniScene(cams), cull_sh_iterations=(iters,))
+              cull_sh_iterations=(iters,))
     pool, cfg = G.pool_from_numpy(leaves, device), OptimizationParams(**cfg_kw)
     if shape is None:
         t = T.Trainer(pool, cfg, cams, **kw)
