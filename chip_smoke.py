@@ -67,13 +67,16 @@ before the final line:
     ground truth, and the port's Trainer trains a copy with perturbed
     colours and opacities from --seed in the default bf16x2 mode (a
     densify iteration with pool growth and budget regrow included), then
-    a few f32 steps; the loss must be finite and fall, and K1, K2, K3 and
-    K6 (K5 in f32 mode) must run once per render.  It prints the median
+    a few f32 steps; the loss must be finite and fall, and K1, K2, K3,
+    K6 (K5 in f32 mode) and PB (csrc/preprocess_bwd.cu) must run once per
+    render, P1 (csrc/preprocess_fwd.cu) never.  It prints the median
     step time, the fwd+bwd pixels/s bench.py reports (through
     reduced3dgs_torch.bench: its step replayed as a CUDA graph, at the
     1080p geometry), the stage times by
     the stage clock (its device counters held to the binnings as in
-    phase 6; the reduction stage also split into key sort, kernel
+    phase 6, and on a card the preprocess_bwd counter to one backward a
+    render summing its valid rows; the reduction stage also split into
+    key sort, kernel
     and reorder, on one step's own inputs) and the launches and idle
     share of one profiled step;
 10. K4 (csrc/tile_trans.cu) against its plain version at the 512p and the
@@ -101,8 +104,8 @@ before the final line:
     step, replayed); loss per step within rtol 1e-5, parameters within
     rtol 5e-4 / atol 1e-3, num_rendered within 2, budgets equal
     (tests/test_fused_steps.py); then both again from a budget small
-    enough to overflow (the group regrows and redoes); K1, K2, K3 and K6
-    once per replayed step by torch.profiler's kernel names over one
+    enough to overflow (the group regrows and redoes); K1, K2, K3, K6 and
+    PB once per replayed step by torch.profiler's kernel names over one
     group, equal to the captured launches times the replays; ms per step
     graphed and eager in turns, the device idle share of each, the host's
     launches per step and the capture time;
@@ -248,7 +251,15 @@ before the final line:
     2^20 rows) beside the torch path's and the bytes bound, with the
     same parity held between the two paths' outputs at those sizes.  Its
     entry ends the kernels line, with its launches in phase 4's graphed
-    ring (zeroed just before) and phase 6's frames.
+    ring (zeroed just before) and phase 6's frames.  Then the training
+    preprocess's backward (csrc/preprocess_bwd.cu, "PB") at the m360 and
+    tnt training sizes: against its plain twin (1e-4 of each leaf's
+    largest gradient), two launches bit for bit, its counter's sum the
+    valid rows; its ms beside the bound of the bytes the launch needs,
+    the twin's and autograd's ms, the largest gradient gap per leaf to
+    autograd; one step of the bench launching one PB and no P1.  Its
+    entry follows P1's, with its launches in phase 9's training
+    (launches_phase9) and in phase 22's checks.
 23. alignment pads past binning's slack pool at the benchmark's m360_full
     size (splatbench/configs/m360_full.json, its assumed density, the
     scene from --seed): views of its viewing path served by the
@@ -431,6 +442,16 @@ PREP_FLOAT_GAP = 1e-5  # relative, each row to its largest component
 PREP_NEAR_ULPS = 4  # an integer output may differ only this near a rounding
 PREP_EXCUSED_SHARE = 1e-5  # ... and on at most this share of the rows
 PREP_FRAME_GAP = 1e-6  # mean gap of a frame rendered through each path
+PREP_DEGREE_SHARES = (0.45, 0.2, 0.15, 0.2)  # tnt's rows of degree 0 .. 3
+# ... and the backward (csrc/preprocess_bwd.cu) at the training cells'
+# sizes, both shading their SH: a first estimate of a row's bytes, as if
+# every row were valid and of degree 3 (xyz 12, log-scales 12, quaternion
+# 16, raw opacity 4, 48 coefficients 192, degree 4, alive 1, radius 4, the
+# four incoming gradients 36 read; the gradients of the five leaves 236
+# and of the screen offset 8 written), beside the bound of the bytes the
+# launch needs (prep_bwd_bytes)
+PREP_BWD_ROW_BYTES = 281 + 244
+PREP_BWD_GAP = 1e-4  # per leaf, of its largest magnitude: kernel to twin
 # phase 23: the poses of the m360_full viewing path served and compared
 # (the path's 600 poses, as the benchmark's serve traffic has them)
 SPILL_PATH = 600
@@ -442,7 +463,8 @@ COMPRESS = ("--pack_xyz", "--prune_frac", "0.17", "--finetune_iters", "32")
 STEP_KERNELS = {"expand": "bin_keys_kernel", "tile_fwd": "tile_fwd_kernel",
                 "tile_bwd": "tile_bwd_kernel",
                 "seg_reduce_packed": "seg_reduce_kernel<true>",
-                "seg_reduce_f32": "seg_reduce_kernel<false>"}
+                "seg_reduce_f32": "seg_reduce_kernel<false>",
+                "preprocess_bwd": "preprocess_bwd_kernel"}
 
 
 def check(cond, msg):
@@ -1663,6 +1685,7 @@ def main(argv=None):
 
     # --- phase 22: the fused preprocess kernel ---------------------------
     prep_kernel = preprocess_path(dev, args.seed, smi)
+    prep_bwd_kernel = prep_bwd_path(dev, args.seed, smi)
 
     # --- phase 23: pads past the slack pool at the m360_full size ---------
     spill_path(dev, args.seed)
@@ -1684,6 +1707,8 @@ def main(argv=None):
     stamp["launches"] = profiling.STAMP.launches
     kernels.append(stamp)
     kernels.append(dict(prep_kernel, **prep_launches))
+    kernels.append(dict(prep_bwd_kernel,
+                        launches_phase9=train_l["preprocess_bwd"]))
     kernels.append(dict(counts_kernel,
                         launches_phase4=launches["tile_counts"]))
     kernels.append(knn_kernel)
@@ -1860,9 +1885,10 @@ def _report_k2(k2in, w, h, launches, ttr):
 @contextlib.contextmanager
 def binning_spy():
     """Every binning renderer.render makes inside the block, as
-    (num_rendered, total_padded, B_pad, budget, seg_bounds): the first two
-    the binning's own 0-dim tensors and the last its (P + 1,) tensor, to
-    be read on the host afterwards."""
+    (num_rendered, total_padded, B_pad, budget, seg_bounds, radii): the
+    first two the binning's own 0-dim tensors, seg_bounds its (P + 1,)
+    tensor and radii its preprocess's, to be read on the host
+    afterwards."""
     from reduced3dgs_torch.ops import binning
 
     seen, real = [], binning.bin_gaussians
@@ -1870,7 +1896,8 @@ def binning_spy():
     def spy(prep, width, height, budget, tile_rows=None):
         b = real(prep, width, height, budget, tile_rows=tile_rows)
         seen.append((b.num_rendered, b.total_padded,
-                     b.gauss_aligned.shape[0], budget, b.seg_bounds))
+                     b.gauss_aligned.shape[0], budget, b.seg_bounds,
+                     prep.radii))
         return b
 
     binning.bin_gaussians = spy
@@ -1880,7 +1907,7 @@ def binning_spy():
         binning.bin_gaussians = real
 
 
-def check_counters(snap, seen, what):
+def check_counters(snap, seen, what, train=False):
     """The counters of a profiling.snapshot() against the binnings
     binning_spy saw, read on the host: the device's num_rendered and
     total_padded, and what the fold derives from them: the pad need, the
@@ -1889,30 +1916,37 @@ def check_counters(snap, seen, what):
     pads_spilled, the pads laid past that pool where the layout fits in
     B_pad, and the same per mille of the pool; on a card
     tile_counts_rows, the ranks with a segment of instances that fit
-    (the rows csrc/tile_counts.cu added), absent on the CPU.  Returns
-    the renders compared."""
+    (the rows csrc/tile_counts.cu added), absent on the CPU; and for
+    training renders (`train`) on a card preprocess_bwd, one backward a
+    render summing its valid rows (radii > 0), absent on the CPU and in
+    renders without a gradient.  Returns the renders compared."""
     from reduced3dgs_torch.ops.binning import ALIGN
 
-    nr = [int(n) for n, _, _, _, _ in seen]
-    tp = [int(t) for _, t, _, _, _ in seen]
+    nr = [int(n) for n, _, _, _, _, _ in seen]
+    tp = [int(t) for _, t, _, _, _, _ in seen]
     pools = [b_pad - -(-budget // ALIGN) * ALIGN
-             for _, _, b_pad, budget, _ in seen]
+             for _, _, b_pad, budget, _, _ in seen]
     need = [(t - n) * 1000 // pool for n, t, pool in zip(nr, tp, pools)]
     spilled = [0 if t > b_pad else max(0, t - min(n, b_pad - pool) - pool)
-               for n, t, pool, (_, _, b_pad, _, _)
+               for n, t, pool, (_, _, b_pad, _, _, _)
                in zip(nr, tp, pools, seen)]
     spill = [v * 1000 // pool for v, pool in zip(spilled, pools)]
-    rows = [int((sb[1:] > sb[:-1]).sum()) for _, _, _, _, sb in seen]
+    rows = [int((sb[1:] > sb[:-1]).sum()) for _, _, _, _, sb, _ in seen]
+    valid = [int((r > 0).sum()) for _, _, _, _, _, r in seen]
     card = bool(seen) and seen[0][4].device.type == "cuda"
     want = {name: {"sum": sum(v), "max": max(v), "count": len(v)}
             for name, v in (("num_rendered", nr), ("total_padded", tp),
                             ("pad_need_permille", need),
                             ("pads_spilled", spilled),
                             ("pad_spill_permille", spill))
-            + ((("tile_counts_rows", rows),) if card else ())}
+            + ((("tile_counts_rows", rows),) if card else ())
+            + ((("preprocess_bwd", valid),) if card and train else ())}
     got = {name: snap["counters"].get(name) for name in want}
     check(card or "tile_counts_rows" not in snap["counters"],
           f"{what}: tile_counts_rows recorded on the CPU")
+    check((card and train) or "preprocess_bwd" not in snap["counters"],
+          f"{what}: preprocess_bwd recorded on the CPU or without a "
+          "gradient")
     check(seen and got == want, f"{what}: device counters {got}, the "
           f"binnings read on the host {want}")
     return len(seen)
@@ -2350,17 +2384,23 @@ def run_steps(tr, first, count):
 
 def train_main_path(dev, seed, smi):
     """Phase 9.  Returns the launch counts of the bf16x2 run (K1, K2, K3,
-    K6) and of the f32 run (K5), the trainer and the next iteration."""
+    K6, PB) and of the f32 run (K5), the trainer and the next iteration.
+    Every training render takes PB (csrc/preprocess_bwd.cu) on a card and
+    autograd on the CPU, and never P1."""
     import torch
 
     from reduced3dgs_torch.ops import binning as tbin
+    from reduced3dgs_torch.ops import preprocess as tp
     from reduced3dgs_torch.ops import tile_render as ttr
     from reduced3dgs_torch.utils import profiling
 
     kernels = {"expand": tbin.EXPAND, "tile_counts": tbin.TILE_COUNTS,
                "tile_fwd": ttr.TILE_FWD, "tile_bwd": ttr.TILE_BWD,
                "seg_reduce_packed": ttr.SEG_REDUCE_PACKED,
-               "seg_reduce_f32": ttr.SEG_REDUCE_F32}
+               "seg_reduce_f32": ttr.SEG_REDUCE_F32,
+               "preprocess_fwd": tp.PREPROCESS_FWD,
+               "preprocess_bwd": tp.PREPROCESS_BWD}
+    on_card = dev.type == "cuda"
     t0 = time.perf_counter()
     cams, leaves = train_cameras(dev, seed)
     tr = make_trainer(student_pool(dev, leaves, seed), cams, seed)
@@ -2376,9 +2416,11 @@ def train_main_path(dev, seed, smi):
     renders = launches["expand"]
     check(renders >= steps and all(launches[n] == renders for n in (
         "tile_counts", "tile_fwd", "tile_bwd", "seg_reduce_packed"))
-        and launches["seg_reduce_f32"] == 0,
-        f"bf16x2 steps: not one K1, tile counts, K2, K3 and K6 per render: "
-        f"{launches}")
+        and launches["seg_reduce_f32"] == 0
+        and launches["preprocess_bwd"] == (renders if on_card else 0)
+        and launches["preprocess_fwd"] == 0,
+        f"bf16x2 steps: not one K1, tile counts, K2, K3, K6 and PB (on a "
+        f"card) per render, or a P1: {launches}")
     check(all(math.isfinite(x) for x in losses), "non-finite loss")
     nv = len(cams)
     first, last = np.mean(losses[:nv]), np.mean(losses[2 * nv:3 * nv])
@@ -2427,7 +2469,7 @@ def train_main_path(dev, seed, smi):
           == dict.fromkeys(names, runs) and snap["stages_open"] == 0
           and snap["stamps_dropped"] == 0,
           f"stage clock: not the stages {names} once a step: {snap}")
-    compared = check_counters(snap, binnings, "phase 9")
+    compared = check_counters(snap, binnings, "phase 9", train=True)
     stage = np.array([stages[n]["s"] * 1e3 / runs for n in names])
     print("phase 9: stage ms per step (stage clock, bf16x2) "
           + ", ".join(f"{n} {v:.3f}" for n, v in zip(names, stage))
@@ -2446,8 +2488,12 @@ def train_main_path(dev, seed, smi):
     f32_launches = {n: k.launches for n, k in kernels.items()}
     check(f32_launches["seg_reduce_f32"] == f32_launches["tile_bwd"]
           == f32_launches["expand"] >= TRAIN["f32_steps"]
-          and f32_launches["seg_reduce_packed"] == 0,
-          f"f32 steps: not one K5 per render: {f32_launches}")
+          and f32_launches["seg_reduce_packed"] == 0
+          and f32_launches["preprocess_bwd"]
+          == (f32_launches["expand"] if on_card else 0)
+          and f32_launches["preprocess_fwd"] == 0,
+          f"f32 steps: not one K5 and PB (on a card) per render, or a P1: "
+          f"{f32_launches}")
     check(all(math.isfinite(x) for x in f32_losses), "non-finite f32 loss")
     print(f"phase 9: {TRAIN['f32_steps']} f32 steps: losses "
           f"{', '.join(f'{v:.6f}' for v in f32_losses)}; median step "
@@ -3035,7 +3081,7 @@ def fused_main_path(tr, it, smi):
           and max(g_over[2].values()) > FUSED["overflow_budget"],
           "phase 13: the overflow group differs from the eager steps")
 
-    # launches: one of K1, K2, K3, K6 per replayed step
+    # launches: one of K1, K2, K3, K6 and (on a card) PB per replayed step
     trainer_restore(tr, snap)
     run_steps_grouped(tr, it, size, size)  # the graph of this key exists
     before = dict(tr.graph_launches)
@@ -3048,10 +3094,13 @@ def fused_main_path(tr, it, smi):
           f"{span:.3f} ms: {busy / size:.3f} ms kernel time per step, device "
           f"idle {(1 - busy / span) * 100:.1f} %; host launch calls "
           f"{host / size:.1f} per step; {smi}", flush=True)
+    on_card = tr.device.type == "cuda"
     want = {"expand": size, "tile_fwd": size, "tile_bwd": size,
-            "seg_reduce_packed": size, "seg_reduce_f32": 0}
-    check(counts == want and (replayed == want or tr.device.type != "cuda"),
-          f"phase 13: not one K1, K2, K3 and K6 per replayed step: "
+            "seg_reduce_packed": size, "seg_reduce_f32": 0,
+            "preprocess_bwd": size if on_card else 0}
+    check(counts == want and (not on_card or replayed == {
+        n: want[n] for n in replayed}),
+          f"phase 13: not one K1, K2, K3, K6 and PB per replayed step: "
           f"{counts}, {replayed}")  # (no graph, so no replays, on a CPU)
     _, e_busy, e_span, e_kernels, e_host = profiled(
         lambda: run_steps_eager(tr, it + 2 * size, size))
@@ -5619,6 +5668,25 @@ def prep_bytes(pool, out, precomp):
     return n * (PREP_ROW_IN + PREP_ROW_OUT) + coeff
 
 
+def prep_size_pool(size, dev, seed):
+    """prep_pool at one of PREP_SIZES: its rows, alive rows and scale;
+    SH degree 3 on every row (m360), or PREP_DEGREE_SHARES in blocks of
+    rows (tnt)."""
+    import torch
+
+    cfg = PREP_SIZES[size]
+    shares = PREP_DEGREE_SHARES if cfg["precomp"] else None
+    pool = prep_pool(cfg["rows"], seed, dev, cfg["alive"], cfg["scale"],
+                     degree=None if shares else 3)
+    if shares:
+        cut = np.cumsum(np.array(shares) * cfg["rows"]).astype(int)
+        idx = torch.arange(cfg["rows"], device=dev)
+        pool["degrees"] = torch.bucketize(
+            idx, torch.as_tensor(cut[:-1], device=dev),
+            right=True).to(torch.int32)
+    return pool
+
+
 def prep_timing(dev, seed, smi, say=_say):
     """Each PREP_SIZES scene: the torch path's and the kernel's ms a call
     (a replayed graph, best of 3 windows of replays), beside the bytes
@@ -5632,15 +5700,7 @@ def prep_timing(dev, seed, smi, say=_say):
 
     res = {}
     for size, cfg in PREP_SIZES.items():
-        shares = (0.45, 0.2, 0.15, 0.2) if cfg["precomp"] else None
-        pool = prep_pool(cfg["rows"], seed + 7, dev, cfg["alive"],
-                         cfg["scale"], degree=None if shares else 3)
-        if shares:
-            cut = np.cumsum(np.array(shares) * cfg["rows"]).astype(int)
-            idx = torch.arange(cfg["rows"], device=dev)
-            pool["degrees"] = torch.bucketize(
-                idx, torch.as_tensor(cut[:-1], device=dev),
-                right=True).to(torch.int32)
+        pool = prep_size_pool(size, dev, seed + 7)
         precomp = (torch.rand((cfg["rows"], 3), device=dev)
                    if cfg["precomp"] else None)
         args = prep_args(pool, precomp)
@@ -5701,6 +5761,162 @@ def preprocess_path(dev, seed, smi):
             "frame_gap": frame, "timing_ms": timing,
             "launches_phase22": tp.PREPROCESS_FWD.launches - before}
 
+
+
+def prep_bwd_inputs(dev, size, seed):
+    """(saved, cam, grads) of a backward at one of PREP_SIZES: its pool
+    (prep_size_pool) shading its SH, the forward's saved set from
+    preprocess_torch's ops, and seeded cotangents of means2d, the conic,
+    the opacity and the colour as columns of one feature-major (9, P)
+    table, as the reduction hands them to autograd."""
+    import torch
+
+    from reduced3dgs_torch.ops import preprocess as tp
+
+    pool = prep_size_pool(size, dev, seed)
+    cam = prep_cameras(size, dev, n_views=1)[0]
+    args = prep_args(pool)
+    with torch.no_grad():
+        out, rgb = tp._preprocess_torch(*args, cam,
+                                        alive_mask=pool["alive"])
+    saved = tp.VjpSaved(*args, pool["alive"], out.radii, out.depths, rgb,
+                        out.conic)
+    g = torch.Generator(device=dev).manual_seed(int(seed) + 1)
+    sums = torch.randn((9, pool["xyz"].shape[0]), generator=g, device=dev)
+    return saved, cam, (sums[0:2].T, sums[2:5].T, sums[5], sums[6:9].T)
+
+
+VJP_LEAVES = ("xyz", "scales", "rotations", "opacities", "sh")
+
+
+def compare_vjp(got, want):
+    """{leaf: the largest gap of `got` to `want`, over want's largest
+    magnitude} for the five leaves' gradients (NaN or inf: inf)."""
+    gaps = {}
+    for name, a, b in zip(VJP_LEAVES, got, want):
+        scale = float(b.abs().max()) or 1.0
+        gaps[name] = float((a - b).abs().max().nan_to_num(math.inf)) / scale
+    return gaps
+
+
+def prep_bwd_bytes(saved):
+    """(every row's PREP_BWD_ROW_BYTES, the bytes this backward needs:
+    every row's xyz, alive flag, radius, depth and means2d cotangent read
+    and its five gradients written; a valid row's log-scales, quaternion,
+    raw opacity, degree, saved colour and conic, the other three
+    cotangents and the coefficients its degree keeps read).  The second
+    is the kernel's bound; the first only the row estimate's."""
+    import torch
+
+    p = saved.means3d.shape[0]
+    c = saved.sh.shape[1]
+    valid = saved.radii > 0
+    d = saved.degrees.clamp(0, 3).long()
+    kept = int(torch.where(valid, ((d + 1) ** 2).clamp(max=c), 0).sum())
+    least = (p * (12 + 1 + 4 + 4 + 8 + 12 + 12 + 16 + 4 + 12 * c)
+             + int(valid.sum()) * (12 + 16 + 4 + 4 + 12 + 12 + 28)
+             + 12 * kept)
+    return p * PREP_BWD_ROW_BYTES, least
+
+
+def prep_bwd_path(dev, seed, smi, say=_say):
+    """Phase 22's backward part, at each PREP_SIZES size: the kernel
+    against its plain twin (PREP_BWD_GAP per leaf) and two launches bit
+    for bit; the kernel's, the twin's and autograd's ms (each a replayed
+    graph, best of 3 windows) beside the bound of the launch's own bytes
+    and of the row estimate's (autograd's by CUDA events around eager
+    backwards); the largest gradient gap per leaf to autograd through
+    preprocess_torch; then one step of the bench at 320x240 (one backward
+    kernel, no forward kernel).  Returns the kernel's entry of the kernels
+    line, with the launches of phase 22's own checks and timings
+    (the main path's are phase 9's)."""
+    import torch
+
+    from reduced3dgs_torch import bench, graphs
+    from reduced3dgs_torch.ops import preprocess as tp
+    from reduced3dgs_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    before = tp.PREPROCESS_BWD.launches
+    res = {}
+    for size in PREP_SIZES:
+        saved, cam, grads = prep_bwd_inputs(dev, size, seed + 11)
+        profiling.reset()
+        with profiling.enable():
+            runs = [tp.preprocess_vjp_fused(saved, cam, 1.0, grads)
+                    for _ in range(2)]
+            snap = profiling.snapshot()
+        profiling.reset()
+        valid = int((saved.radii > 0).sum())
+        c = snap["counters"].get("preprocess_bwd")
+        check(c is not None and c["count"] == 2 and c["sum"] == 2 * valid,
+              f"phase 22: {size} backward counter {c}, want 2 x {valid}")
+        check(all(torch.equal(a, b) for a, b in zip(*runs)),
+              f"phase 22: {size} two backward launches differ")
+        twin = tp.preprocess_vjp_plain(saved, cam, 1.0, grads)
+        gaps = compare_vjp(runs[0], twin)
+        check(max(gaps.values()) <= PREP_BWD_GAP,
+              f"phase 22: {size} backward kernel against its twin {gaps}")
+        del runs, twin
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in saved[:5]]
+        outs = tp.preprocess_torch(*leaves, saved.degrees, cam,
+                                   alive_mask=saved.alive_mask)
+        outs = [outs.means2d, outs.conic, outs.opacity, outs.color]
+        auto = torch.autograd.grad(outs, leaves, grads, retain_graph=True)
+        got = tp.preprocess_vjp_fused(saved, cam, 1.0, grads)
+        auto_gaps = compare_vjp(got, auto)
+        del auto, got
+        rows = {
+            "kernel": lambda: tp.preprocess_vjp_fused(saved, cam, 1.0,
+                                                      grads),
+            "twin": lambda: tp.preprocess_vjp_plain(saved, cam, 1.0,
+                                                    grads)}
+        ms = {}
+        for name, fn in rows.items():
+            run = graphs.runner(fn, dev)
+            ms[name] = graphs.best_window(run, dev)[0] * 1e3
+            del run
+        # autograd's backward runs on its forward's stream, outside any
+        # capture: CUDA events around eager backwards
+        ms["autograd"] = time_ms(lambda: torch.autograd.grad(
+            outs, leaves, grads, retain_graph=True), 5)
+        every, least = prep_bwd_bytes(saved)
+        b_every, b_least = bound(every, 0)[0], bound(least, 0)[0]
+        res[size] = dict(ms, bound_ms=b_least, bound_every_row_ms=b_every,
+                         valid=valid, gap_twin=gaps, gap_autograd=auto_gaps)
+        say(f"phase 22: backward at {size} ({saved.means3d.shape[0]} rows, "
+            f"{valid} valid): "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+            + f"; bound {b_least:.4f} ms (the launch's own {least} B; "
+            f"{100 * b_least / ms['kernel']:.1f} % of it), the row "
+            f"estimate's {b_every:.4f} ms ({every} B, every row's "
+            f"{PREP_BWD_ROW_BYTES}; {100 * b_every / ms['kernel']:.1f} %); "
+            "largest gap per leaf "
+            "to the twin "
+            + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
+            + ", to autograd "
+            + ", ".join(f"{k} {v:.2e}" for k, v in auto_gaps.items())
+            + f"; two launches bit for bit, counter {c['sum']} rows; {smi}")
+        del saved, grads, leaves, outs, rows
+        torch.cuda.empty_cache()
+    fwd0, bwd0 = tp.PREPROCESS_FWD.launches, tp.PREPROCESS_BWD.launches
+    fb = bench.FwdBwd(320, 240, 1 << 14, 0.01, 0.05, 1 << 17, dev)
+    fb.step()
+    torch.cuda.synchronize()
+    step = {"preprocess_fwd": tp.PREPROCESS_FWD.launches - fwd0,
+            "preprocess_bwd": tp.PREPROCESS_BWD.launches - bwd0}
+    check(step == {"preprocess_fwd": 0, "preprocess_bwd": 1},
+          f"phase 22: one step of the bench launched {step}")
+    worst = max(max(r["gap_twin"].values()) for r in res.values())
+    print(f"phase 22: backward in {time.perf_counter() - t0:.3f} s; "
+          f"largest gap to the twin {worst:.3e}; one step of the bench "
+          f"launched {step}", flush=True)
+    return {"name": "preprocess_bwd", "route": "cuda",
+            "source": "reduced3dgs_torch/csrc/preprocess_bwd.cu",
+            "replaces": None, "grad_gap": worst, "timing_ms": res,
+            "launches_phase22_checks":
+                tp.PREPROCESS_BWD.launches - before}
 
 
 # phase 23: alignment pads past the slack pool

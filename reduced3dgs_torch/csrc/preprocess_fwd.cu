@@ -48,11 +48,12 @@
 
 #include <cstdint>
 
+#include "preprocess_math.cuh"
+
 namespace {
 
 constexpr int kBlock = 128;
 constexpr int kTile = 16;
-constexpr int kRowWords = 12;  // 16-byte words of a 16-coefficient row
 
 struct Args {
   const float* xyz;        // (P, 3)
@@ -83,48 +84,6 @@ struct Args {
   int* visible;    // ()
 };
 
-__device__ __forceinline__ float add(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ float sub(float a, float b) {
-  return __fsub_rn(a, b);
-}
-__device__ __forceinline__ float mul(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ float dvd(float a, float b) {
-  return __fdiv_rn(a, b);
-}
-__device__ __forceinline__ float root(float a) { return __fsqrt_rn(a); }
-
-// torch.maximum / torch.minimum / clamp: a NaN operand gives NaN
-__device__ __forceinline__ float maxn(float a, float b) {
-  return a != a ? a : (b != b ? b : fmaxf(a, b));
-}
-__device__ __forceinline__ float minn(float a, float b) {
-  return a != a ? a : (b != b ? b : fminf(a, b));
-}
-__device__ __forceinline__ float clampn(float v, float lo, float hi) {
-  return v != v ? v : fminf(fmaxf(v, lo), hi);
-}
-
-// torch's sums over a contiguous axis of 3 and of 4
-__device__ __forceinline__ float sum3(float a, float b, float c) {
-  return add(add(a, c), b);
-}
-__device__ __forceinline__ float sum4(float a, float b, float c, float d) {
-  return add(add(a, c), add(b, d));
-}
-
-// (p, 1) @ M[:, col]: the product chained as cuBLAS chains it, then the
-// translation row added
-__device__ __forceinline__ float affine(const float* m, int col, float x,
-                                        float y, float z) {
-  const float acc = fmaf(z, __ldg(m + 8 + col),
-                         fmaf(y, __ldg(m + 4 + col), mul(x, __ldg(m + col))));
-  return add(acc, __ldg(m + 12 + col));
-}
-
 // ops/preprocess.py:_tile_index: clamp into [-1, grid + 1], truncate
 // (a NaN converts to 0, as the torch path's cast does), clip to the grid
 __device__ __forceinline__ int tile_index(float v, int grid) {
@@ -146,36 +105,6 @@ __device__ __forceinline__ Rect get_rect(float mx, float my, float rx,
   r.x1 = tile_index(mul(sub(add(add(mx, rx), 16.0f), 1.0f), inv), gx);
   r.y1 = tile_index(mul(sub(add(add(my, ry), 16.0f), 1.0f), inv), gy);
   return r;
-}
-
-// 16-byte words of coefficients a row of degree `deg` needs (C = 16)
-__device__ __forceinline__ int words_needed(int deg) {
-  const int n = deg < 0 ? 0 : (deg >= 3 ? 16 : (deg + 1) * (deg + 1));
-  return (3 * n + 3) / 4;
-}
-
-// ops/sh.py:sh_basis at the unit direction (x, y, z)
-__device__ __forceinline__ void sh_basis(float x, float y, float z,
-                                         float* b) {
-  const float c0 = 0.28209479177387814f, c1 = 0.4886025119029199f;
-  const float xx = x * x, yy = y * y, zz = z * z;
-  const float xy = x * y, yz = y * z, xz = x * z;
-  b[0] = c0;
-  b[1] = -c1 * y;
-  b[2] = c1 * z;
-  b[3] = -c1 * x;
-  b[4] = 1.0925484305920792f * xy;
-  b[5] = -1.0925484305920792f * yz;
-  b[6] = 0.31539156525252005f * (2.0f * zz - xx - yy);
-  b[7] = -1.0925484305920792f * xz;
-  b[8] = 0.5462742152960396f * (xx - yy);
-  b[9] = -0.5900435899266435f * y * (3.0f * xx - yy);
-  b[10] = 2.890611442640554f * xy * z;
-  b[11] = -0.4570457994644658f * y * (4.0f * zz - xx - yy);
-  b[12] = 0.3731763325901154f * z * (2.0f * zz - 3.0f * xx - 3.0f * yy);
-  b[13] = -0.4570457994644658f * x * (4.0f * zz - xx - yy);
-  b[14] = 1.445305721320277f * z * (xx - yy);
-  b[15] = -0.5900435899266435f * x * (xx - 3.0f * yy);
 }
 
 // colour += the coefficients of the row's 16-byte word w (floats 4w ..
@@ -237,74 +166,13 @@ __global__ void __launch_bounds__(kBlock)
                                  static_cast<float>(a.height)), 1.0f), 0.5f);
 
     // build_cov3d: R(q / |q|) diag(s * modifier), the six products
-    const float4 q4 = make_float4(__ldg(a.rotations + 4 * i),
-                                  __ldg(a.rotations + 4 * i + 1),
-                                  __ldg(a.rotations + 4 * i + 2),
-                                  __ldg(a.rotations + 4 * i + 3));
-    const float qn = maxn(root(sum4(mul(q4.x, q4.x), mul(q4.y, q4.y),
-                                    mul(q4.z, q4.z), mul(q4.w, q4.w))),
-                          1e-12f);
-    const float r = dvd(q4.x, qn), x = dvd(q4.y, qn), y = dvd(q4.z, qn),
-                z = dvd(q4.w, qn);
-    float R[3][3];
-    R[0][0] = sub(1.0f, mul(2.0f, add(mul(y, y), mul(z, z))));
-    R[0][1] = mul(2.0f, sub(mul(x, y), mul(r, z)));
-    R[0][2] = mul(2.0f, add(mul(x, z), mul(r, y)));
-    R[1][0] = mul(2.0f, add(mul(x, y), mul(r, z)));
-    R[1][1] = sub(1.0f, mul(2.0f, add(mul(x, x), mul(z, z))));
-    R[1][2] = mul(2.0f, sub(mul(y, z), mul(r, x)));
-    R[2][0] = mul(2.0f, sub(mul(x, z), mul(r, y)));
-    R[2][1] = mul(2.0f, add(mul(y, z), mul(r, x)));
-    R[2][2] = sub(1.0f, mul(2.0f, add(mul(x, x), mul(y, y))));
-    float s[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c)
-      s[c] = mul(a.scale_modifier, expf(__ldg(a.scales + 3 * i + c)));
-    float M[3][3];
-#pragma unroll
-    for (int rr = 0; rr < 3; ++rr)
-#pragma unroll
-      for (int c = 0; c < 3; ++c) M[rr][c] = mul(R[rr][c], s[c]);
-    float S[3][3];
-#pragma unroll
-    for (int u = 0; u < 3; ++u)
-#pragma unroll
-      for (int v = u; v < 3; ++v) {
-        S[u][v] = sum3(mul(M[u][0], M[v][0]), mul(M[u][1], M[v][1]),
-                       mul(M[u][2], M[v][2]));
-        S[v][u] = S[u][v];
-      }
+    Cov3d c3;
+    build_cov3d(a.rotations + 4 * i, a.scales + 3 * i, a.scale_modifier, c3);
 
     // compute_cov2d: the clamped view point, the EWA Jacobian, + 0.3
-    const float tx = mul(minn(maxn(dvd(sx, sz), -limx), limx), sz);
-    const float ty = mul(minn(maxn(dvd(sy, sz), -limy), limy), sz);
-    const float inv_tz = dvd(1.0f, sz);
-    const float inv_tz2 = mul(inv_tz, inv_tz);
-    const float J00 = mul(focal_x, inv_tz);
-    const float J02 = mul(mul(-focal_x, tx), inv_tz2);
-    const float J11 = mul(focal_y, inv_tz);
-    const float J12 = mul(mul(-focal_y, ty), inv_tz2);
-    float U0[3], U1[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {  // Wp = viewmatrix[:3, :3].T
-      U0[c] = add(mul(J00, __ldg(V + 4 * c)), mul(J02, __ldg(V + 4 * c + 2)));
-      U1[c] = add(mul(J11, __ldg(V + 4 * c + 1)),
-                  mul(J12, __ldg(V + 4 * c + 2)));
-    }
-    float SU0[3], SU1[3];
-#pragma unroll
-    for (int rr = 0; rr < 3; ++rr) {
-      SU0[rr] = sum3(mul(S[rr][0], U0[0]), mul(S[rr][1], U0[1]),
-                     mul(S[rr][2], U0[2]));
-      SU1[rr] = sum3(mul(S[rr][0], U1[0]), mul(S[rr][1], U1[1]),
-                     mul(S[rr][2], U1[2]));
-    }
-    const float c0 = add(sum3(mul(U0[0], SU0[0]), mul(U0[1], SU0[1]),
-                              mul(U0[2], SU0[2])), 0.3f);
-    const float c1 = sum3(mul(U0[0], SU1[0]), mul(U0[1], SU1[1]),
-                          mul(U0[2], SU1[2]));
-    const float c2 = add(sum3(mul(U1[0], SU1[0]), mul(U1[1], SU1[1]),
-                              mul(U1[2], SU1[2])), 0.3f);
+    Cov2d c2d;
+    compute_cov2d(V, sx, sy, sz, focal_x, focal_y, limx, limy, c3.S, c2d);
+    const float c0 = c2d.c0, c1 = c2d.c1, c2 = c2d.c2;
 
     // the conic; det == 0 culled
     const float det = sub(mul(c0, c2), mul(c1, c1));

@@ -69,6 +69,34 @@ def sh_basis(dirs):
     )
 
 
+def sh_basis_vjp(dirs, g):
+    """(..., 3) unit directions, (..., 16) cotangent of sh_basis -> the
+    (..., 3) cotangent of the directions (sh_basis's polynomials
+    differentiated term by term)."""
+    x, y, z = dirs[..., 0], dirs[..., 1], dirs[..., 2]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, yz, xz = x * y, y * z, x * z
+    c2, c3 = SH_C2, SH_C3
+    g = [g[..., k] for k in range(16)]
+    dx = (-SH_C1 * g[3] + c2[0] * y * g[4] - 2.0 * c2[2] * x * g[6]
+          + c2[3] * z * g[7] + 2.0 * c2[4] * x * g[8]
+          + 6.0 * c3[0] * xy * g[9] + c3[1] * yz * g[10]
+          - 2.0 * c3[2] * xy * g[11] - 6.0 * c3[3] * xz * g[12]
+          + c3[4] * (4.0 * zz - 3.0 * xx - yy) * g[13]
+          + 2.0 * c3[5] * xz * g[14] + 3.0 * c3[6] * (xx - yy) * g[15])
+    dy = (-SH_C1 * g[1] + c2[0] * x * g[4] + c2[1] * z * g[5]
+          - 2.0 * c2[2] * y * g[6] - 2.0 * c2[4] * y * g[8]
+          + 3.0 * c3[0] * (xx - yy) * g[9] + c3[1] * xz * g[10]
+          + c3[2] * (4.0 * zz - xx - 3.0 * yy) * g[11]
+          - 6.0 * c3[3] * yz * g[12] - 2.0 * c3[4] * xy * g[13]
+          - 2.0 * c3[5] * yz * g[14] - 6.0 * c3[6] * xy * g[15])
+    dz = (SH_C1 * g[2] + c2[1] * y * g[5] + 4.0 * c2[2] * z * g[6]
+          + c2[3] * x * g[7] + c3[1] * xy * g[10] + 8.0 * c3[2] * yz * g[11]
+          + c3[3] * (6.0 * zz - 3.0 * xx - 3.0 * yy) * g[12]
+          + 8.0 * c3[4] * xz * g[13] + c3[5] * (xx - yy) * g[14])
+    return torch.stack([dx, dy, dz], dim=-1)
+
+
 def degree_mask(degrees, num_coeffs=16):
     """(P,) int degrees -> (P, num_coeffs) float mask of the coefficients
     whose band <= degree."""

@@ -76,6 +76,8 @@ STAGES = ("shade",) + TRAIN_STAGES + MERCY_STAGES + CULL_STAGES + (END,)
 # the pool where the layout fits in b_pad, and PAD_SPILL, those per mille
 # of the pool; the rows that csrc/preprocess_fwd.cu found visible,
 # stamped only where a render took that kernel (its count: those renders);
+# the rows csrc/preprocess_bwd.cu found valid, stamped only where a
+# backward took that kernel (its count: those backwards);
 # the rows that csrc/tile_counts.cu added to binning's difference array
 # (those that fit whole and the one the budget splits), stamped by every
 # binning on a card; the rows mercy removes, an event each; the rows an
@@ -83,7 +85,7 @@ STAGES = ("shade",) + TRAIN_STAGES + MERCY_STAGES + CULL_STAGES + (END,)
 # demoted to; the blocks csrc/knn.cu scanned, a search each
 COUNTERS = ("num_rendered", "total_padded", "preprocess_fused",
             "tile_counts_rows", "mercy_pruned", "sh_demoted",
-            "knn_scanned_blocks")
+            "knn_scanned_blocks", "preprocess_bwd")
 CULL_PASSES = ("variance", "distance")
 # keyed counters: each entry also tallied under "<name>.<key of its aux>"
 KEYED = {"sh_demoted": lambda aux: f"{CULL_PASSES[aux >> 2]}_d{aux & 3}"}
@@ -92,7 +94,8 @@ SPILLED = "pads_spilled"
 PAD_SPILL = "pad_spill_permille"
 _COUNTER_BASE = 64
 _ID = {n: i for i, n in enumerate(STAGES)}
-_ID.update({n: _COUNTER_BASE + i for i, n in enumerate(COUNTERS)})
+# a counter may share a stage's name (preprocess_bwd): ids of their own
+_COUNTER_ID = {n: _COUNTER_BASE + i for i, n in enumerate(COUNTERS)}
 _AUX = 16  # an entry's tag: its id, and above these bits what came with it
 RING = 1 << 20  # entries of a device ring (16 B each)
 
@@ -262,7 +265,7 @@ def count(name: str, value, aux: int = 0) -> None:
     aux: with num_rendered the render's aligned budget, with total_padded
     its slack pool (b_pad - budget), from which the fold works out
     PAD_NEED, SPILLED and PAD_SPILL; a keyed counter's key (KEYED)."""
-    tag = _ID[name] | aux << _AUX
+    tag = _COUNTER_ID[name] | aux << _AUX
     if value.device.type == "cuda":
         _launch(value.device, tag, value)
     elif on():

@@ -17,6 +17,7 @@ import chip_smoke as cs
 from reduced3dgs_torch import bench
 from reduced3dgs_torch import render as trender
 from reduced3dgs_torch.ops import binning as tbin
+from reduced3dgs_torch.ops import preprocess as tp
 from reduced3dgs_torch.ops import tile_render as ttr
 
 SMALL = dict(width=96, height=64, n=3000, scales=(0.02, 0.08))
@@ -112,7 +113,8 @@ def counted(fn):
     kernels = {"expand": tbin.EXPAND, "tile_fwd": ttr.TILE_FWD,
                "tile_bwd": ttr.TILE_BWD,
                "seg_reduce_packed": ttr.SEG_REDUCE_PACKED,
-               "seg_reduce_f32": ttr.SEG_REDUCE_F32}
+               "seg_reduce_f32": ttr.SEG_REDUCE_F32,
+               "preprocess_bwd": tp.PREPROCESS_BWD}
     before = {n: kern.launches for n, kern in kernels.items()}
     fn()
     return ({n: kern.launches - before[n] for n, kern in kernels.items()},

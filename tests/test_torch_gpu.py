@@ -45,7 +45,12 @@ CUDA graphs against their eager runs, bit for bit.  The kNN (csrc/knn.cu)
 bit for bit against its plain version (knn_sorted_plain: distances and
 rows, ties to the lower row) on chip_smoke.knn_cases, two launches bit
 for bit, and knn() taking it above EXACT_LIMIT on a card, for every k
-(another k than 3 or 30 is refused).
+(another k than 3 or 30 is refused).  The preprocess backward
+(csrc/preprocess_bwd.cu) against its plain twin at the training cells'
+sizes within 1e-4 of each leaf's largest gradient, two launches bit for
+bit; its counter once a replay of a captured graph, summing the valid
+rows; one train step replayed from a captured graph gives the eager
+step's loss, gradients and statistics bit for bit.
 """
 
 import numpy as np
@@ -346,6 +351,97 @@ def test_train_step_on_card_matches_cpu(cuda):
         scale = float(a.abs().max())
         np.testing.assert_allclose(b.cpu().numpy(), a.numpy(),
                                    atol=2e-4 * scale, rtol=2e-3)
+
+
+@pytest.mark.parametrize("size", ["m360", "tnt"])
+def test_preprocess_bwd_kernel_matches_plain(cuda, size):
+    """csrc/preprocess_bwd.cu against preprocess_vjp_plain at the training
+    cells' sizes (2^22 rows of degree 3, 2^20 of mixed degrees), every
+    leaf within chip_smoke.PREP_BWD_GAP of its largest magnitude; two
+    launches bit for bit."""
+    import chip_smoke as cs
+    from reduced3dgs_torch.ops import preprocess as tp
+
+    saved, cam, grads = cs.prep_bwd_inputs(cuda, size, 27182818)
+    before = tp.PREPROCESS_BWD.launches
+    runs = [tp.preprocess_vjp_fused(saved, cam, 1.0, grads)
+            for _ in range(2)]
+    assert tp.PREPROCESS_BWD.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    gaps = cs.compare_vjp(runs[0], tp.preprocess_vjp_plain(
+        saved, cam, 1.0, grads))
+    assert max(gaps.values()) <= cs.PREP_BWD_GAP, gaps
+
+
+def test_preprocess_bwd_counter_in_a_graph(cuda):
+    """The backward kernel captured in a CUDA graph: each traced replay
+    records the preprocess_bwd counter once, summing the valid rows
+    (radii > 0, read on the host), and gives the eager launch's bits."""
+    import chip_smoke as cs
+    from reduced3dgs_torch import graphs
+    from reduced3dgs_torch.ops import preprocess as tp
+    from reduced3dgs_torch.utils import profiling
+
+    saved, cam, grads = cs.prep_bwd_inputs(cuda, "tnt", 31415926)
+    eager = tp.preprocess_vjp_fused(saved, cam, 1.0, grads)
+    profiling.ring(cuda)
+    run = graphs.runner(lambda: tp.preprocess_vjp_fused(
+        saved, cam, 1.0, grads), cuda)
+    profiling.reset()
+    with profiling.enable():
+        run.replay()
+        run.replay()
+        snap = profiling.snapshot()
+    profiling.reset()
+    valid = int((saved.radii > 0).sum())
+    assert snap["counters"]["preprocess_bwd"] == {
+        "sum": 2 * valid, "max": valid, "count": 2}
+    assert all(torch.equal(a, b) for a, b in zip(run.out, eager))
+
+
+def test_train_step_graph_matches_eager_bit_for_bit(cuda):
+    """One train_step (skip_update: its gradients) eagerly and replayed
+    from a captured CUDA graph: the loss, the five leaves' gradients and
+    the densification statistics (the screen offset's gradient) bit for
+    bit; the eager step launches the preprocess backward kernel once and
+    the no-grad forward kernel never."""
+    import chip_smoke as cs
+    from reduced3dgs_torch import graphs
+    from reduced3dgs_torch.cameras import Camera
+    from reduced3dgs_torch.config import OptimizationParams
+    from reduced3dgs_torch.models.gaussians import (
+        padded_leaves, pool_from_numpy,
+    )
+    from reduced3dgs_torch.ops import preprocess as tp
+    from reduced3dgs_torch.train import adam
+    from reduced3dgs_torch.train.trainer import TrainState, train_step
+
+    pool = pool_from_numpy(padded_leaves(cs.make_arrays(
+        3000, (0.02, 0.08), 3)), cuda)
+    st = TrainState(pool, adam.init(pool.params), torch.Generator(cuda))
+    cam = Camera.look_at(eye=(0.4, 0.1, -3.4), target=(0, 0, 0), width=120,
+                         height=72).params(cuda)
+    gt = torch.as_tensor(np.random.default_rng(0).uniform(
+        0, 1, (72, 120, 3)).astype(np.float32), device=cuda)
+
+    def step():
+        return train_step(
+            st, cam, gt, torch.zeros(3, device=cuda), 1, width=120,
+            height=72, budget=1 << 15, backend="tile",
+            opt_cfg=OptimizationParams(), spatial_lr_scale=1.0,
+            skip_update=True, grad_reduce="bf16x2")
+
+    fwd, bwd = tp.PREPROCESS_FWD.launches, tp.PREPROCESS_BWD.launches
+    s_eager, m_eager, g_eager = step()
+    assert tp.PREPROCESS_BWD.launches == bwd + 1
+    assert tp.PREPROCESS_FWD.launches == fwd
+    run = graphs.runner(step, cuda)
+    run.replay()
+    s_graph, m_graph, g_graph = run.out
+    assert torch.equal(m_graph["loss"], m_eager["loss"])
+    assert all(torch.equal(a, b) for a, b in zip(g_eager, g_graph))
+    for k in ("xyz_grad_accum", "denom", "max_radii2d"):
+        assert torch.equal(getattr(s_eager.pool, k), getattr(s_graph.pool, k))
 
 
 def test_render_on_card_matches_cpu(cuda):

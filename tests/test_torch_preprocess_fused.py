@@ -1,8 +1,10 @@
 """The fused preprocess kernel (csrc/preprocess_fwd.cu) and its dispatch.
 
-On the CPU: `preprocess` keeps the torch ops for CPU tensors, for an
-input that requires a gradient while grad mode is on, and for a screen
-offset, and then records no `preprocess_fused` counter; the wrapper
+On the CPU: `preprocess`'s three-way rule (the forward kernel with no
+gradient asked, PreprocessFunction for a gradient of the raw parameters
+or the screen offset, the torch ops for CPU tensors, a screen offset
+without a gradient, precomputed colours or a camera that asks for a
+gradient), none of which records a `preprocess_fused` counter here; the wrapper
 refuses tensors off a card; chip_smoke.py's phase 22 helpers rehearsed
 (the pre-rounding floats it excuses rows by reproduce the torch path's
 integer outputs; its parity pool reaches every kind of row).
@@ -42,39 +44,61 @@ def _small(seed=3, n=2048):
     return pool, cs.prep_cameras("m360", torch.device("cpu"))[0]
 
 
-@pytest.mark.parametrize("case", ["cpu", "grad_input", "screen_offset",
-                                  "card_no_grad", "card_grad_input_no_grad"])
+ROUTES = {"cpu": "torch", "grad_input": "function", "screen_offset": "torch",
+          "card_no_grad": "fused", "card_grad_input_no_grad": "fused",
+          "cpu_grad_input": "torch", "grad_screen_offset": "function",
+          "grad_precomp": "torch", "grad_camera": "torch"}
+
+
+@pytest.mark.parametrize("case", list(ROUTES))
 def test_dispatch_rule(case, monkeypatch):
     """Which path `preprocess` takes.  The card is simulated: `_on_card`
-    answers True for the CPU tensors, and the kernel's wrapper is a spy
-    that runs the torch path.  Only a call with every input on a card, no
-    screen offset and no gradient asked for reaches the wrapper; the
-    others leave the preprocess_fused counter unrecorded."""
+    answers True for the CPU tensors, the kernel's wrapper is a spy that
+    runs the torch path, and the Function's entry is a spy that runs it
+    on the CPU tensors.  With no gradient asked (grad mode off, or no
+    input requiring one), every input on a card and no screen offset:
+    the forward kernel; with a gradient asked of the raw parameters or
+    the screen offset alone, on a card, colours from SH: the Function;
+    every other call, the CPU always: autograd through preprocess_torch.
+    No path records the preprocess_fused counter here."""
     pool, cam = _small()
     args = list(cs.prep_args(pool))
     kw = {"alive_mask": pool["alive"]}
     calls = []
 
-    def spy(*a, **k):
-        calls.append(k)
-        return tprep.preprocess_torch(*a, **k)
+    def spy(name, fn):
+        def run(*a, **k):
+            calls.append(name)
+            return fn(*a, **k)
+        return run
 
-    monkeypatch.setattr(tprep, "preprocess_fused", spy)
-    if case != "cpu":
+    monkeypatch.setattr(tprep, "preprocess_fused",
+                        spy("fused", tprep.preprocess_torch))
+    monkeypatch.setattr(tprep, "preprocess_function",
+                        spy("function", tprep.preprocess_function))
+    if not case.startswith("cpu"):
         monkeypatch.setattr(tprep, "_on_card", lambda t: True)
-    if "grad_input" in case:
+    if "grad_input" in case or case in ("grad_precomp", "grad_camera"):
         args[0] = args[0].clone().requires_grad_()
-    if case == "screen_offset":
-        kw["screen_offset"] = torch.zeros((args[0].shape[0], 2))
+    if "screen_offset" in case:
+        kw["screen_offset"] = torch.zeros((args[0].shape[0], 2),
+                                          requires_grad=case.startswith(
+                                              "grad"))
+    if case == "grad_precomp":
+        kw["color_precomp"] = torch.rand((args[0].shape[0], 3))
+    if case == "grad_camera":
+        cam = cam._replace(campos=cam.campos.clone().requires_grad_())
     profiling.reset()
     with profiling.enable():
         with torch.set_grad_enabled(not case.endswith("no_grad")):
             out = tprep.preprocess(*args, cam, **kw)
         snap = profiling.snapshot()
-    takes = case in ("card_no_grad", "card_grad_input_no_grad")
-    assert len(calls) == int(takes)
+    want = ROUTES[case]
+    assert calls == ([] if want == "torch" else [want])
     assert "preprocess_fused" not in snap["counters"]
-    assert out.means2d.requires_grad == (case == "grad_input")
+    assert out.means2d.requires_grad == (case in (
+        "grad_input", "cpu_grad_input", "grad_screen_offset",
+        "grad_precomp", "grad_camera"))
     assert torch.equal(out.radii, tprep.preprocess_torch(
         *[a.detach() for a in args], cam, **kw).radii)
 
@@ -153,7 +177,9 @@ def test_graph_counter_and_frames(cuda):
 @pytest.mark.gpu
 def test_dispatch_on_the_card(cuda):
     """No-grad and inference renders launch the kernel once; a training
-    render (an input requiring grad) and a screen offset launch none."""
+    render (an input requiring grad) and a screen offset launch none, and
+    the training render's backward launches csrc/preprocess_bwd.cu
+    once."""
     pool = cs.prep_pool(4096, 11, cuda)
     cam = cs.prep_cameras("tnt", cuda)[0]
     args = cs.prep_args(pool)
@@ -163,10 +189,13 @@ def test_dispatch_on_the_card(cuda):
         with ctx():
             tprep.preprocess(*args, cam, alive_mask=pool["alive"])
         assert k.launches == before + want
-    before = k.launches
+    before, bwd = k.launches, tprep.PREPROCESS_BWD.launches
     grad_args = (args[0].clone().requires_grad_(),) + args[1:]
     out = tprep.preprocess(*grad_args, cam, alive_mask=pool["alive"])
     assert out.means2d.requires_grad and k.launches == before
+    out.conic.sum().backward()
+    assert tprep.PREPROCESS_BWD.launches == bwd + 1
+    assert grad_args[0].grad.abs().max() > 0
     with torch.no_grad():
         tprep.preprocess(*args, cam, screen_offset=torch.zeros(
             (4096, 2), device=cuda))
